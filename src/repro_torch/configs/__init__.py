@@ -1,0 +1,51 @@
+"""Config registry of the port: ``get_config(arch_id)`` / ``reduced_config``.
+
+This slice carries the dense decoder it serves (olmo-1b); later slices add
+the other families' configs beside it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.olmo_1b import CONFIG as _olmo
+
+_REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg for cfg in (_olmo,)}
+
+ARCH_IDS: List[str] = list(_REGISTRY)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
+    return _REGISTRY[arch]
+
+
+def reduced_config(arch: str) -> ModelConfig:
+    """A smoke-test-sized config of the same family (CPU-runnable): the same
+    cut as the reference's ``reduced_config``, field for field."""
+    cfg = get_config(arch)
+    heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
+    kvh = min(cfg.num_kv_heads, heads) if heads else 0
+    if heads and kvh and heads % kvh:
+        kvh = 1
+    changes = dict(
+        name=cfg.name + "-reduced",
+        num_layers=2,
+        d_model=64,
+        num_heads=heads,
+        num_kv_heads=kvh,
+        head_dim=16 if heads else 0,
+        d_ff=0 if cfg.d_ff == 0 else 128,
+        vocab_size=256,
+        num_experts=min(cfg.num_experts, 4),
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
+        ssm_state_size=min(cfg.ssm_state_size, 16),
+        ssm_head_dim=16 if cfg.ssm_state_size else cfg.ssm_head_dim,
+        sliding_window=64 if cfg.sliding_window else None,
+        encoder_layers=2 if cfg.is_encoder_decoder else 0,
+        encoder_seq=24 if cfg.is_encoder_decoder else 0,
+        num_patches=8 if cfg.num_patches else 0,
+    )
+    return dataclasses.replace(cfg, **changes)

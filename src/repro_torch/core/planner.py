@@ -1,0 +1,99 @@
+"""Block-size planner for Hopper — the paper's constraint system (tile sizes
+from the memory hierarchy and the matrix unit's shape) solved for an H100.
+
+On the card the fast memory is a block's shared memory (227 KB of the SM's
+256 KB) and the register file, the matrix unit takes 16-row tiles (mma.sync
+m16n8k16; wgmma 64 rows per warpgroup) and a 32-byte deep k-step, and the
+parallelism is 132 SMs that each want one or more blocks. The constraints:
+
+  (C1) one block's staged slices fit shared memory:
+       KC * (BM + 1 + BN + 1) * acc_itemsize <= 227 KB (the fused-A
+       kernel stages KC-deep slices of A and B widened to its accumulator);
+  (C2) tiles align to the matrix unit: bm, bn multiples of 16, bk a
+       multiple of max(16, 32 bytes of B's element type);
+  (C3) enough blocks: the packed format's bn is fixed at pack time and the
+       kernel may split a tile into narrower column chunks, so bn is the
+       WIDEST chunk the kernel takes (64). A decode step (M of a few rows)
+       on an N = 2048 projection then has 32 tiles that the kernel splits
+       into 128 column blocks, against 132 SMs — where a TPU-sized bn of 512
+       would have left 4 tiles.
+
+bk is as deep as the problem allows up to 128: fewer per-tile scale
+multiplies for quantized formats and longer contiguous B runs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.core import dtypes as mdt
+from repro_torch.core.tile_format import ScaleSpec, TileFormat, is_dequant_pair
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperTarget:
+    sms: int = 132
+    smem_per_block: int = 232_448        # bytes, with the opt-in attribute
+    max_bm: int = 64                     # widest m-block of the fused-A kernel
+    max_bn: int = 64                     # widest column chunk of the kernel
+    max_bk: int = 128
+    kc: int = 32                         # staged k-slice depth
+
+
+H100 = HopperTarget()
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    bm: int
+    bk: int
+    bn: int
+    dtype: str
+    acc_dtype: str
+    layout_b: str = "row"
+    b_dtype: Optional[str] = None   # B element dtype when it differs (int8/int4)
+    b_scale: str = "tile"           # quantized scale granularity: tile | col
+
+    @property
+    def b_format(self) -> TileFormat:
+        """The packed-B tile format this plan implies."""
+        bdt = self.b_dtype or self.dtype
+        scale = (ScaleSpec(granularity=self.b_scale)
+                 if is_dequant_pair(self.dtype, bdt) else None)
+        return TileFormat(bk=self.bk, bn=self.bn, layout=self.layout_b,
+                          dtype=bdt, scale=scale)
+
+    def smem_working_set(self, target: HopperTarget = H100) -> int:
+        acc_item = int(mdt.info(self.acc_dtype).itemsize)
+        return target.kc * (self.bm + 1 + target.max_bn + 1) * acc_item
+
+    def validate(self, target: HopperTarget = H100) -> None:
+        rows, kmult = mdt.alignment(self.b_dtype or self.dtype)
+        if self.smem_working_set(target) > target.smem_per_block:
+            raise ValueError(f"plan {self} exceeds shared memory")
+        for name, val, mult in (("bm", self.bm, rows), ("bn", self.bn, rows),
+                                ("bk", self.bk, kmult)):
+            if val % mult:
+                raise ValueError(f"{name}={val} not aligned to {mult}")
+
+
+def _align_up(x: int, mult: int) -> int:
+    return max(-(-x // mult) * mult, mult)
+
+
+def plan_gemm(m: int, k: int, n: int, dtype="float32", *,
+              b_dtype: Optional[str] = None,
+              target: HopperTarget = H100,
+              layout_b: str = "row",
+              scale_granularity: str = "tile") -> GemmPlan:
+    """Solve the Hopper constraint system for one [M, K] x [K, N] problem."""
+    d = mdt.info(mdt.dtype_name(dtype))
+    rows, kmult = mdt.alignment(b_dtype or d.name)
+    bm = min(target.max_bm, _align_up(m, rows))
+    bn = min(target.max_bn, _align_up(n, rows))
+    bk = min(target.max_bk // kmult * kmult or kmult, _align_up(k, kmult))
+    plan = GemmPlan(bm=bm, bk=bk, bn=bn, dtype=d.name, acc_dtype=d.acc_dtype,
+                    layout_b=layout_b, b_dtype=b_dtype,
+                    b_scale=scale_granularity)
+    plan.validate(target)
+    return plan

@@ -1,0 +1,227 @@
+"""``gemm_packed_fused_a`` — natural-layout A against a load-time-packed B,
+with the dequant / alpha-beta / bias / activation epilogue fused into the
+store. The CUDA kernel is ``csrc/gemm_packed_fused_a.cu``; its plain torch
+version :func:`gemm_packed_fused_a_plain` sits beside it.
+
+The wrapper takes the plain version only for tensors on the CPU. For a CUDA
+tensor it launches the kernel or raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core.dtypes import dtype_name
+from repro_torch.core.tile_format import TileFormat
+from repro_torch.kernels import build
+from repro_torch.kernels.common import (EPILOGUE_CODES, KERNEL_EPILOGUES,
+                                        acc_dtype_for, cdiv,
+                                        kernel_epilogue_name)
+from repro_torch.kernels.ref import fused_packed_acc_ref
+
+# dtype codes of the CUDA source (enum DType).
+_DT = {"float32": 0, "bfloat16": 1, "float16": 2, "int8": 3, "int4": 4,
+       "int32": 5}
+_A_DTYPES = ("float32", "bfloat16", "float16", "int8")
+_B_DTYPES = ("float32", "bfloat16", "float16", "int8", "int4")
+_OUT_DTYPES = ("float32", "bfloat16", "float16", "int32")
+_BM_CHOICES = (16, 32, 48, 64)
+_BN_CHOICES = (64, 48, 32, 16)
+H100_SMS = 132
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,   # a, dt, lda, M
+    ctypes.c_int,                                                     # K
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,        # b, dt, col, Nb
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,                         # Kb, bk, bn
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # scales, mode, bias, c
+    ctypes.c_longlong, ctypes.c_float, ctypes.c_float,                # ldc, alpha, beta
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,        # out, dt, N, act
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # BM, BN, KC, int_acc
+    ctypes.c_int, ctypes.c_void_p,                                    # variant, stream
+]
+
+# Kernel variants of the CUDA source (enum Variant).
+FMA, MMA_DECODE, MMA_PREFILL = 0, 1, 2
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    lib = build.load("gemm_packed_fused_a")
+    fn = lib.gemm_packed_fused_a_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _resolve(a, b_packed, layout_b, b_scales, b_format, c, out_dtype):
+    fmt = b_format if b_format is not None else TileFormat.from_packed(
+        b_packed, layout_b, has_scales=b_scales is not None)
+    out_dtype = out_dtype or (c.dtype if c is not None else a.dtype)
+    return fmt, out_dtype
+
+
+def gemm_packed_fused_a_plain(a: torch.Tensor, b_packed: torch.Tensor,
+                              n: int, c: Optional[torch.Tensor] = None, *,
+                              bm: int = 64, alpha: float = 1.0,
+                              beta: float = 0.0, layout_b: str = "row",
+                              b_scales: Optional[torch.Tensor] = None,
+                              out_dtype=None, epilogue: str = "none",
+                              bias: Optional[torch.Tensor] = None,
+                              b_format: Optional[TileFormat] = None
+                              ) -> torch.Tensor:
+    """The plain torch version: ``fused_packed_acc_ref`` (f32 accumulator,
+    quantized tiles dequantized first) plus the store epilogue."""
+    fmt, out_dtype = _resolve(a, b_packed, layout_b, b_scales, b_format, c,
+                              out_dtype)
+    acc = fused_packed_acc_ref(a, b_packed, n, layout_b=fmt.layout, bm=bm,
+                               b_scales=b_scales, fmt=fmt)
+    out = alpha * acc
+    if c is not None and beta != 0:
+        out = out + beta * c.to(acc.dtype)
+    if bias is not None:
+        out = out + bias.to(acc.dtype)
+    out = KERNEL_EPILOGUES[kernel_epilogue_name(epilogue)](out)
+    return out.to(out_dtype)
+
+
+def _pick_bn(bn: int, blocks_per_col: int) -> int:
+    """The kernel's column chunk: the widest that still gives the card more
+    blocks than SMs (decode-shaped M), else the narrowest that divides bn."""
+    fits = [w for w in _BN_CHOICES if bn % w == 0]
+    for w in fits:
+        if blocks_per_col * (bn // w) >= H100_SMS:
+            return w
+    return fits[-1]
+
+
+def pick_variant(a_dtype: torch.dtype, fmt: TileFormat, m: int) -> int:
+    """Tensor cores (mma.sync) for bf16/f16 activations with B of the same
+    type or int8/int4 (exact in the activation type): the decode variant for
+    up to 16 rows, the prefill variant above. Everything else (f32 or int8
+    activations, f32 B) takes the scalar-FMA kernel."""
+    a_dt = dtype_name(a_dtype)
+    if a_dt in ("bfloat16", "float16") and fmt.dtype in (a_dt, "int8", "int4"):
+        if m <= 16 and fmt.bk % 64 == 0:
+            return MMA_DECODE
+        if m > 16 and fmt.bk % 32 == 0 and fmt.bn % 64 == 0:
+            return MMA_PREFILL
+    return FMA
+
+
+def launch_args(a, b_packed, n, c, *, bm, alpha, beta, b_scales, out,
+                epilogue, bias, fmt, stream) -> tuple:
+    """Check the operands against what the kernel takes and build the C
+    entry point's argument tuple (raises ``ValueError`` on anything else)."""
+    m, k = a.shape
+    nb, kb = b_packed.shape[:2]
+    a_dt, b_dt = dtype_name(a.dtype), fmt.dtype
+    int_acc = acc_dtype_for(a.dtype) == torch.int32
+    if a_dt not in _A_DTYPES:
+        raise ValueError(f"kernel takes A in {_A_DTYPES}; got {a_dt}")
+    if b_dt not in _B_DTYPES or dtype_name(b_packed.dtype) != fmt.storage_dtype:
+        raise ValueError(f"packed B of dtype {b_packed.dtype} does not match "
+                         f"format {fmt}")
+    if a.stride(1) != 1:
+        raise ValueError("A must have unit column stride")
+    if not b_packed.is_contiguous() or b_packed.dim() != 4:
+        raise ValueError("packed B must be a contiguous [Nb, Kb, t0, t1] stack")
+    if tuple(b_packed.shape[2:]) != fmt.storage_tile_shape:
+        raise ValueError(f"packed B tiles {tuple(b_packed.shape[2:])} do not "
+                         f"match format {fmt}")
+    if cdiv(k, fmt.bk) != kb or not (0 < n <= nb * fmt.bn):
+        raise ValueError(f"A {tuple(a.shape)} / n={n} do not fit packed B "
+                         f"{tuple(b_packed.shape)}")
+    if fmt.bk % 16 or fmt.bn % 16:
+        raise ValueError(f"kernel takes tiles in multiples of 16; got {fmt}")
+    if bm not in _BM_CHOICES:
+        raise ValueError(f"kernel m-block must be one of {_BM_CHOICES}; got {bm}")
+    if int_acc and (b_scales is not None or fmt.dtype not in ("int8", "int4")):
+        raise ValueError("int8 A takes unscaled int8/int4 B only")
+    if dtype_name(out.dtype) not in _OUT_DTYPES:
+        raise ValueError(f"kernel stores {_OUT_DTYPES}; got {out.dtype}")
+    scale_mode = 0
+    if b_scales is not None:
+        scale_mode = 2 if fmt.col_scaled else 1
+        want = (nb,) if fmt.col_scaled else (nb, kb)
+        if (tuple(b_scales.shape) != want or b_scales.dtype != torch.float32
+                or not b_scales.is_contiguous()):
+            raise ValueError(f"scales must be contiguous f32 {want}; got "
+                             f"{tuple(b_scales.shape)} {b_scales.dtype}")
+    for t in (b_packed, b_scales, bias, c):
+        if t is not None and t.device != a.device:
+            raise ValueError(f"operands on {t.device} and {a.device}")
+    if bias is not None:
+        if tuple(bias.shape) != (n,):
+            raise ValueError(f"bias must be [{n}]; got {tuple(bias.shape)}")
+        bias = (bias.to(torch.int32) if int_acc else bias).to(torch.float32)
+        bias = bias.contiguous()
+    if c is not None:
+        if tuple(c.shape) != (m, n):
+            raise ValueError(f"c must be [{m}, {n}]; got {tuple(c.shape)}")
+        c = (c.to(torch.int32) if int_acc else c).to(torch.float32).contiguous()
+    bn_chunk = _pick_bn(fmt.bn, cdiv(m, bm))
+    kc = 32 if fmt.bk % 32 == 0 else 16
+    variant = pick_variant(a.dtype, fmt, m)
+    keep = (bias, c)  # converted copies must outlive the launch call
+    args = (a.data_ptr(), _DT[a_dt], a.stride(0), m, k,
+            b_packed.data_ptr(), _DT[b_dt], int(fmt.layout == "col"), nb, kb,
+            fmt.bk, fmt.bn,
+            None if b_scales is None else b_scales.data_ptr(), scale_mode,
+            None if bias is None else bias.data_ptr(),
+            None if c is None else c.data_ptr(), n,
+            float(alpha), float(beta if c is not None else 0.0),
+            out.data_ptr(), _DT[dtype_name(out.dtype)], n,
+            EPILOGUE_CODES[kernel_epilogue_name(epilogue)],
+            bm, bn_chunk, kc, int(int_acc), variant, stream)
+    return args, keep
+
+
+def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
+                        c: Optional[torch.Tensor] = None, *, bm: int = 64,
+                        alpha: float = 1.0, beta: float = 0.0,
+                        layout_b: str = "row",
+                        b_scales: Optional[torch.Tensor] = None,
+                        out_dtype=None, epilogue: str = "none",
+                        bias: Optional[torch.Tensor] = None,
+                        b_format: Optional[TileFormat] = None) -> torch.Tensor:
+    """``C[:m,:n] <- epilogue(alpha * A @ deq(B) + beta * C + bias)``.
+
+    ``a`` [M, K] in its natural layout; ``b_packed`` from ``pack_b_ref``
+    (tile-major, usually packed once at load); ``b_scales`` [Nb, Kb] per
+    tile or [Nb] per column for a quantized format; ``b_format`` the
+    authoritative :class:`TileFormat` (required for int4 and col scales).
+    On the CPU this is :func:`gemm_packed_fused_a_plain`; on the card it
+    launches the CUDA kernel (``bm`` is its m-block: 16, 32, 48 or 64).
+    """
+    if a.device.type == "cpu":
+        return gemm_packed_fused_a_plain(
+            a, b_packed, n, c, bm=bm, alpha=alpha, beta=beta,
+            layout_b=layout_b, b_scales=b_scales, out_dtype=out_dtype,
+            epilogue=epilogue, bias=bias, b_format=b_format)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_packed_fused_a runs on cuda or cpu; got "
+                         f"{a.device}")
+    fmt, out_dtype = _resolve(a, b_packed, layout_b, b_scales, b_format, c,
+                              out_dtype)
+    out = torch.empty((a.shape[0], n), dtype=out_dtype, device=a.device)
+    if a.shape[0] == 0:
+        return out
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        args, keep = launch_args(a, b_packed, n, c, bm=bm, alpha=alpha,
+                                 beta=beta, b_scales=b_scales, out=out,
+                                 epilogue=epilogue, bias=bias, fmt=fmt,
+                                 stream=stream)
+        rc = _kernel()(*args)
+        del keep
+    if rc != 0:
+        raise RuntimeError(f"gemm_packed_fused_a launch failed: CUDA error {rc}")
+    gemm_packed_fused_a.launches += 1
+    return out
+
+
+gemm_packed_fused_a.launches = 0

@@ -1,0 +1,118 @@
+"""Attention blocks (GQA / MHA, RoPE, qk-norm) and the decode KV cache.
+
+Projections go through ``repro_torch.core.gemm.linear``; the score and value
+contractions use the plain-torch ``layers.chunked_attention``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import gemm
+from repro_torch.core.contraction import as_compute_weight
+from repro_torch.models.layers import apply_rope, chunked_attention
+
+
+def _window(cfg: ModelConfig) -> Optional[int]:
+    return cfg.sliding_window if cfg.attention_type == "sliding_window" else None
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype)
+
+
+def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: Optional[torch.Tensor], rope: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B,S,d] -> q [B,S,H,D], k/v [B,S,Hkv,D] (RoPE + qk-norm applied)."""
+    b, s, _ = x.shape
+    q = gemm.linear(x, as_compute_weight(p["wq"], x.dtype), p.get("bq"))
+    k = gemm.linear(x, as_compute_weight(p["wk"], x.dtype), p.get("bk"))
+    v = gemm.linear(x, as_compute_weight(p["wv"], x.dtype), p.get("bv"))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = _rms(q, p["q_norm"])
+        k = _rms(k, p["k_norm"])
+    if rope and cfg.pos_embedding == "rope" and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   prefix_len: int = 0, return_kv: bool = False):
+    """Full-sequence self attention (prefill)."""
+    q, k, v = project_qkv(cfg, p, x, positions)
+    out = chunked_attention(q, k, v, causal=causal, window=_window(cfg),
+                            prefix_len=prefix_len)
+    out = out.reshape(*x.shape[:-1], cfg.q_dim)
+    out = gemm.linear(out, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+    return (out, (k, v)) if return_kv else out
+
+
+def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                       max_len: int, dtype) -> dict:
+    """The decode ring-buffer cache from prefill K/V [B,S,Hkv,D]: slot s
+    holds the latest position congruent to s (mod slots)."""
+    b, s, hkv, d = k.shape
+    window = _window(cfg)
+    slots = min(max_len, window) if window else max_len
+    if slots >= s:
+        shape = (b, slots, hkv, d)
+        kc = torch.zeros(shape, dtype=dtype, device=k.device)
+        vc = torch.zeros(shape, dtype=dtype, device=k.device)
+        kc[:, :s] = k
+        vc[:, :s] = v
+        return {"k": kc, "v": vc}
+    slot_ids = torch.arange(slots, device=k.device)
+    src = (s - 1) - ((s - 1 - slot_ids) % slots)
+    return {"k": k[:, src].to(dtype), "v": v[:, src].to(dtype)}
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                  device=None) -> dict:
+    """Cache for one layer; sliding-window archs keep ``window`` slots."""
+    window = _window(cfg)
+    slots = min(max_len, window) if window else max_len
+    shape = (batch, slots, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     cache: dict, pos: torch.Tensor
+                     ) -> Tuple[torch.Tensor, dict]:
+    """One-token self attention. x: [B,1,d]; pos: [B] absolute position.
+
+    The cache is a ring buffer: slot s holds absolute position
+    ``pos - ((pos - s) mod slots)``. Unlike the reference, which builds a
+    new cache array each step, the new K/V row is written IN PLACE into the
+    cache tensors passed in (the returned dict holds the same tensors)."""
+    b = x.shape[0]
+    window = _window(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, pos[:, None])
+    slots = cache["k"].shape[1]
+    slot = pos % slots
+    rows = torch.arange(b, device=x.device)
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+
+    slot_ids = torch.arange(slots, device=x.device)[None, :]
+    posb = pos[:, None]
+    k_positions = posb - ((posb - slot_ids) % slots)
+    kv_valid = k_positions >= 0
+    if window is not None:
+        kv_valid &= (posb - k_positions) < window
+    out = chunked_attention(q, cache["k"], cache["v"], causal=True,
+                            q_positions=pos[:, None], k_positions=k_positions,
+                            kv_valid=kv_valid, chunk=1)
+    out = out.reshape(b, 1, cfg.q_dim)
+    out = gemm.linear(out, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+    return out, cache

@@ -1,0 +1,56 @@
+"""Uniform model API: ``build(cfg, device=None)`` returns a :class:`Model`.
+
+  init(seed) -> params           (random f32 weights, made on the device)
+  prefill(params, batch, max_len, cache_dtype) -> (last logits, caches)
+  decode(params, caches, token, pos) -> (logits, caches)
+
+Batches are ``{"tokens": [B, S] int}``. The device defaults to ``"cuda"``;
+without a card :func:`build` raises rather than running on the CPU — pass
+``device="cpu"`` to ask for it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; the default is the card, and asking
+    for the card where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable
+    prefill: Callable
+    decode: Callable
+
+
+def build(cfg: ModelConfig, device=None) -> Model:
+    dev = resolve_device(device)
+    transformer._check_dense(cfg)
+
+    def init(seed: int = 0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return transformer.init_params(cfg, gen, dev)
+
+    return Model(
+        cfg=cfg, device=dev, init=init,
+        prefill=lambda params, batch, max_len=None, cache_dtype=None:
+            transformer.prefill(cfg, params, batch["tokens"], max_len=max_len,
+                                cache_dtype=cache_dtype),
+        decode=lambda params, caches, token, pos: transformer.decode(
+            cfg, params, caches, token, pos),
+    )

@@ -1,0 +1,113 @@
+"""Decoder-only transformer, dense family: parameters, prefill and decode.
+
+Layers are a Python list of per-layer parameter dicts and the forward pass
+is a Python loop over them (the reference scans stacked [L, ...] leaves).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.dtypes import torch_dtype
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+                                       lm_logits)
+
+INIT_STD = 0.02
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or not cfg.has_attention or cfg.parallel_block:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense decoder family is ported so far")
+
+
+def _norm_params(cfg: ModelConfig, device) -> dict:
+    if cfg.norm_type == "nonparametric_ln":
+        return {}
+    p = {"scale": torch.ones(cfg.d_model, device=device)}
+    if cfg.norm_type == "layernorm" and cfg.use_bias:
+        p["bias"] = torch.zeros(cfg.d_model, device=device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> dict:
+    """Random f32 parameters, N(0, 0.02) for every matrix, drawn from
+    ``generator`` on ``device`` (the generator must live there)."""
+    _check_dense(cfg)
+
+    def dense(k, n):
+        return torch.randn((k, n), generator=generator, device=device) * INIT_STD
+
+    d, f = cfg.d_model, cfg.d_ff
+    params = {"embed": {"table": torch.randn(
+        (cfg.vocab_size, d), generator=generator, device=device) * INIT_STD}}
+    if not cfg.tie_embeddings:
+        params["head"] = {"table": torch.randn(
+            (cfg.vocab_size, d), generator=generator, device=device) * INIT_STD}
+    layers = []
+    for _ in range(cfg.num_layers):
+        a = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
+             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            mlp = {"wg": dense(d, f), "wu": dense(d, f), "wo": dense(f, d)}
+        else:
+            mlp = {"wi": dense(d, f), "wo": dense(f, d)}
+        layers.append({"norm1": _norm_params(cfg, device), "attn": a,
+                       "norm2": _norm_params(cfg, device), "mlp": mlp})
+    params["layers"] = layers
+    params["final_norm"] = _norm_params(cfg, device)
+    return params
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None, cache_dtype=None
+            ) -> Tuple[torch.Tensor, List[dict]]:
+    """Prompt processing: (last-position logits [B, V], per-layer caches)."""
+    compute = torch_dtype(cfg.compute_dtype)
+    cache_dtype = cache_dtype or compute
+    x = embed_tokens(cfg, params, tokens, compute)
+    b, s = tokens.shape
+    max_len = max_len or s
+    positions = _positions(b, s, tokens.device)
+    caches = []
+    for p in params["layers"]:
+        a_out, (k, v) = attn.self_attention(
+            cfg, p["attn"], apply_norm(cfg, p["norm1"], x), positions,
+            return_kv=True)
+        caches.append({"kv": attn.cache_from_prefill(cfg, k, v, max_len,
+                                                     cache_dtype)})
+        x = x + a_out
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x[:, -1:])[:, 0], caches
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                device=None) -> List[dict]:
+    return [{"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device)}
+            for _ in range(cfg.num_layers)]
+
+
+def decode(cfg: ModelConfig, params: dict, caches: List[dict],
+           token: torch.Tensor, pos: torch.Tensor
+           ) -> Tuple[torch.Tensor, List[dict]]:
+    """token [B, 1]; pos [B] -> (logits [B, 1, V], caches). The caches are
+    updated in place (see ``attention.decode_attention``)."""
+    x = embed_tokens(cfg, params, token, torch_dtype(cfg.compute_dtype))
+    new_caches = []
+    for p, c in zip(params["layers"], caches):
+        a_out, kv = attn.decode_attention(
+            cfg, p["attn"], apply_norm(cfg, p["norm1"], x), c["kv"], pos)
+        new_caches.append({**c, "kv": kv})
+        x = x + a_out
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), new_caches

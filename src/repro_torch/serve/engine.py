@@ -1,0 +1,152 @@
+"""Batched serving engine: prefill, then a greedy or sampled decode loop.
+
+  * KV caches stay on the device across steps; the host loop moves tokens.
+  * ``ServeConfig.pack_weights=True`` packs every dense weight and the LM
+    head tile-major ONCE at engine construction
+    (``models.layers.pack_model_params``); each step then runs the fused-A
+    kernel with the activation in its store epilogue. ``quantize`` stores
+    them as int8 / int4 tiles with scales.
+  * Sampling is per request: row r at step t draws from its own
+    ``torch.Generator`` seeded from (seed, request_id, step), so a
+    request's stream never depends on its batch neighbours. The streams
+    differ from the reference's JAX threefry streams; greedy decoding
+    (temperature 0) matches token for token.
+  * The engine runs on the card by default, and raises without one; pass
+    ``device="cpu"`` to run on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.contraction import ContractionSpec, dispatch
+from repro_torch.core.dtypes import torch_dtype
+from repro_torch.models import Model
+from repro_torch.models.layers import pack_model_params
+from repro_torch.models.model_registry import resolve_device
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_len: int = 512
+    temperature: float = 0.0      # 0 => greedy
+    cache_dtype: str = "float32"
+    seed: int = 0
+    pack_weights: bool = False    # load-time tile-major packing (fast path)
+    quantize: Optional[str] = None  # "int8" | "int4" (+":col"); needs packing
+
+
+def serving_dispatch_report(model_cfg, cfg: ServeConfig,
+                            params) -> Dict[str, str]:
+    """The LM head's contraction at prefill and decode shapes, declared as
+    ContractionSpecs, with the lowering ``dispatch`` chooses for each."""
+    head = params.get("head_packed")
+    report = {}
+    for phase, m in (("prefill", cfg.max_len), ("decode", 1)):
+        spec = ContractionSpec.dense(m, model_cfg.d_model,
+                                     model_cfg.vocab_size,
+                                     model_cfg.compute_dtype, w=head,
+                                     accum="f32")
+        report[f"lm_head.{phase}:{spec.describe()}"] = dispatch(spec).name
+    return report
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device) if torch.is_tensor(tree) else tree
+
+
+def _mix64(*vals: int) -> int:
+    """splitmix64 over the values: a generator seed per (seed, rid, step)."""
+    x = 0x9E3779B97F4A7C15
+    for v in vals:
+        x = (x ^ (v & 0xFFFFFFFFFFFFFFFF)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
+        x = (x ^ (x >> 31)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
+        x ^= x >> 29
+    return x & 0x7FFFFFFFFFFFFFFF
+
+
+class Engine:
+    def __init__(self, model: Model, params, cfg: ServeConfig = ServeConfig(),
+                 device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        if cfg.quantize and not cfg.pack_weights:
+            raise ValueError("ServeConfig.quantize requires pack_weights=True "
+                             "(quantization lives in the packed-tile format)")
+        params = _to_device(params, self.device)
+        if cfg.pack_weights:
+            params = pack_model_params(model.cfg, params,
+                                       quantize=cfg.quantize)
+        self.params = params
+        self.cfg = cfg
+        self.dispatch_report = serving_dispatch_report(model.cfg, cfg, params)
+
+    @torch.inference_mode()
+    def _prefill(self, tokens: torch.Tensor):
+        return self.model.prefill(self.params, {"tokens": tokens},
+                                  max_len=self.cfg.max_len,
+                                  cache_dtype=torch_dtype(self.cfg.cache_dtype))
+
+    @torch.inference_mode()
+    def _decode(self, caches, token: torch.Tensor, pos: torch.Tensor):
+        return self.model.decode(self.params, caches, token, pos)
+
+    def _tokens(self, tokens) -> torch.Tensor:
+        if not torch.is_tensor(tokens):
+            tokens = torch.as_tensor(np.asarray(tokens))
+        return tokens.to(device=self.device, dtype=torch.long)
+
+    def sample_tokens(self, logits: torch.Tensor, request_ids,
+                      step) -> torch.Tensor:
+        """One token per row of ``logits`` [B, V]: argmax when greedy, else
+        a draw from ``softmax(row / temperature)`` with the row's own
+        generator, seeded from (seed, request_ids[r], step[r])."""
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        rids = np.asarray(request_ids, np.int64).reshape(-1)
+        steps = np.broadcast_to(np.asarray(step, np.int64), rids.shape)
+        probs = torch.softmax(logits.to(torch.float32) / self.cfg.temperature,
+                              dim=-1)
+        out = []
+        for r in range(probs.shape[0]):
+            gen = torch.Generator(device=probs.device)
+            gen.manual_seed(_mix64(self.cfg.seed, int(rids[r]), int(steps[r])))
+            out.append(torch.multinomial(probs[r], 1, generator=gen))
+        return torch.cat(out).to(torch.int32)
+
+    def prefill_request(self, tokens) -> tuple:
+        """Prefill ONE request's prompt ([S] ints) in its own batch-1 slot:
+        (last-position logits [1, V], decode caches)."""
+        return self._prefill(self._tokens(tokens)[None])
+
+    def decode_request(self, caches, token, pos: int) -> tuple:
+        """One decode step for one request: ``token`` [1, 1] at absolute
+        position ``pos``. Writes the caches in place."""
+        pos_v = torch.full((1,), pos, dtype=torch.long, device=self.device)
+        return self._decode(caches, self._tokens(token), pos_v)
+
+    def generate(self, batch: dict, max_new_tokens: int,
+                 prompt_len: Optional[int] = None,
+                 request_ids=None) -> np.ndarray:
+        """batch: ``{"tokens": [B, S]}``; returns [B, max_new_tokens]."""
+        tokens = self._tokens(batch["tokens"])
+        b, t = tokens.shape
+        prompt_len = prompt_len or t
+        rids = np.arange(b) if request_ids is None else np.asarray(request_ids)
+        last_logits, caches = self._prefill(tokens)
+        out = []
+        tok = self.sample_tokens(last_logits, rids, 0)[:, None]
+        for i in range(max_new_tokens):
+            out.append(tok.cpu().numpy())
+            pos = torch.full((b,), prompt_len + i, dtype=torch.long,
+                             device=self.device)
+            logits, caches = self._decode(caches, tok.to(torch.long), pos)
+            tok = self.sample_tokens(logits[:, 0], rids, i + 1)[:, None]
+        return np.concatenate(out, axis=1)
