@@ -1,7 +1,8 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``reduced_config``.
 
-This slice carries the dense decoder it serves (olmo-1b); later slices add
-the other families' configs beside it.
+The port carries the configs it serves: the dense decoder olmo-1b and the
+MoE decoder mixtral-8x22b; later slices add the other families' configs
+beside them.
 """
 from __future__ import annotations
 
@@ -9,9 +10,11 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
 
-_REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg for cfg in (_olmo,)}
+_REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg
+                                     for cfg in (_olmo, _mixtral)}
 
 ARCH_IDS: List[str] = list(_REGISTRY)
 

@@ -1,12 +1,12 @@
-"""Declarative contraction API (dense half): ContractionSpec + the lowering
-registry + the one dispatch point.
+"""Declarative contraction API: ContractionSpec + the lowering registry +
+the one dispatch point, for dense and grouped (MoE expert) contractions.
 
 Every contraction is declared as a frozen :class:`ContractionSpec`; each
 lowering registers ``supports(spec)`` and a cost hint; :func:`dispatch`
 chooses with the one precedence rule explicit > env
-(``REPRO_TORCH_GEMM_STRATEGY``) > auto. Grouped contractions (MoE) and the
-guarded fallback chain come with later slices of the port: here a failing
-lowering raises.
+(``REPRO_TORCH_GEMM_STRATEGY``, honoured only for a lowering of the spec's
+kind that supports it) > auto. The guarded fallback chain comes with a
+later slice of the port: here a failing lowering raises.
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ from repro_torch.core.tile_format import TileFormat
 
 _ENV_STRATEGY = "REPRO_TORCH_GEMM_STRATEGY"
 
-KINDS = ("dense",)
+KINDS = ("dense", "grouped")
 WEIGHT_KINDS = ("raw", "packed")
 ACCUMS = ("native", "f32")
 
@@ -47,18 +47,24 @@ def as_compute_weight(w, dtype):
 
 @dataclasses.dataclass(frozen=True)
 class ContractionSpec:
-    """One declared dense contraction ``out = epilogue(a @ w)``: folded
-    geometry, dtypes, weight kind (+ packed format), accumulation contract
-    and store chain."""
+    """One declared contraction ``out = epilogue(a @ w (* gate))``: dense
+    (a [M, K] after folding) or grouped (a [E, M, K], ``m`` the per-expert
+    rows after folding); dtypes, weight kind (+ packed format), whether
+    valid-row ``counts`` accompany the call (ragged: rows at or past the
+    count are padding, zero in the output), the expected ``occupancy`` of
+    the padded rows, the accumulation contract and the store chain."""
 
     kind: str
     m: int
     k: int
     n: int
+    e: int = 1
     dtype: str = "float32"
     out_dtype: Optional[str] = None
     weight: str = "raw"
     b_format: Optional[TileFormat] = None
+    counts: bool = False
+    occupancy: float = 1.0
     accum: str = "native"
     epilogue: EpilogueSpec = EpilogueSpec()
 
@@ -70,9 +76,16 @@ class ContractionSpec:
                 f"weight must be one of {WEIGHT_KINDS}; got {self.weight!r}")
         if self.accum not in ACCUMS:
             raise ValueError(f"accum must be one of {ACCUMS}; got {self.accum!r}")
-        if self.epilogue.gate_mul:
-            raise ValueError("gate_mul is a grouped-only epilogue (the MoE "
-                             "gate/up pair)")
+        if self.kind == "dense":
+            if self.e != 1:
+                raise ValueError(f"dense contractions have e=1; got {self.e}")
+            if self.counts:
+                raise ValueError("counts (ragged) is a grouped-only contract")
+            if self.epilogue.gate_mul:
+                raise ValueError("gate_mul is a grouped-only epilogue (the "
+                                 "MoE gate/up pair)")
+        if not 0.0 < self.occupancy <= 1.0:
+            raise ValueError(f"occupancy in (0, 1]; got {self.occupancy}")
 
     @classmethod
     def dense(cls, m: int, k: int, n: int, dtype, *, w=None, epilogue=None,
@@ -86,6 +99,20 @@ class ContractionSpec:
                    weight=weight_kind(w), b_format=weight_format(w),
                    accum=accum, epilogue=epi)
 
+    @classmethod
+    def grouped(cls, e: int, m: int, k: int, n: int, dtype, *, w=None,
+                epilogue=None, bias: bool = False, counts: bool = False,
+                occupancy: Optional[float] = None,
+                out_dtype=None) -> "ContractionSpec":
+        """Grouped spec (``m`` = per-expert folded rows)."""
+        epi = as_epilogue_spec(epilogue)
+        epi = epi.with_bias(epi.bias or bias)
+        return cls(kind="grouped", e=int(e), m=int(m), k=int(k), n=int(n),
+                   dtype=dtype_name(dtype),
+                   out_dtype=dtype_name(out_dtype) if out_dtype else None,
+                   weight=weight_kind(w), b_format=weight_format(w),
+                   counts=counts, occupancy=occupancy or 1.0, epilogue=epi)
+
     def resolved_out_dtype(self, a, c=None) -> torch.dtype:
         if self.out_dtype is not None:
             return torch_dtype(self.out_dtype)
@@ -93,35 +120,45 @@ class ContractionSpec:
 
     def describe(self) -> str:
         """Stable one-line key for dispatch tables and serving reports."""
+        geo = (f"E{self.e}x" if self.kind == "grouped" else "") + \
+            f"{self.m}x{self.k}x{self.n}"
         fmt = "" if self.b_format is None else f"|{self.b_format.dtype}-tiles"
-        acc = f"|accum={self.accum}" if self.accum != "native" else ""
+        flags = "".join([
+            "|counts" if self.counts else "",
+            f"|occ={self.occupancy:g}" if self.occupancy != 1.0 else "",
+            f"|accum={self.accum}" if self.accum != "native" else "",
+        ])
         epi = "+".join(self.epilogue.steps) or "none"
-        return (f"{self.kind}[{self.m}x{self.k}x{self.n}]{self.dtype}"
-                f"|{self.weight}{fmt}{acc}|epi={epi}")
+        return (f"{self.kind}[{geo}]{self.dtype}"
+                f"|{self.weight}{fmt}{flags}|epi={epi}")
 
 
 @dataclasses.dataclass(frozen=True)
 class Lowering:
-    """One registered lowering: ``run(spec, a, w, *, bias)`` on a folded
-    [M, K] activation."""
+    """One registered lowering. Dense: ``run(spec, a, w, *, bias)`` on a
+    folded [M, K] activation. Grouped: ``run(spec, a, w, *, w2, bias,
+    counts)``; with ``folds`` it sees the expert-major [E, M, K] form and
+    [E, S] counts, without it the caller's [*lead, E, M, K] and [*lead, E]."""
 
     name: str
     kind: str
     supports: Callable[[ContractionSpec], bool]
     cost: Callable[[ContractionSpec], float]
     run: Callable
+    folds: bool = True
 
 
 LOWERINGS: Dict[str, Lowering] = {}
 
 
-def register_lowering(name: str, kind: str, *, supports, cost,
-                      run) -> Lowering:
+def register_lowering(name: str, kind: str, *, supports, cost, run,
+                      folds: bool = True) -> Lowering:
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}; got {kind!r}")
     if name in LOWERINGS:
         raise ValueError(f"lowering {name!r} already registered")
-    low = Lowering(name=name, kind=kind, supports=supports, cost=cost, run=run)
+    low = Lowering(name=name, kind=kind, supports=supports, cost=cost,
+                   run=run, folds=folds)
     LOWERINGS[name] = low
     return low
 

@@ -63,13 +63,19 @@ class GemmPlan:
         return TileFormat(bk=self.bk, bn=self.bn, layout=self.layout_b,
                           dtype=bdt, scale=scale)
 
-    def smem_working_set(self, target: HopperTarget = H100) -> int:
+    def smem_working_set(self, target: HopperTarget = H100,
+                         n_b_streams: int = 1) -> int:
+        """(C1)'s left side: the staged A slice and ``n_b_streams`` B
+        slices (the silu-gate pair stages a second one), widened to the
+        accumulator type."""
         acc_item = int(mdt.info(self.acc_dtype).itemsize)
-        return target.kc * (self.bm + 1 + target.max_bn + 1) * acc_item
+        return target.kc * (self.bm + 1 + n_b_streams * (target.max_bn + 1)
+                            ) * acc_item
 
-    def validate(self, target: HopperTarget = H100) -> None:
+    def validate(self, target: HopperTarget = H100,
+                 n_b_streams: int = 1) -> None:
         rows, kmult = mdt.alignment(self.b_dtype or self.dtype)
-        if self.smem_working_set(target) > target.smem_per_block:
+        if self.smem_working_set(target, n_b_streams) > target.smem_per_block:
             raise ValueError(f"plan {self} exceeds shared memory")
         for name, val, mult in (("bm", self.bm, rows), ("bn", self.bn, rows),
                                 ("bk", self.bk, kmult)):
@@ -96,4 +102,26 @@ def plan_gemm(m: int, k: int, n: int, dtype="float32", *,
                     layout_b=layout_b, b_dtype=b_dtype,
                     b_scale=scale_granularity)
     plan.validate(target)
+    return plan
+
+
+def plan_grouped_gemm(e: int, m: int, k: int, n: int, dtype="float32", *,
+                      b_dtype: Optional[str] = None,
+                      target: HopperTarget = H100,
+                      n_b_streams: int = 1,
+                      layout_b: str = "row",
+                      scale_granularity: str = "tile") -> GemmPlan:
+    """Plan for the grouped kernel: one expert's [m, k, n] problem at a time.
+
+    The expert (segment) axis is a grid axis of its own, so the per-expert
+    tile constraints are exactly :func:`plan_gemm`'s. ``n_b_streams=2``
+    checks the silu-gate pair's second staged B slice against (C1) — on
+    an H100 the largest blocks stage 25 KB of the 227 KB, so the plan is
+    :func:`plan_gemm`'s, and the gate and up stacks of one layer get the
+    same plan and pack alike. ``e`` takes no part in the tiles (every
+    expert packs with the same format)."""
+    del e
+    plan = plan_gemm(m, k, n, dtype, b_dtype=b_dtype, target=target,
+                     layout_b=layout_b, scale_granularity=scale_granularity)
+    plan.validate(target, n_b_streams)
     return plan

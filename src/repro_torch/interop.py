@@ -4,9 +4,11 @@
 leaf already a numpy array (the caller converts, e.g. with
 ``jax.tree.map(np.asarray, params)``) and returns the port's parameters:
 tensors on ``device``, with the stacked ``[L, ...]`` layer leaves split
-into a list of per-layer dicts. Raw weights only: the port packs them with
-its own packer (``ServeConfig(pack_weights=True)``). This module imports
-nothing of JAX.
+into a list of per-layer dicts — the scan-stacked MoE leaves too: the
+router ``[L, d, E]`` becomes ``[d, E]`` and the expert stacks
+``wg``/``wu``/``wo`` ``[L, E, K, N]`` become ``[E, K, N]`` in each layer's
+``"moe"`` dict. Raw weights only: the port packs them with its own packer
+(``ServeConfig(pack_weights=True)``). This module imports nothing of JAX.
 """
 from __future__ import annotations
 

@@ -1,37 +1,46 @@
-"""Plain-torch oracles of the packed-B layer: the load-time packer and the
-unpack / dequant / fused-A accumulation references the kernels are held
-against. Buffers and scale grids are byte-identical to the JAX package's
-``repro.kernels.ref`` for the same :class:`TileFormat`.
+"""Plain-torch oracles of the packed-B layer: the load-time packers (2-D
+and grouped) and the unpack / dequant / fused-A accumulation / ragged
+references the kernels are held against. Buffers and scale grids are
+byte-identical to the JAX package's ``repro.kernels.ref`` for the same
+:class:`TileFormat`.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.tile_format import (TileFormat, as_tile_format,
                                           pack_nibbles, quantize_tiles,
                                           unpack_nibbles)
-from repro_torch.kernels.common import pad2d
+from repro_torch.kernels.common import KERNEL_EPILOGUES, pad2d
 
 
 def pack_b_ref(b: torch.Tensor, bk, bn: Optional[int] = None,
                layout: str = "row"):
-    """Pack B[K,N] into [Nb, Kb, bk, bn] (row) / [Nb, Kb, bn, bk] (col),
-    zero-filling the ragged edges. ``bk`` may be a :class:`TileFormat`. A
-    quantized format returns ``(packed, scales)``; int4 tiles are
-    nibble-packed along the trailing tile axis as the last step."""
+    """Pack B[..., K, N] into [..., Nb, Kb, bk, bn] (row) / [..., Nb, Kb,
+    bn, bk] (col), zero-filling the ragged edges; leading dims (an expert
+    stack) pack alike in one copy. ``bk`` may be a :class:`TileFormat`. A
+    quantized format returns ``(packed, scales)``, scales [..., Nb, Kb]
+    (or [..., Nb] per column); int4 tiles are nibble-packed along the
+    trailing tile axis as the last step."""
     fmt = as_tile_format(bk, bn, layout=layout, dtype=b.dtype)
-    b = pad2d(b, fmt.bk, fmt.bn)
-    kb, nb = b.shape[0] // fmt.bk, b.shape[1] // fmt.bn
-    t = b.reshape(kb, fmt.bk, nb, fmt.bn).permute(2, 0, 1, 3)
+    lead, (k, n) = b.shape[:-2], b.shape[-2:]
+    pk, pn = (-k) % fmt.bk, (-n) % fmt.bn
+    if pk or pn:
+        b = F.pad(b, (0, pn, 0, pk))
+    kb, nb = (k + pk) // fmt.bk, (n + pn) // fmt.bn
+    d = len(lead)
+    t = b.reshape(*lead, kb, fmt.bk, nb, fmt.bn).permute(
+        *range(d), d + 2, d, d + 1, d + 3)
     scales = None
     if fmt.is_quantized:
         assert b.dtype.is_floating_point, (
             f"quantized packing consumes float weights; got {b.dtype}")
         t, scales = quantize_tiles(t, fmt)
     if fmt.layout == "col":
-        t = t.transpose(2, 3)
+        t = t.transpose(-2, -1)
     if fmt.sub_byte:
         t = pack_nibbles(t)
     t = t.contiguous()
@@ -89,3 +98,70 @@ def fused_packed_acc_ref(a: torch.Tensor, bp: torch.Tensor, n: int,
     acc = torch.einsum(f"iakb,{ein_b}->iajc", a4.to(torch.float32),
                        bp.to(torch.float32))
     return acc.reshape(mb * bm, nb * bn)[:m, :n]
+
+
+# ---------------------------------------------------------------------------
+# Grouped (batched-expert) oracles
+# ---------------------------------------------------------------------------
+
+def pack_b_grouped_ref(b: torch.Tensor, bk, bn: Optional[int] = None,
+                       layout: str = "row"):
+    """B[E, K, N] -> [E, Nb, Kb, bk, bn], every expert packed as
+    :func:`pack_b_ref` packs a matrix. A quantized format returns
+    ``(packed, scales)`` with per-expert scale grids [E, Nb, Kb] (or
+    [E, Nb] for col scales)."""
+    assert b.dim() == 3, tuple(b.shape)
+    return pack_b_ref(b, bk, bn, layout)
+
+
+def unpack_b_grouped_ref(bp: torch.Tensor, k: int, n: int,
+                         layout: str = "row", scales=None,
+                         fmt: Optional[TileFormat] = None) -> torch.Tensor:
+    """[E, Nb, Kb, t0, t1] (+ optional [E, Nb, Kb] / [E, Nb] scales) ->
+    natural [E, K, N]; dequantized (float) when scales are given."""
+    bp = dequant_b_tiles_ref(bp, scales, fmt=fmt)
+    if layout == "col":
+        bp = bp.transpose(3, 4)
+    e, nb, kb, bk, bn = bp.shape
+    return bp.permute(0, 2, 3, 1, 4).reshape(e, kb * bk, nb * bn)[:, :k, :n]
+
+
+def grouped_fused_acc_ref(a: torch.Tensor, bp: torch.Tensor, n: int,
+                          layout_b: str = "row", bm: int = 8, b_scales=None,
+                          fmt: Optional[TileFormat] = None) -> torch.Tensor:
+    """Natural [E, M, K] A against the packed stack [E, Nb, Kb, t0, t1]:
+    the f32 accumulator [E, M, n] of the grouped kernel before its
+    epilogue. One expert at a time, so a full-width stack is never widened
+    to f32 all at once."""
+    return torch.stack([
+        fused_packed_acc_ref(a[e], bp[e], n, layout_b=layout_b, bm=bm,
+                             b_scales=None if b_scales is None else b_scales[e],
+                             fmt=fmt)
+        for e in range(a.shape[0])])
+
+
+def ragged_row_mask(c: int, counts: torch.Tensor) -> torch.Tensor:
+    """[..., S] counts -> [..., S, C] bool; True on the valid leading rows."""
+    return torch.arange(c, device=counts.device) < counts[..., None]
+
+
+def grouped_ragged_ref(a, b, counts, *, b2=None, bias=None, epilogue_fn=None,
+                       out_dtype=None) -> torch.Tensor:
+    """Oracle of the ragged grouped GEMM: the padded contraction with the
+    tail rows zeroed on both sides. a [E, S, C, K]; b (and the silu-gate
+    partner ``b2``) natural [E, K, N]; counts [E, S]."""
+    c = a.shape[2]
+    mask = ragged_row_mask(c, counts)[..., None]             # [E, S, C, 1]
+    am = torch.where(mask, a, torch.zeros((), dtype=a.dtype)).to(torch.float32)
+    acc = torch.einsum("esck,ekn->escn", am, b.to(torch.float32))
+    if bias is not None:
+        acc = acc + bias.to(torch.float32)[:, None, None, :]
+    if b2 is not None:
+        out = KERNEL_EPILOGUES["silu"](acc) * torch.einsum(
+            "esck,ekn->escn", am, b2.to(torch.float32))
+    elif epilogue_fn is not None:
+        out = epilogue_fn(acc)
+    else:
+        out = acc
+    out = torch.where(mask, out, torch.zeros((), dtype=out.dtype))
+    return out.to(out_dtype or a.dtype)

@@ -4,7 +4,8 @@ head and chunked exact attention.
 Every dense contraction goes through ``repro_torch.core.gemm.linear``.
 Weights are raw [K, N] tensors or :class:`PackedWeight`s packed once at
 load by :func:`pack_model_params`; the packed form runs the fused-A kernel
-with bias and activation in its store epilogue.
+with bias and activation in its store epilogue. MoE expert stacks pack as
+:class:`GroupedPackedWeight`s (see ``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -18,33 +19,48 @@ from repro_torch.core import gemm
 from repro_torch.core.contraction import as_compute_weight
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.core.epilogue import EPILOGUE_SPECS, EpilogueSpec
-from repro_torch.core.layered import PackedWeight
+from repro_torch.core.layered import GroupedPackedWeight, PackedWeight
 
 # Dense [K, N] weight names packed at load time.
 DENSE_WEIGHT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wi"})
+
+# Stacked [E, K, N] expert-weight names inside a "moe" subtree, packed
+# grouped at load time. The gate/up pair plans for the silu-gate kernel's
+# second B stream (n_b_streams=2), so both stacks share one plan. The
+# router stays a raw [d, E] tensor.
+GROUPED_WEIGHT_KEYS = frozenset({"wg", "wu", "wo"})
+_GATE_PAIR_KEYS = frozenset({"wg", "wu"})
 
 
 def pack_model_params(cfg: ModelConfig, params: dict, *, dtype=None,
                       quantize=None) -> dict:
     """Load-time packing pass: every dense weight becomes a PackedWeight in
-    the compute dtype, and ``head_packed`` holds the packed LM head
+    the compute dtype, every expert stack of a "moe" subtree a
+    GroupedPackedWeight, and ``head_packed`` holds the packed LM head
     ([d_model, vocab], from the tied embedding or the head table).
-    ``quantize`` ("int8" | "int4", optional ":col") quantizes all of them."""
+    ``quantize`` ("int8" | "int4", optional ":col") quantizes all of them,
+    the expert stacks included."""
     compute = torch_dtype(dtype or cfg.compute_dtype)
 
-    def walk(tree):
+    def walk(tree, in_moe=False):
         if isinstance(tree, list):
-            return [walk(v) for v in tree]
+            return [walk(v, in_moe) for v in tree]
         if not isinstance(tree, dict):
             return tree
         out = {}
         for key, val in tree.items():
-            if (key in DENSE_WEIGHT_KEYS and torch.is_tensor(val)
-                    and val.is_floating_point() and val.dim() == 2):
+            is_float = torch.is_tensor(val) and val.is_floating_point()
+            if in_moe and key in GROUPED_WEIGHT_KEYS and is_float \
+                    and val.dim() == 3:
+                out[key] = GroupedPackedWeight.pack(
+                    val.to(compute), quantize=quantize,
+                    n_b_streams=2 if key in _GATE_PAIR_KEYS else 1)
+            elif not in_moe and key in DENSE_WEIGHT_KEYS and is_float \
+                    and val.dim() == 2:
                 out[key] = PackedWeight.pack(val.to(compute),
                                              quantize=quantize)
             else:
-                out[key] = walk(val)
+                out[key] = walk(val, in_moe or key == "moe")
         return out
 
     out = walk(params)

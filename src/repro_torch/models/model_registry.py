@@ -40,7 +40,7 @@ class Model:
 
 def build(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    transformer._check_dense(cfg)
+    transformer.check_ported(cfg)
 
     def init(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)

@@ -1,7 +1,9 @@
-"""Decoder-only transformer, dense family: parameters, prefill and decode.
+"""Decoder-only transformer, dense and MoE families: parameters, prefill
+and decode.
 
 Layers are a Python list of per-layer parameter dicts and the forward pass
 is a Python loop over them (the reference scans stacked [L, ...] leaves).
+An MoE layer runs ``moe.apply_moe`` where a dense layer runs its MLP.
 """
 from __future__ import annotations
 
@@ -12,16 +14,26 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        lm_logits)
 
 INIT_STD = 0.02
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or not cfg.has_attention or cfg.parallel_block:
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for a config the port cannot run yet: the ssm, hybrid, encdec
+    and vlm families, and parallel-block (cohere-style) layers."""
+    if (cfg.family not in PORTED_FAMILIES or not cfg.has_attention
+            or cfg.parallel_block):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder family is ported so far")
+            f"{cfg.name} (family {cfg.family!r}"
+            f"{', parallel block' if cfg.parallel_block else ''}): the port "
+            f"runs the dense and moe decoder families; ssm, hybrid, encdec, "
+            f"vlm and parallel-block layers are not ported yet")
 
 
 def _norm_params(cfg: ModelConfig, device) -> dict:
@@ -37,7 +49,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random f32 parameters, N(0, 0.02) for every matrix, drawn from
     ``generator`` on ``device`` (the generator must live there)."""
-    _check_dense(cfg)
+    check_ported(cfg)
 
     def dense(k, n):
         return torch.randn((k, n), generator=generator, device=device) * INIT_STD
@@ -52,15 +64,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for _ in range(cfg.num_layers):
         a = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
              "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
-        if cfg.mlp_type in ("swiglu", "geglu"):
-            mlp = {"wg": dense(d, f), "wu": dense(d, f), "wo": dense(f, d)}
+        layer = {"norm1": _norm_params(cfg, device), "attn": a,
+                 "norm2": _norm_params(cfg, device)}
+        if cfg.is_moe:
+            layer["moe"] = moe_mod.moe_params(cfg, generator, device)
+        elif cfg.mlp_type in ("swiglu", "geglu"):
+            layer["mlp"] = {"wg": dense(d, f), "wu": dense(d, f),
+                            "wo": dense(f, d)}
         else:
-            mlp = {"wi": dense(d, f), "wo": dense(f, d)}
-        layers.append({"norm1": _norm_params(cfg, device), "attn": a,
-                       "norm2": _norm_params(cfg, device), "mlp": mlp})
+            layer["mlp"] = {"wi": dense(d, f), "wo": dense(f, d)}
+        layers.append(layer)
     params["layers"] = layers
     params["final_norm"] = _norm_params(cfg, device)
     return params
+
+
+def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The layer's feed-forward on its normed input: MoE or MLP."""
+    if cfg.is_moe:
+        return moe_mod.apply_moe(cfg, p["moe"], x)[0]
+    return apply_mlp(cfg, p["mlp"], x)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -85,7 +108,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         caches.append({"kv": attn.cache_from_prefill(cfg, k, v, max_len,
                                                      cache_dtype)})
         x = x + a_out
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], caches
 
@@ -108,6 +131,6 @@ def decode(cfg: ModelConfig, params: dict, caches: List[dict],
             cfg, p["attn"], apply_norm(cfg, p["norm1"], x), c["kv"], pos)
         new_caches.append({**c, "kv": kv})
         x = x + a_out
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x), new_caches

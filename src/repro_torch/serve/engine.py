@@ -1,11 +1,12 @@
 """Batched serving engine: prefill, then a greedy or sampled decode loop.
 
   * KV caches stay on the device across steps; the host loop moves tokens.
-  * ``ServeConfig.pack_weights=True`` packs every dense weight and the LM
-    head tile-major ONCE at engine construction
+  * ``ServeConfig.pack_weights=True`` packs every dense weight, every MoE
+    expert stack and the LM head tile-major ONCE at engine construction
     (``models.layers.pack_model_params``); each step then runs the fused-A
-    kernel with the activation in its store epilogue. ``quantize`` stores
-    them as int8 / int4 tiles with scales.
+    kernel with the activation in its store epilogue, and the grouped
+    ragged kernel for the expert contractions. ``quantize`` stores them as
+    int8 / int4 tiles with scales.
   * Sampling is per request: row r at step t draws from its own
     ``torch.Generator`` seeded from (seed, request_id, step), so a
     request's stream never depends on its batch neighbours. The streams
@@ -22,10 +23,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.contraction import ContractionSpec, dispatch
+from repro_torch.core.contraction import ContractionSpec, dispatch, is_packed
 from repro_torch.core.dtypes import torch_dtype
+from repro_torch.core.epilogue import EPILOGUE_SPECS
 from repro_torch.models import Model
 from repro_torch.models.layers import pack_model_params
+from repro_torch.models.moe import GROUP_SIZE, _capacity
 from repro_torch.models.model_registry import resolve_device
 
 
@@ -39,18 +42,51 @@ class ServeConfig:
     quantize: Optional[str] = None  # "int8" | "int4" (+":col"); needs packing
 
 
+def _find_moe_subtree(tree):
+    if isinstance(tree, list):
+        tree = tree[0] if tree else None
+    if not isinstance(tree, dict):
+        return None
+    if isinstance(tree.get("moe"), dict):
+        return tree["moe"]
+    for v in tree.values():
+        found = _find_moe_subtree(v)
+        if found is not None:
+            return found
+    return None
+
+
 def serving_dispatch_report(model_cfg, cfg: ServeConfig,
                             params) -> Dict[str, str]:
-    """The LM head's contraction at prefill and decode shapes, declared as
-    ContractionSpecs, with the lowering ``dispatch`` chooses for each."""
+    """The serving step's canonical contractions, declared as
+    ContractionSpecs, with the lowering ``dispatch`` chooses for each: the
+    LM head at prefill and decode shapes and, for an MoE model, the gate/up
+    pair and the down projection at one routing group's capacity envelope
+    with the balanced-router occupancy ``1 / capacity_factor``."""
+    compute = model_cfg.compute_dtype
+    d = model_cfg.d_model
     head = params.get("head_packed")
     report = {}
     for phase, m in (("prefill", cfg.max_len), ("decode", 1)):
-        spec = ContractionSpec.dense(m, model_cfg.d_model,
-                                     model_cfg.vocab_size,
-                                     model_cfg.compute_dtype, w=head,
-                                     accum="f32")
+        spec = ContractionSpec.dense(m, d, model_cfg.vocab_size, compute,
+                                     w=head, accum="f32")
         report[f"lm_head.{phase}:{spec.describe()}"] = dispatch(spec).name
+    moe = _find_moe_subtree(params)
+    if moe is not None and model_cfg.num_experts > 1:
+        e = model_cfg.num_experts
+        capacity = _capacity(min(GROUP_SIZE, cfg.max_len), model_cfg)
+        occ = min(1.0, 1.0 / model_cfg.capacity_factor)
+        wg, wo = moe["wg"], moe["wo"]
+        ragged = is_packed(wg)  # packed serving threads the routing counts
+        f = wg.n if ragged else wg.shape[-1]
+        gate = ContractionSpec.grouped(
+            e, capacity, d, f, compute, w=wg,
+            epilogue=EPILOGUE_SPECS["silu_gate"], counts=ragged,
+            occupancy=occ)
+        down = ContractionSpec.grouped(e, capacity, f, d, compute, w=wo,
+                                       counts=ragged, occupancy=occ)
+        report[f"moe.gate_up:{gate.describe()}"] = dispatch(gate).name
+        report[f"moe.down:{down.describe()}"] = dispatch(down).name
     return report
 
 

@@ -137,7 +137,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = ("import sys, chip_smoke, repro_torch.interop, repro_torch.serve, "
-            "repro_torch.kernels.build;"
+            "repro_torch.kernels.build, repro_torch.models.moe, "
+            "repro_torch.kernels.gemm_grouped;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
