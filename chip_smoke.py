@@ -4,7 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
-     per source, all at once, into ``build/kernels/``) and hold each kernel
+     per source, all at once, into ``build/kernels/``), check that K8's
+     library issues no tensor-core instruction, and hold each kernel
      against its plain torch version on the card:
      - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16, plus
        f32, int8 and int4 B with tile and col scales, both tile layouts,
@@ -15,24 +16,40 @@ Phases (any failure exits non-zero and prints no result line):
        N=6144, 8 experts) at the decode envelope (C=8) and the prefill
        envelope (C=160), plus S>1, int8/int4 tile/col, both layouts, bias,
        every epilogue, f32 and int8 activations. Rows past the counts must
-       be exactly 0.
+       be exactly 0;
+     - pack_a / pack_b / pack_b_grouped (K5) byte-equal to the plain
+       packers (f32, bf16, int8, int4; row and col; tile and col scales;
+       odd shapes; a transposed source); gemm_packed (K6), gemm_tiled (K7,
+       also as one block) and matmul_vsx_like (K8, and its packed-B
+       variant) in f32, bf16 and int8 at odd shapes, with strided and
+       transposed operands, bias, every epilogue and beta * C.
   2. Serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16,
      random weights from a seed, made on the card) through
      ``Engine(..., ServeConfig(pack_weights=True))``: prompt batch 4 x 128,
-     then 32 greedy decode steps. The kernel launch counts are set to 0
-     just before ``Engine.generate`` and read just after; the first
-     prefill's logits are compared with the same weights run through the
-     plain versions on the card.
+     then 32 greedy decode steps. The first prefill's logits are compared
+     with the same weights run through the plain versions on the card.
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
      8 KV heads x 128, d_ff 16384, 8 experts top-2, vocab 32768) with its
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
      layers of f32 weights are 40 GB, plus 20 GB packed in bf16) — the
-     same way: K1 and K2 launches counted around ``Engine.generate``,
-     prefill logits against the plain versions, expert choices compared.
-  Timings, for each served model: warm Engine.generate calls (decode
-  ms/step and tokens/s end to end), the model's prefill and decode
-  forwards alone, a profile of the decode forward; for each kernel shape
-  its time beside its bound, its plain version and one PyTorch call.
+     same way: prefill logits against the plain versions, expert choices
+     compared.
+  4. The paper's strategy comparison: square GEMMs of the paper's sizes
+     (16 ... 4096) in f32 and bf16 through
+     ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
+     and ``auto`` (naive and pluto up to 512, intrinsic up to 2048), each
+     output against the f32 product; then the grouped lowerings on raw
+     expert stacks (a bf16 silu-gate pair, E=8, with and without counts).
+  5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
+     default ``Engine(model, params)``: prefill logits against phase 2's,
+     and the lowering of every contraction recorded.
+  Each served or swept path runs with every kernel's launch count set to 0
+  just before it and read just after; a path that did not launch what it
+  must fails the run. Timings: for each served model, warm Engine.generate
+  calls (decode ms/step and tokens/s end to end), the model's prefill and
+  decode forwards alone, a profile of the decode forward; for each kernel
+  shape its time beside its bound, its plain version and one PyTorch call;
+  for the sweep each strategy's time per size.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
 """
@@ -398,6 +415,454 @@ def phase_grouped(torch, gg, ref, tf):
     return rows, main_err
 
 
+H100_F32_FLOPS = 67e12        # f32 FMA on the CUDA cores (data sheet)
+EPIS = ("none", "relu", "gelu", "silu", "tanh")
+
+
+def same_bytes(torch, got, want) -> bool:
+    """Byte-for-byte equality of two tensors (shape and dtype included)."""
+    return (tuple(got.shape) == tuple(want.shape) and got.dtype == want.dtype
+            and torch.equal(got.contiguous().view(torch.uint8),
+                            want.contiguous().view(torch.uint8)))
+
+
+def gemm_bound_ms(m, k, n, a_bytes, b_bytes, out_item, peak):
+    """Least time of one GEMM: operations over ``peak`` against A and B
+    read once and the [m, n] output written once over the HBM rate."""
+    flops = 2.0 * m * k * n
+    nbytes = a_bytes + b_bytes + m * n * out_item
+    t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def phase_layered(torch, ks, tf):
+    """K5 (pack), K6 (gemm_packed), K7 (gemm_tiled) and K8 (matmul_vsx_like
+    and its packed variant) against their plain versions on the card, then
+    their times at olmo-1b's shapes. Returns (timing rows, max abs error of
+    each kernel at the olmo shapes)."""
+    pk, gp, gt, gv = ks["pack"], ks["gp"], ks["gt"], ks["gv"]
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fails = []
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def randi(*shape, lo=-100, hi=100, dtype=torch.int8):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def verdict(tag, ok, detail):
+        log(f"  check {tag}: {detail} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(tag)
+
+    def check_pack(tag, got, want):
+        """Byte-equality of a packer's output (and scales) with the plain
+        version's; returns the max abs difference of their values."""
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        same = all(same_bytes(torch, g, w) for g, w in pairs)
+        err = max(math.inf if g.shape != w.shape else
+                  float((g.float() - w.float()).abs().max()) if g.numel()
+                  else 0.0 for g, w in pairs)
+        verdict(tag, same, f"byte-equal, max_abs_err={err:.3e}")
+        return err
+
+    def check(tag, fn, plain, args, kw, rtol, atol):
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        want = plain(*args, **kw)
+        ok, err = close(got, want, rtol, atol)
+        verdict(tag, ok and got.dtype == want.dtype,
+                f"max_abs_err={err:.3e} (rtol={rtol}, atol={atol})")
+        return err
+
+    # -- K5: pack_a / pack_b / pack_b_grouped, byte-equal ---------------------
+    formats = [("float32", None), ("bfloat16", None), ("int8", None),
+               ("int8", "tile"), ("int8", "col"), ("int4", "tile"),
+               ("int4", "col")]
+    tdt = {"float32": torch.float32, "bfloat16": bf16}
+    for layout in ("row", "col"):
+        for name in ("float32", "bfloat16", "int8"):
+            x = randi(37, 70) if name == "int8" else randn(37, 70, dtype=tdt[name])
+            check_pack(f"pack_a {name} {layout} 37x70 bm=16 bk=32",
+                       pk.pack_a(x, 16, 32, layout), pk.pack_a_plain(x, 16, 32, layout))
+        for name, gran in formats:
+            scale = dict(scale=tf.ScaleSpec(granularity=gran)) if gran else {}
+            fmt = tf.TileFormat(bk=64, bn=32, layout=layout, dtype=name, **scale)
+            for shape in ((300, 200), (3, 300, 200)):
+                w = (randn(*shape) if gran or name == "float32" else
+                     randi(*shape) if name == "int8" else randn(*shape, dtype=bf16))
+                fn, plain = ((pk.pack_b, pk.pack_b_plain) if len(shape) == 2
+                             else (pk.pack_b_grouped, pk.pack_b_grouped_plain))
+                check_pack(f"{fn.__name__} {name}:{gran} {layout} {shape}",
+                           fn(w, fmt), plain(w, fmt))
+    table = randn(200, 300, dtype=bf16)   # a transposed view, as the LM head
+    fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
+    check_pack("pack_b bf16 of a transposed view", pk.pack_b(table.t(), fmt),
+               pk.pack_b_plain(table.t(), fmt))
+    # Empty operands launch nothing and count nothing.
+    before = {f.__name__: f.launches for f in (
+        pk.pack_a, pk.pack_b, pk.pack_b_grouped, gt.gemm_tiled,
+        gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
+    pk.pack_a(randn(0, 70), 16, 32)
+    pk.pack_b(randn(0, 200), fmt)
+    pk.pack_b_grouped(randn(0, 300, 200), fmt)
+    gt.gemm_tiled(randn(0, 64), randn(64, 32))
+    gv.matmul_vsx_like(randn(0, 64), randn(64, 32))
+    gv.matmul_vsx_like_packed(randn(0, 64), pk.pack_b_plain(randn(64, 32), fmt), 32)
+    after = {f.__name__: f.launches for f in (
+        pk.pack_a, pk.pack_b, pk.pack_b_grouped, gt.gemm_tiled,
+        gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
+    verdict("empty operands count no launch", after == before,
+            f"counts {after} (before {before})")
+
+    # -- K7, K6, K8 against their plain versions ------------------------------
+    # f32: full f32 on both sides, summed in other orders: 1e-4. bf16 output:
+    # both accumulate in f32, then round to bf16 (2^-8 relative): 2e-2.
+    # int8 -> int32: exact.
+    m, k, n = 37, 300, 200
+    a, w, bias, c = randn(m, k), randn(k, n, std=0.05), randn(n), randn(m, n)
+    for epi in EPIS:
+        check(f"gemm_tiled f32 {epi}+bias {m}x{k}x{n}", gt.gemm_tiled,
+              gt.gemm_tiled_plain, (a, w), dict(bias=bias, epilogue=epi, bm=48),
+              1e-4, 1e-4)
+    strided_a = randn(m, k + 20)[:, 5:k + 5]
+    wt = randn(n, k, std=0.05).t()
+    for dt, tol in ((torch.float32, (1e-4, 1e-4)), (bf16, (2e-2, 1e-3))):
+        nm = "f32" if dt == torch.float32 else "bf16"
+        for mm in (4, m, 100):
+            aa = randn(mm, k, dtype=dt)
+            check(f"gemm_tiled {nm} M={mm} silu+bias", gt.gemm_tiled,
+                  gt.gemm_tiled_plain, (aa, w.to(dt)),
+                  dict(bias=bias, epilogue="silu"), *tol)
+            check(f"gemm_tiled {nm} M={mm} one block (intrinsic)",
+                  gt.gemm_tiled, gt.gemm_tiled_plain, (aa, w.to(dt)),
+                  dict(single_block=True, c=randn(mm, n), alpha=0.5, beta=2.0),
+                  *tol)
+        check(f"gemm_tiled {nm} strided A, transposed B, alpha/beta/c",
+              gt.gemm_tiled, gt.gemm_tiled_plain,
+              (strided_a.to(dt), wt.to(dt)),
+              dict(c=c, alpha=1.5, beta=0.5, epilogue="gelu"), *tol)
+    ai, wi = randi(33, 200), randi(200, 96)
+    ci, bi = randi(33, 96, lo=-1000, hi=1000, dtype=torch.int32), randi(96, dtype=torch.int32)
+    check("gemm_tiled int8 -> int32 c+bias (exact)", gt.gemm_tiled,
+          gt.gemm_tiled_plain, (ai, wi),
+          dict(c=ci, beta=1.0, bias=bi, out_dtype=torch.int32), 0.0, 0.0)
+    for la in ("row", "col"):
+        for lb in ("row", "col"):
+            for nm, aa, ww, tol, bm in (
+                    ("f32", a, w, (1e-4, 1e-4), 16),
+                    ("bf16", a.to(bf16), w.to(bf16), (2e-2, 1e-3), 64),
+                    ("bf16 M=4", randn(4, k, dtype=bf16), w.to(bf16),
+                     (2e-2, 1e-3), 16)):
+                ap, bp = pk.pack_a_plain(aa, bm, 64, la), pk.pack_b_plain(ww, 64, 32, lb)
+                check(f"gemm_packed {nm} A {la} B {lb} tanh+bias c",
+                      gp.gemm_packed, gp.gemm_packed_plain,
+                      (ap, bp, aa.shape[0], n),
+                      dict(c=randn(aa.shape[0], n), alpha=1.5, beta=0.5,
+                           bias=bias, epilogue="tanh", layout_a=la,
+                           layout_b=lb), *tol)
+            check(f"gemm_packed int8 A {la} B {lb} -> int32 (exact)",
+                  gp.gemm_packed, gp.gemm_packed_plain,
+                  (pk.pack_a_plain(ai, 16, 64, la),
+                   pk.pack_b_plain(wi, 64, 32, lb), 33, 96),
+                  dict(c=ci, beta=2.0, out_dtype=torch.int32, layout_a=la,
+                       layout_b=lb), 0.0, 0.0)
+    for epi in EPIS:
+        check(f"gemm_packed f32 {epi}+bias", gp.gemm_packed,
+              gp.gemm_packed_plain,
+              (pk.pack_a_plain(a, 32, 64), pk.pack_b_plain(w, 64, 64), m, n),
+              dict(bias=bias, epilogue=epi), 1e-4, 1e-4)
+    # K8 widens bf16 to f32 exactly and sums in f32: 1e-4 on both dtypes.
+    for nm, aa, ww in (("f32", a, w), ("bf16", a.to(bf16), w.to(bf16))):
+        check(f"matmul_vsx_like {nm} -> f32", gv.matmul_vsx_like,
+              gv.matmul_vsx_like_plain, (aa, ww),
+              dict(out_dtype=torch.float32, bm=32), 1e-4, 1e-4)
+        check(f"matmul_vsx_like {nm} strided A, transposed B", gv.matmul_vsx_like,
+              gv.matmul_vsx_like_plain, (strided_a.to(aa.dtype), wt.to(aa.dtype)),
+              dict(out_dtype=torch.float32), 1e-4, 1e-4)
+        for lb in ("row", "col"):
+            check(f"matmul_vsx_like_packed {nm} B {lb}", gv.matmul_vsx_like_packed,
+                  gv.matmul_vsx_like_packed_plain,
+                  (aa, pk.pack_b_plain(ww, 64, 32, lb), n),
+                  dict(layout_b=lb, out_dtype=torch.float32), 1e-4, 1e-4)
+    check("matmul_vsx_like int8 -> int32 (exact)", gv.matmul_vsx_like,
+          gv.matmul_vsx_like_plain, (ai, wi), dict(out_dtype=torch.int32),
+          0.0, 0.0)
+    check("matmul_vsx_like_packed int8 col -> int32 (exact)",
+          gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
+          (ai, pk.pack_b_plain(wi, 64, 32, "col"), 96),
+          dict(layout_b="col", out_dtype=torch.int32), 0.0, 0.0)
+    if fails:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{fails}")
+
+    # -- times at olmo-1b's shapes (bf16), B rotated over >= 128 MB -----------
+    rows, main_err = [], {"pack_b": 0.0, "gemm_tiled": 0.0, "gemm_packed": 0.0,
+                          "matmul_vsx_like": 0.0,
+                          "matmul_vsx_like_packed": 0.0}
+    fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
+    for (k, n) in OLMO_SHAPES:
+        head = (k, n) == (2048, 50304)
+        copies = max(1, min(16, math.ceil(128e6 / (k * n * 2))))
+        # The LM head is served as table.t(), a transposed view.
+        ws = [randn(n, k, std=0.02, dtype=bf16).t() if head else
+              randn(k, n, std=0.02, dtype=bf16) for _ in range(copies)]
+        bps = [pk.pack_b(x, fmt) for x in ws]
+        # K5 at the shapes the served paths pack: every projection of the
+        # raw-weight prefill, and the LM head (table.t()) packed at load.
+        main_err["pack_b"] = max(main_err["pack_b"], check_pack(
+            f"pack_b bf16 K={k} N={n}{' (table.t())' if head else ''}",
+            bps[0], pk.pack_b_plain(ws[0], fmt)))
+        b_bytes = k * n * 2
+        t_pack = time_ms(lambda i: pk.pack_b(ws[i % copies], fmt), 10)
+        t_pack_plain = time_ms(lambda i: pk.pack_b_plain(ws[i % copies], fmt), 3)
+        pack_bound = (b_bytes + fmt.packed_bytes(k, n)) / H100_HBM_BYTES * 1e3
+        rows.append(dict(kernel="pack_b", k=k, n=n, ms=t_pack,
+                         plain_ms=t_pack_plain, bound_ms=pack_bound,
+                         bound_by="bytes", library_ms=None))
+        log(f"  time pack_b K={k} N={n}: kernel {t_pack:.4f} ms, plain "
+            f"{t_pack_plain:.4f} ms, bound {pack_bound:.4f} ms (bytes)")
+        for m in (4, 512):
+            a = randn(m, k, dtype=bf16)
+            bm = min(64, -(-m // 16) * 16)
+            ap = pk.pack_a(a, bm, 128)
+            main_err["gemm_tiled"] = max(main_err["gemm_tiled"], check(
+                f"gemm_tiled bf16 M={m} K={k} N={n}", gt.gemm_tiled,
+                gt.gemm_tiled_plain, (a, ws[0]), {}, 2e-2, 1e-3))
+            main_err["gemm_packed"] = max(main_err["gemm_packed"], check(
+                f"gemm_packed bf16 M={m} K={k} N={n}", gp.gemm_packed,
+                gp.gemm_packed_plain, (ap, bps[0], m, n), {}, 2e-2, 1e-3))
+            main_err["matmul_vsx_like"] = max(main_err["matmul_vsx_like"], check(
+                f"matmul_vsx_like bf16 M={m} K={k} N={n} -> f32",
+                gv.matmul_vsx_like, gv.matmul_vsx_like_plain, (a, ws[0]),
+                dict(out_dtype=torch.float32), 1e-4, 1e-4))
+            main_err["matmul_vsx_like_packed"] = max(
+                main_err["matmul_vsx_like_packed"], check(
+                    f"matmul_vsx_like_packed bf16 M={m} K={k} N={n} -> f32",
+                    gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
+                    (a, bps[0], n), dict(out_dtype=torch.float32), 1e-4, 1e-4))
+            reps = 20 if m == 4 else 5
+            lib = time_ms(lambda i: torch.matmul(a, ws[i % copies]), reps)
+            for name, fn, plain, peak, a_bytes, out_item in (
+                    ("gemm_tiled", lambda i: gt.gemm_tiled(a, ws[i % copies]),
+                     lambda i: gt.gemm_tiled_plain(a, ws[i % copies]),
+                     H100_BF16_FLOPS, m * k * 2, 2),
+                    ("gemm_packed", lambda i: gp.gemm_packed(ap, bps[i % copies], m, n),
+                     lambda i: gp.gemm_packed_plain(ap, bps[i % copies], m, n),
+                     H100_BF16_FLOPS, ap.numel() * 2, 2),
+                    ("matmul_vsx_like",
+                     lambda i: gv.matmul_vsx_like(a, ws[i % copies],
+                                                  out_dtype=torch.float32),
+                     lambda i: gv.matmul_vsx_like_plain(a, ws[i % copies],
+                                                        out_dtype=torch.float32),
+                     H100_F32_FLOPS, m * k * 2, 4),
+                    ("matmul_vsx_like_packed",
+                     lambda i: gv.matmul_vsx_like_packed(
+                         a, bps[i % copies], n, out_dtype=torch.float32),
+                     lambda i: gv.matmul_vsx_like_packed_plain(
+                         a, bps[i % copies], n, out_dtype=torch.float32),
+                     H100_F32_FLOPS, m * k * 2, 4)):
+                vsx = name.startswith("matmul_vsx")
+                t_k = time_ms(fn, max(2, reps // 4) if vsx else reps)
+                t_p = time_ms(plain, max(2, reps // 4))
+                bytes_b = (fmt.packed_bytes(k, n)
+                           if name in ("gemm_packed", "matmul_vsx_like_packed")
+                           else b_bytes)
+                t_b, by = gemm_bound_ms(m, k, n, a_bytes, bytes_b, out_item, peak)
+                rows.append(dict(kernel=name, m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
+                                 bound_ms=t_b, bound_by=by, library_ms=lib))
+                log(f"  time {name} M={m} K={k} N={n}: kernel {t_k:.4f} ms, "
+                    f"plain {t_p:.4f} ms, torch.matmul {lib:.4f} ms, bound "
+                    f"{t_b:.4f} ms ({by})")
+        del ws, bps
+    # pack_b_grouped at one mixtral-8x22b expert stack (gate, E=8).
+    wst = randn(MIX_E, MIX_D, MIX_F, std=0.02, dtype=bf16)
+    main_err["pack_b_grouped"] = check_pack(
+        f"pack_b_grouped bf16 E={MIX_E} K={MIX_D} N={MIX_F}",
+        pk.pack_b_grouped(wst, fmt), pk.pack_b_grouped_plain(wst, fmt))
+    torch.cuda.empty_cache()
+    t_g = time_ms(lambda i: pk.pack_b_grouped(wst, fmt), 5)
+    t_gp = time_ms(lambda i: pk.pack_b_grouped_plain(wst, fmt), 2)
+    g_bound = (wst.numel() * 2 + MIX_E * fmt.packed_bytes(MIX_D, MIX_F)) \
+        / H100_HBM_BYTES * 1e3
+    rows.append(dict(kernel="pack_b_grouped", e=MIX_E, k=MIX_D, n=MIX_F,
+                     ms=t_g, plain_ms=t_gp, bound_ms=g_bound, bound_by="bytes",
+                     library_ms=None))
+    log(f"  time pack_b_grouped E={MIX_E} K={MIX_D} N={MIX_F}: kernel "
+        f"{t_g:.4f} ms, plain {t_gp:.4f} ms, bound {g_bound:.4f} ms (bytes)")
+    del wst
+    if fails:
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{fails}")
+    return rows, main_err
+
+
+def check_no_tensor_cores(path) -> str:
+    """The SASS of the built K8 library holds no tensor-core instruction
+    (HMMA / HGMMA / IMMA); returns what was checked. Without cuobjdump the
+    check cannot be made, and the run fails."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise AssertionError("cuobjdump not found: cannot check that K8 "
+                             "issues no tensor-core instruction")
+    sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    found = sorted({op for op in ("HMMA", "HGMMA", "IMMA") if op in sass})
+    if found:
+        raise AssertionError(f"{path.name} issues tensor-core instructions {found}")
+    return f"no HMMA/HGMMA/IMMA in {len(sass.splitlines())} SASS lines"
+
+
+SWEEP_SIZES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)  # paper_gemm.py
+SWEEP_CAP = {"naive": 512, "pluto": 512, "intrinsic": 2048}
+
+# Kernel launches of one call of each dense strategy.
+STRATEGY_LAUNCHES = {
+    "intrinsic": {"gemm_tiled": 1}, "tiling": {"gemm_tiled": 1},
+    "tiling_packing": {"pack_a": 1, "pack_b": 1, "gemm_packed": 1},
+    "tiling_packing_fused": {"pack_b": 1, "gemm_packed_fused_a": 1},
+    "vsx": {"matmul_vsx_like": 1}}
+
+
+def phase_sweep(torch, counters, gemm, strategy, ref):
+    """The paper's comparison on the card: square GEMMs at the paper's
+    sizes, f32 and bf16, through ``gemm.matmul(..., strategy=s)`` for every
+    strategy and ``auto``, each output against the f32 product; then the
+    grouped lowerings on raw expert stacks. The counted pass runs each case
+    once; times are taken after it. Returns (launches, rows, grouped rows)."""
+    dev = DEVICE
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for size in SWEEP_SIZES:
+            a = torch.randn((size, size), generator=gen, device=dev).to(dt)
+            b = torch.randn((size, size), generator=gen, device=dev).to(dt)
+            for s in ("auto",) + strategy.STRATEGIES:
+                if size <= SWEEP_CAP.get(s, size):
+                    cases.append((dt, size, s, a, b))
+    # Grouped: a gate/up pair of raw [E, K, N] stacks, E=8, 64 rows each.
+    e, cap, kg, ng = 8, 64, 1024, 1024
+    xg = torch.randn((e, cap, kg), generator=gen, device=dev).to(torch.bfloat16)
+    wg = (torch.randn((e, kg, ng), generator=gen, device=dev) * 0.03).to(torch.bfloat16)
+    wu = (torch.randn((e, kg, ng), generator=gen, device=dev) * 0.03).to(torch.bfloat16)
+    counts = torch.tensor([64, 0, 17, 64, 40, 3, 64, 25], dtype=torch.int32,
+                          device=dev)
+    gcases = [("grouped_einsum", False), ("grouped_packed", False),
+              ("grouped_packed_ragged", True), ("auto", True), ("auto", False)]
+
+    def grouped_call(s, with_counts):
+        from repro_torch.core.contraction import ContractionSpec
+        from repro_torch.core.epilogue import EPILOGUE_SPECS
+        spec = ContractionSpec.grouped(e, cap, kg, ng, torch.bfloat16, w=wg,
+                                       epilogue=EPILOGUE_SPECS["silu_gate"],
+                                       counts=with_counts)
+        return gemm.contract(spec, xg, wg, w2=wu, strategy=s,
+                             counts=counts if with_counts else None)
+
+    # -- the counted pass ----------------------------------------------------
+    want = {}
+    outs = []
+    counters.reset()
+    for dt, size, s, a, b in cases:
+        outs.append(gemm.matmul(a, b, strategy=s))
+    gouts = [grouped_call(s, wc) for s, wc in gcases]
+    torch.cuda.synchronize()
+    launches = counters.read()
+    expect = {name: 0 for name in launches}
+    for dt, size, s, a, b in cases:
+        eff = s if s != "auto" else gemm.resolve_strategy(
+            size, size, size, dt, on_card=True)
+        for name, cnt in STRATEGY_LAUNCHES.get(eff, {}).items():
+            expect[name] += cnt
+    for s, wc in gcases:
+        eff = {("auto", True): "grouped_packed_ragged",
+               ("auto", False): "grouped_packed"}.get((s, wc), s)
+        if eff != "grouped_einsum":
+            expect["pack_b_grouped"] += 2
+            expect["gemm_grouped_packed_ragged" if wc else "gemm_grouped_packed"] += 1
+    log(f"  sweep launches {launches} (want {expect})")
+    if launches != expect:
+        raise AssertionError(f"sweep launch counts {launches} != {expect}")
+
+    # -- checks against the f32 product --------------------------------------
+    # Error relative to the output's scale (max |C|): f32 outputs 1e-4
+    # (full-f32 sums in other orders over K <= 4096); bf16 outputs 1e-2 (the
+    # same inputs, f32 sums, one rounding to bf16: 2^-9 of each element).
+    rows, fails = [], []
+    for (dt, size, s, a, b), out in zip(cases, outs):
+        key = (dt, size)
+        if key not in want:
+            want[key] = torch.matmul(a.float(), b.float())
+        w_ = want[key]
+        err = float((out.float() - w_).abs().max() / w_.abs().max())
+        lim = 1e-4 if dt == torch.float32 else 1e-2
+        ok = err <= lim and out.dtype == dt and out.shape == w_.shape
+        if not ok:
+            fails.append((str(dt), size, s, err))
+        rows.append(dict(dtype=str(dt).replace("torch.", ""), size=size,
+                         strategy=s, rel_err=err))
+    gref = ref.grouped_ragged_ref(xg[:, None], wg, counts[:, None], b2=wu,
+                                  out_dtype=torch.float32)[:, 0]
+    gfull = ref.grouped_ragged_ref(xg[:, None], wg,
+                                   torch.full_like(counts, cap)[:, None],
+                                   b2=wu, out_dtype=torch.float32)[:, 0]
+    grows = []
+    # The gate pair's bf16 output against the f32 pair: the kernels round
+    # once (2^-9 of an element), the einsum rounds both products to bf16
+    # before silu(gate) * up as well: 2e-2 of max|C|.
+    for (s, wc), out in zip(gcases, gouts):
+        w_ = gref if wc else gfull
+        err = float((out.float() - w_).abs().max() / w_.abs().max())
+        if err > 2e-2:
+            fails.append(("grouped", s, wc, err))
+        grows.append(dict(strategy=s, counts=wc, rel_err=err))
+    if fails:
+        raise AssertionError(f"sweep outputs disagree with the f32 product: "
+                             f"{fails}")
+    del outs, gouts, want
+
+    # -- times (uncounted) -----------------------------------------------------
+    def timed(fn):
+        fn(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(0)
+        torch.cuda.synchronize()
+        once = time.perf_counter() - t0
+        return time_ms(fn, max(1, min(20, int(0.05 / max(once, 1e-6)))))
+    lib = {}
+    for row, (dt, size, s, a, b) in zip(rows, cases):
+        row["ms"] = timed(lambda i: gemm.matmul(a, b, strategy=s))
+        if (dt, size) not in lib:
+            lib[(dt, size)] = timed(lambda i: torch.matmul(a, b))
+        row["library_ms"] = lib[(dt, size)]
+    for grow, (s, wc) in zip(grows, gcases):
+        grow["ms"] = timed(lambda i: grouped_call(s, wc))
+    for dt in ("float32", "bfloat16"):
+        log(f"  sweep {dt} (ms; rel err <= {1e-4 if dt == 'float32' else 1e-2}"
+            f" of max|C| against the f32 product):")
+        for size in SWEEP_SIZES:
+            rs = [r for r in rows if r["dtype"] == dt and r["size"] == size]
+            kernel_rows = [r for r in rs if r["strategy"] not in ("auto", "torch_matmul")]
+            best = min(kernel_rows, key=lambda r: r["ms"])
+            auto = gemm.resolve_strategy(size, size, size, dt, on_card=True)
+            for r in rs:
+                r["winner"] = best["strategy"]
+            log(f"    {size:5d}: " + ", ".join(
+                f"{r['strategy']} {r['ms']:.4f}" for r in rs)
+                + f"; torch.matmul {rs[0]['library_ms']:.4f}; winner "
+                f"{best['strategy']}; auto -> {auto}")
+    log("  grouped E=8 C=64 K=N=1024 bf16 silu-gate pair (ms): " + ", ".join(
+        f"{g['strategy']}{'+counts' if g['counts'] else ''} {g['ms']:.4f} "
+        f"(err {g['rel_err']:.1e})" for g in grows))
+    return launches, rows, grows
+
+
 def serve_timings(torch, engine, prompt, steps, kernel_tags):
     """Warm Engine.generate calls, the forwards alone, and a profile of the
     decode forward. ``kernel_tags`` maps a label to a substring of the CUDA
@@ -477,38 +942,58 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
                 decode_device_ms={k: v for k, v in per_kernel.items()})
 
 
-def phase_serve(torch, gp, cfgs, models, serve):
-    """Full-width olmo-1b served through the packed path."""
+def bf16_tree(torch, tree):
+    """Every floating leaf of a parameter tree as bf16 (the compute dtype)."""
+    if isinstance(tree, dict):
+        return {k: bf16_tree(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [bf16_tree(torch, v) for v in tree]
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.to(torch.bfloat16)
+    return tree
+
+
+def phase_serve(torch, gp, counters, cfgs, models, serve):
+    """Full-width olmo-1b served through the packed path. Returns (launches
+    of the counted run, timings, the bf16 weights it served, its prefill
+    logits of the first prompt row, the prompt)."""
     cfg = cfgs.get_config("olmo-1b")
     cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
     model = models.build(cfg, device=DEVICE)
     t0 = time.perf_counter()
-    params = model.init(0)
+    # Drawn in f32 and rounded to bf16 once: the packed engine packs these
+    # values, and phase 5 serves the same values raw.
+    params = bf16_tree(torch, model.init(0))
+    per_forward = 7 * cfg.num_layers + 1
+    # Load-time packing is on the path: every weight and the LM head
+    # (table.t()) go through K5, once.
+    counters.reset()
     engine = serve.Engine(model, params, serve.ServeConfig(
         max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
         device=DEVICE)
-    del params
     torch.cuda.synchronize()
+    load = counters.read()
     log(f"  olmo-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
         f"{cfg.vocab_size}; init + pack {time.perf_counter() - t0:.1f} s; "
+        f"load launches {load} (want pack_b {per_forward}, nothing else); "
         f"dispatch {engine.dispatch_report}")
+    if load != counters.only(pack_b=per_forward):
+        raise AssertionError(f"load-time launch counts {load}")
     gen = torch.Generator(device="cpu").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
-    per_forward = 7 * cfg.num_layers + 1
 
     # -- the main path, counted -------------------------------------------
-    gp.gemm_packed_fused_a.launches = 0
+    counters.reset()
     t0 = time.perf_counter()
     tokens = engine.generate({"tokens": prompt}, max_new_tokens=STEPS)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    launches = gp.gemm_packed_fused_a.launches
+    launches = counters.read()
     log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} ms; "
-        f"gemm_packed_fused_a launches {launches} (want {per_forward} x "
-        f"{STEPS + 1} = {per_forward * (STEPS + 1)})")
-    if launches != per_forward * (STEPS + 1):
-        raise AssertionError(f"launch count {launches} != "
-                             f"{per_forward * (STEPS + 1)}")
+        f"launches {launches} (want gemm_packed_fused_a {per_forward} x "
+        f"{STEPS + 1} = {per_forward * (STEPS + 1)}, nothing else)")
+    if launches != counters.only(gemm_packed_fused_a=per_forward * (STEPS + 1)):
+        raise AssertionError(f"launch counts {launches}")
     check_tokens(tokens, cfg)
 
     # -- logits against the plain version on the card ----------------------
@@ -534,6 +1019,74 @@ def phase_serve(torch, gp, cfgs, models, serve):
 
     timings = serve_timings(torch, engine, prompt, STEPS, {"K1": "fused_a"})
     timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3)
+    del engine
+    return load, launches, timings, (model, params, logits_k, prompt)
+
+
+def phase_serve_raw(torch, counters, ctr, serve, packed_run):
+    """Full-width olmo-1b served with RAW bf16 weights through the default
+    ``Engine(model, params)`` (``ServeConfig()``: no packing, f32 KV cache):
+    every contraction lowers to the planner's pick on the card, gemm_tiled
+    (K7) at decode, pack_b (K5) + gemm_packed_fused_a (K1) at prefill (the
+    last-position LM head, 4 rows, to K7). The weights are phase 2's, drawn
+    in bf16, so the per-call cast to the compute dtype is a no-op."""
+    model, params, logits_packed, prompt = packed_run
+    cfg = model.cfg
+    engine = serve.Engine(model, params)
+    log(f"  dispatch {engine.dispatch_report}")
+    layers = cfg.num_layers
+    want = counters.only(
+        gemm_tiled=(7 * layers + 1) * STEPS + 1,
+        pack_b=7 * layers, gemm_packed_fused_a=7 * layers)
+
+    # Which lowering each dense contraction dispatches to, counted on the
+    # registry's records (torch_matmul must take none).
+    real = dict(ctr.LOWERINGS)
+    picks = {}
+
+    def counting(low):
+        def run(*args, **kw):
+            picks[low.name] = picks.get(low.name, 0) + 1
+            return low.run(*args, **kw)
+        return dataclasses.replace(low, run=run)
+
+    try:
+        for name, low in real.items():
+            ctr.LOWERINGS[name] = counting(low)
+        counters.reset()
+        t0 = time.perf_counter()
+        tokens = engine.generate({"tokens": prompt}, max_new_tokens=STEPS)
+        torch.cuda.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = counters.read()
+    finally:
+        ctr.LOWERINGS.update(real)
+    log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} "
+        f"ms; launches {launches} (want {want}); lowerings {picks}")
+    if launches != want or picks.get("torch_matmul", 0) != 0:
+        raise AssertionError(f"raw-weight launch counts {launches}, "
+                             f"lowerings {picks}")
+    check_tokens(tokens, cfg)
+
+    logits_raw, _ = engine.prefill_request(prompt[0])
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits_raw).all()):
+        raise AssertionError("non-finite logits")
+    rel, max_err, same_tok = compare_logits(torch, logits_raw, logits_packed)
+    # The same bf16 weights through other kernels (K7 and K5 + K1 against
+    # K1 on load-time-packed tiles): the activations round to bf16 after
+    # each projection in other summation orders, as between phase 2's
+    # kernel and plain runs: limit 5e-2 relative (Frobenius), same argmax.
+    log(f"  prefill logits raw vs packed (phase 2): rel_fro={rel:.3e} (limit "
+        f"5e-2), max_abs_err={max_err:.3e}, same argmax {same_tok}/1")
+    if rel > 5e-2 or same_tok != 1:
+        raise AssertionError("raw-weight logits disagree with the packed run")
+    timings = serve_timings(torch, engine, prompt, STEPS,
+                            {"K7": "blocked_mma", "K5": "pack_tiles",
+                             "K1": "fused_a"})
+    timings.update(rel_fro_vs_packed=rel, first_generate_ms=t_gen * 1e3,
+                   lowerings=picks)
+    del engine
     return launches, timings
 
 
@@ -577,7 +1130,7 @@ def compare_logits(torch, got, want):
     return rel, float(diff.abs().max()), same
 
 
-def phase_mixtral(torch, gp, gg, cfgs, models, serve):
+def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     """mixtral-8x22b at its published widths, 4 of 56 layers, served through
     the packed path: K1 for attention and the LM head, K2 for the experts."""
     from repro_torch.models import moe
@@ -589,42 +1142,47 @@ def phase_mixtral(torch, gp, gg, cfgs, models, serve):
     t0 = time.perf_counter()
     params = model.init(0)
     raw_gb = torch.cuda.memory_allocated() / 1e9
+    # Load-time packing through K5: attention projections and the LM head
+    # by pack_b, the three expert stacks of each layer by pack_b_grouped.
+    want_load = counters.only(pack_b=4 * cfg.num_layers + 1,
+                              pack_b_grouped=3 * cfg.num_layers)
+    counters.reset()
     engine = serve.Engine(model, params, serve.ServeConfig(
         max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
         device=DEVICE)
     del params
     torch.cuda.synchronize()
+    load = counters.read()
     torch.cuda.empty_cache()
     log(f"  mixtral-8x22b: {cfg.num_layers} of 56 layers (depth is the only "
         f"cut, forced by memory), d_model {cfg.d_model}, {cfg.num_heads} "
         f"heads / {cfg.num_kv_heads} KV x {cfg.head_dim}, d_ff {cfg.d_ff}, "
         f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, vocab "
         f"{cfg.vocab_size}, window {cfg.sliding_window}; init + pack "
-        f"{time.perf_counter() - t0:.1f} s; raw f32 weights {raw_gb:.1f} GB, "
+        f"{time.perf_counter() - t0:.1f} s; after init {raw_gb:.1f} GB "
+        f"allocated (raw f32 weights, and olmo-1b's kept for phase 5), "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, packed "
-        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; dispatch "
-        f"{engine.dispatch_report}")
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; load launches {load} "
+        f"(want {want_load}); dispatch {engine.dispatch_report}")
+    if load != want_load:
+        raise AssertionError(f"load-time launch counts {load}")
     gen = torch.Generator(device="cpu").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
     want_k1 = (4 * cfg.num_layers + 1) * (STEPS + 1)
     want_k2 = 2 * cfg.num_layers * (STEPS + 1)
 
     # -- the main path, counted -------------------------------------------
-    gp.gemm_packed_fused_a.launches = 0
-    gg.gemm_grouped_packed_ragged.launches = 0
-    gg.gemm_grouped_packed.launches = 0
+    counters.reset()
     t0 = time.perf_counter()
     tokens = engine.generate({"tokens": prompt}, max_new_tokens=STEPS)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    launches = dict(k1=gp.gemm_packed_fused_a.launches,
-                    k2=gg.gemm_grouped_packed_ragged.launches,
-                    k3=gg.gemm_grouped_packed.launches)
+    launches = counters.read()
     log(f"  generate 4x128 + {STEPS} steps: {t_gen * 1e3:.1f} ms; launches "
-        f"K1 {launches['k1']} (want {want_k1}), K2 {launches['k2']} (want "
-        f"{want_k2}), K3 {launches['k3']} (want 0: the model always passes "
-        f"counts)")
-    if (launches["k1"], launches["k2"], launches["k3"]) != (want_k1, want_k2, 0):
+        f"{launches} (want K1 {want_k1}, K2 {want_k2}, K3 0: the model always "
+        f"passes counts)")
+    if launches != counters.only(gemm_packed_fused_a=want_k1,
+                                 gemm_grouped_packed_ragged=want_k2):
         raise AssertionError(f"launch counts {launches}")
     check_tokens(tokens, cfg)
 
@@ -701,7 +1259,34 @@ def phase_mixtral(torch, gp, gg, cfgs, models, serve):
                    prefill_counts=counts, prefill_dropped=dropped)
     del engine
     torch.cuda.empty_cache()
-    return launches, timings
+    return load, launches, timings
+
+
+class Counters:
+    """The launch counters of every kernel wrapper, by wrapper name."""
+
+    def __init__(self, fns):
+        self.fns = {fn.__name__: fn for fn in fns}
+
+    def reset(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self) -> dict:
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+    def only(self, **want) -> dict:
+        """The counts of a run that launched ``want`` and nothing else."""
+        out = {name: 0 for name in self.fns}
+        out.update(want)
+        return out
+
+
+def forward_sum(rows, kernel, m, key, counts):
+    """A per-shape column summed over one forward's calls (``counts``:
+    (K, N) -> calls in the forward)."""
+    return sum(r[key] * counts.get((r["k"], r["n"]), 0) for r in rows
+               if r["kernel"] == kernel and r.get("m") == m)
 
 
 def main() -> int:
@@ -709,10 +1294,15 @@ def main() -> int:
         import torch
         from repro_torch import configs as cfgs
         from repro_torch import models, serve
+        from repro_torch.core import contraction as ctr
+        from repro_torch.core import gemm, strategy
         from repro_torch.core import tile_format as tf
         from repro_torch.kernels import build
         from repro_torch.kernels import gemm_grouped as gg
         from repro_torch.kernels import gemm_packed as gp
+        from repro_torch.kernels import gemm_tiled as gt
+        from repro_torch.kernels import gemm_vsx_like as gv
+        from repro_torch.kernels import pack as pk
         from repro_torch.kernels import ref
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run from the "
@@ -724,10 +1314,15 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     card = card_line()
     log(f"card: {card}")
+    counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
+                         gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
+                         pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
+                         gv.matmul_vsx_like, gv.matmul_vsx_like_packed])
 
     log("phase 1: build + kernel vs plain")
     t0 = time.perf_counter()
@@ -739,22 +1334,48 @@ def main() -> int:
         for line in lines:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log(f"  gemm_vsx_like SASS: {check_no_tensor_cores(paths['gemm_vsx_like'])}")
     table, main_err = phase_kernels(torch, gp, ref, tf)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
+    layered_rows, layered_err = phase_layered(
+        torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
     torch.cuda.empty_cache()
 
-    log("phase 2: serve full-width olmo-1b")
-    launches, serve_t = phase_serve(torch, gp, cfgs, models, serve)
+    log("phase 2: serve full-width olmo-1b, packed weights")
+    load, launches, serve_t, packed_run = phase_serve(
+        torch, gp, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
     log(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
         f"published widths")
-    mix_launches, mix_t = phase_mixtral(torch, gp, gg, cfgs, models, serve)
+    mix_load, mix_launches, mix_t = phase_mixtral(
+        torch, gp, gg, counters, cfgs, models, serve)
+    torch.cuda.empty_cache()
+
+    log("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
+    sweep_launches, sweep_rows, grouped_sweep = phase_sweep(
+        torch, counters, gemm, strategy, ref)
+    torch.cuda.empty_cache()
+
+    log("phase 5: serve full-width olmo-1b, raw weights, Engine(model, params)")
+    raw_launches, raw_t = phase_serve_raw(torch, counters, ctr, serve,
+                                          packed_run)
+    del packed_run
+
+    by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
+               "mixtral-8x22b packed, load": mix_load,
+               "mixtral-8x22b packed": mix_launches,
+               "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches}
+
+    def path_counts(*names):
+        counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
+        return sum(counted.values()), {p: v for p, v in counted.items() if v}
 
     # One decode forward (batch 4) of K1 calls: the per-shape times weighted
     # by each shape's count in one forward (x 16 layers; the head once).
     layers = cfgs.get_config("olmo-1b").num_layers
     count = {s: (c * layers if c else 1) for s, c in OLMO_SHAPES.items()}
+    prefill_count = {s: c * layers for s, c in OLMO_SHAPES.items() if c}
     dec = [r for r in table if r["m"] == 4]
     agg = {key: sum(r[key] * count[(r["k"], r["n"])] for r in dec)
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
@@ -768,46 +1389,90 @@ def main() -> int:
     def gby(key):
         return ("bytes" if all(r[key] == "bytes" for r in gdec)
                 else "operations")
+
+    def layered_entry(kernel, m, counts, work):
+        rows = [r for r in layered_rows if r["kernel"] == kernel
+                and r.get("m") == m]
+        out = {key: forward_sum(layered_rows, kernel, m, key, counts)
+               for key in ("ms", "plain_ms", "bound_ms")}
+        lib = [r["library_ms"] for r in rows]
+        out["library_ms"] = (None if None in lib else
+                             forward_sum(layered_rows, kernel, m,
+                                         "library_ms", counts))
+        out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                           else "operations")
+        out.update(work=work, shapes=rows, card=card)
+        return out
+
+    decode_work = "one decode forward of olmo-1b, batch 4 (113 calls, M=4)"
     grouped_work = (f"one decode forward of {MIXTRAL_LAYERS}-layer "
                     f"mixtral-8x22b, batch 4 ({2 * MIXTRAL_LAYERS} calls: a "
                     f"gate/up pair and a down projection a layer, E=8 C=8)")
     library = ("torch.bmm on natural bf16 weights over the padded "
                "[E, S*C, K] A: two bmm + silu*mul for the pair, one for down")
-    summary = {"kernels": [{
-        "name": "gemm_packed_fused_a", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gemm_packed_fused_a.cu",
-        "replaces": "src/repro/kernels/gemm_packed.py:162",
-        "launches": launches + mix_launches["k1"],
-        "launches_by_path": {"olmo-1b": launches,
-                             "mixtral-8x22b": mix_launches["k1"]},
-        "max_abs_err": main_err,
-        "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"],
-        "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
-                     else "operations"),
-        "library_ms": agg["library_ms"],
-        "work": "one decode forward of olmo-1b, batch 4 (113 calls)",
-        "shapes": table, "serve": serve_t, "card": card}, {
-        "name": "gemm_grouped_packed_ragged", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gemm_grouped_packed.cu",
-        "replaces": "src/repro/kernels/gemm_grouped.py:284",
-        "launches": mix_launches["k2"], "max_abs_err": grouped_err,
-        "ms": gsum("k2_ms"), "plain_ms": gsum("k2_plain_ms"),
-        "bound_ms": gsum("k2_bound_ms"), "bound_by": gby("k2_bound_by"),
-        "library_ms": gsum("library_ms"), "library": library,
-        "work": grouped_work, "shapes": grouped_rows, "serve": mix_t,
-        "card": card}, {
-        "name": "gemm_grouped_packed", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gemm_grouped_packed.cu",
-        "replaces": "src/repro/kernels/gemm_grouped.py:112",
-        "launches": mix_launches["k3"], "on_main_path": False,
-        "max_abs_err": grouped_err,
-        "ms": gsum("k3_ms"), "plain_ms": gsum("k3_plain_ms"),
-        "bound_ms": gsum("k3_bound_ms"), "bound_by": gby("k3_bound_by"),
-        "library_ms": gsum("library_ms"), "library": library,
-        "work": grouped_work + "; every row live (no counts)",
-        "card": card}]}
-    log(json.dumps(summary))
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = []
+
+    def entry(name, source, replaces, counted, **fields):
+        total, paths_ = path_counts(*counted)
+        kernels.append(dict(name=name, route="cuda", source=src + source,
+                            replaces=replaces, launches=total,
+                            launches_by_path=paths_, **fields))
+
+    entry("gemm_packed_fused_a", "gemm_packed_fused_a.cu",
+          "src/repro/kernels/gemm_packed.py:162", ["gemm_packed_fused_a"],
+          max_abs_err=main_err, ms=agg["ms"], plain_ms=agg["plain_ms"],
+          bound_ms=agg["bound_ms"],
+          bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+                    else "operations"),
+          library_ms=agg["library_ms"], work=decode_work, shapes=table,
+          serve=serve_t, card=card)
+    entry("gemm_grouped_packed_ragged", "gemm_grouped_packed.cu",
+          "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
+          max_abs_err=grouped_err, ms=gsum("k2_ms"), plain_ms=gsum("k2_plain_ms"),
+          bound_ms=gsum("k2_bound_ms"), bound_by=gby("k2_bound_by"),
+          library_ms=gsum("library_ms"), library=library, work=grouped_work,
+          shapes=grouped_rows, serve=mix_t, card=card)
+    entry("gemm_grouped_packed", "gemm_grouped_packed.cu",
+          "src/repro/kernels/gemm_grouped.py:112", ["gemm_grouped_packed"],
+          max_abs_err=grouped_err, ms=gsum("k3_ms"), plain_ms=gsum("k3_plain_ms"),
+          bound_ms=gsum("k3_bound_ms"), bound_by=gby("k3_bound_by"),
+          library_ms=gsum("library_ms"), library=library,
+          work=grouped_work + "; every row live (no counts)", card=card)
+    entry("pack", "pack.cu", "src/repro/kernels/pack.py:43",
+          ["pack_a", "pack_b"], max_abs_err=layered_err["pack_b"],
+          **layered_entry("pack_b", None, prefill_count,
+                          "the 112 per-call pack_b of one raw-weight olmo-1b "
+                          "prefill forward (bf16, bk 128 bn 64)"),
+          serve=raw_t)
+    grouped_pack = [r for r in layered_rows if r["kernel"] == "pack_b_grouped"][0]
+    entry("pack_b_grouped", "pack.cu", "src/repro/kernels/pack.py:121",
+          ["pack_b_grouped"], max_abs_err=layered_err["pack_b_grouped"],
+          **{k: grouped_pack[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+          work=f"one mixtral-8x22b expert stack, E={MIX_E} x {MIX_D} x "
+               f"{MIX_F} bf16", grouped_sweep=grouped_sweep, card=card)
+    entry("gemm_packed", "gemm_packed.cu", "src/repro/kernels/gemm_packed.py:93",
+          ["gemm_packed"], max_abs_err=layered_err["gemm_packed"],
+          **layered_entry("gemm_packed", 4, count, decode_work +
+                          ", A and B pre-packed"))
+    entry("gemm_tiled", "gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:58",
+          ["gemm_tiled"], max_abs_err=layered_err["gemm_tiled"],
+          **layered_entry("gemm_tiled", 4, count, decode_work +
+                          ", the LM head as table.t()"),
+          serve=raw_t, sweep=sweep_rows)
+    entry("matmul_vsx_like", "gemm_vsx_like.cu",
+          "src/repro/kernels/gemm_vsx_like.py:73", ["matmul_vsx_like"],
+          max_abs_err=layered_err["matmul_vsx_like"],
+          **layered_entry("matmul_vsx_like", 4, count, decode_work +
+                          ", f32 output, CUDA cores only"))
+    entry("matmul_vsx_like_packed", "gemm_vsx_like.cu",
+          "src/repro/kernels/gemm_vsx_like.py:108", ["matmul_vsx_like_packed"],
+          on_main_path=False, max_abs_err=layered_err["matmul_vsx_like_packed"],
+          **layered_entry("matmul_vsx_like_packed", 4, count, decode_work +
+                          ", B pre-packed, f32 output, CUDA cores only"))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,10 +2,13 @@
 the one dispatch point, for dense and grouped (MoE expert) contractions.
 
 Every contraction is declared as a frozen :class:`ContractionSpec`; each
-lowering registers ``supports(spec)`` and a cost hint; :func:`dispatch`
-chooses with the one precedence rule explicit > env
-(``REPRO_TORCH_GEMM_STRATEGY``, honoured only for a lowering of the spec's
-kind that supports it) > auto. The guarded fallback chain comes with a
+lowering registers ``supports(spec)`` and a cost hint ``cost(spec,
+on_card)``; :func:`dispatch` chooses with the one precedence rule explicit >
+env (``REPRO_TORCH_GEMM_STRATEGY``, honoured only for a lowering of the
+spec's kind that supports it) > auto. ``on_card`` says whether the operands
+lie on the card, as the reference's ``kernel_backend()`` says whether it
+targets the TPU: the auto pick there is the planner's kernel strategy, on
+the CPU the plain torch lowerings. The guarded fallback chain comes with a
 later slice of the port: here a failing lowering raises.
 """
 from __future__ import annotations
@@ -25,6 +28,10 @@ _ENV_STRATEGY = "REPRO_TORCH_GEMM_STRATEGY"
 KINDS = ("dense", "grouped")
 WEIGHT_KINDS = ("raw", "packed")
 ACCUMS = ("native", "f32")
+
+# Cost of the comparison lowerings (the paper's slower strategies): runnable
+# when named, never the auto pick.
+COMPARISON_COST = float("inf")
 
 
 def weight_kind(w) -> str:
@@ -113,6 +120,14 @@ class ContractionSpec:
                    weight=weight_kind(w), b_format=weight_format(w),
                    counts=counts, occupancy=occupancy or 1.0, epilogue=epi)
 
+    @property
+    def b_dtype(self) -> Optional[str]:
+        """B's element dtype where it differs from the compute dtype (a
+        quantized format), for the planner's byte accounting."""
+        if self.b_format is not None and self.b_format.is_quantized:
+            return self.b_format.dtype
+        return None
+
     def resolved_out_dtype(self, a, c=None) -> torch.dtype:
         if self.out_dtype is not None:
             return torch_dtype(self.out_dtype)
@@ -135,30 +150,35 @@ class ContractionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Lowering:
-    """One registered lowering. Dense: ``run(spec, a, w, *, bias)`` on a
-    folded [M, K] activation. Grouped: ``run(spec, a, w, *, w2, bias,
-    counts)``; with ``folds`` it sees the expert-major [E, M, K] form and
-    [E, S] counts, without it the caller's [*lead, E, M, K] and [*lead, E]."""
+    """One registered lowering. Dense: ``run(spec, a, w, *, bias, c, alpha,
+    beta, plan)`` on a folded [M, K] activation. Grouped: ``run(spec, a, w,
+    *, w2, bias, counts)``; with ``folds`` it sees the expert-major [E, M,
+    K] form and [E, S] counts, without it the caller's [*lead, E, M, K] and
+    [*lead, E]. ``cost(spec, on_card)`` is the auto pick's preference (0 for
+    the planner's choice). ``upgrade(spec)`` may name a more capable sibling
+    for a spec this lowering cannot run (``grouped_packed`` on a spec with
+    counts lands on ``grouped_packed_ragged``)."""
 
     name: str
     kind: str
     supports: Callable[[ContractionSpec], bool]
-    cost: Callable[[ContractionSpec], float]
+    cost: Callable[[ContractionSpec, bool], float]
     run: Callable
     folds: bool = True
+    upgrade: Optional[Callable[[ContractionSpec], Optional[str]]] = None
 
 
 LOWERINGS: Dict[str, Lowering] = {}
 
 
 def register_lowering(name: str, kind: str, *, supports, cost, run,
-                      folds: bool = True) -> Lowering:
+                      folds: bool = True, upgrade=None) -> Lowering:
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}; got {kind!r}")
     if name in LOWERINGS:
         raise ValueError(f"lowering {name!r} already registered")
     low = Lowering(name=name, kind=kind, supports=supports, cost=cost,
-                   run=run, folds=folds)
+                   run=run, folds=folds, upgrade=upgrade)
     LOWERINGS[name] = low
     return low
 
@@ -174,18 +194,32 @@ def lowerings_for(spec: ContractionSpec) -> Tuple[Lowering, ...]:
                  if low.kind == spec.kind and low.supports(spec))
 
 
-def dispatch(spec: ContractionSpec, *,
-             strategy: Optional[str] = None) -> Lowering:
+def dispatch(spec: ContractionSpec, *, strategy: Optional[str] = None,
+             on_card: bool = False) -> Lowering:
     """Choose THE lowering for a spec: explicit > env > auto (cheapest
-    supporting lowering, ties by name)."""
+    supporting lowering by ``cost(spec, on_card)``, ties by name)."""
     _ensure_registered()
+
+    def upgraded(low: Lowering) -> Optional[Lowering]:
+        """A named lowering of the spec's kind, or its declared more
+        capable sibling, if either supports the spec."""
+        if low.kind != spec.kind:
+            return None
+        if low.supports(spec):
+            return low
+        name = low.upgrade(spec) if low.upgrade is not None else None
+        if name is not None and LOWERINGS[name].supports(spec):
+            return LOWERINGS[name]
+        return None
+
     if strategy is not None and strategy != "auto":
         low = LOWERINGS.get(strategy)
         if low is None:
             raise KeyError(f"unknown lowering {strategy!r}; one of "
                            f"{sorted(LOWERINGS)}")
-        if low.kind == spec.kind and low.supports(spec):
-            return low
+        chosen = upgraded(low)
+        if chosen is not None:
+            return chosen
         raise ValueError(
             f"lowering {strategy!r} does not support {spec.describe()}")
     env = os.environ.get(_ENV_STRATEGY)
@@ -194,9 +228,11 @@ def dispatch(spec: ContractionSpec, *,
         if low is None:
             raise KeyError(f"unknown lowering {env!r} ({_ENV_STRATEGY}); "
                            f"one of {sorted(LOWERINGS)}")
-        if low.kind == spec.kind and low.supports(spec):
-            return low
+        chosen = upgraded(low)
+        if chosen is not None:
+            return chosen
     cands = lowerings_for(spec)
     if not cands:
         raise ValueError(f"no registered lowering supports {spec.describe()}")
-    return min(cands, key=lambda lw: (lw.cost(spec), lw.name))
+    return min(cands, key=lambda lw: (lw.cost(spec, on_card), lw.name))
+

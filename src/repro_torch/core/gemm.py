@@ -1,15 +1,17 @@
 """Public contraction API of the port: :func:`contract` executes a declared
-:class:`ContractionSpec` (validate -> dispatch -> fold -> run -> restore)
-and :func:`linear` is the facade the dense model layers call.
+:class:`ContractionSpec` (validate -> dispatch -> fold -> run -> restore);
+:func:`matmul` (the paper's ``C <- epilogue(alpha * A @ B + beta * C +
+bias)``) and :func:`linear` are the facades that build the specs.
 
-Two dense lowerings are registered: ``packed_weight`` (load-time-packed
-weights, the fused-A CUDA kernel on the card) and ``torch_matmul`` (raw
-weights, plain torch, CPU only — on the card raw weights would lower to the
-blocked kernel ``gemm_tiled``, which is not ported yet). Two grouped ones:
-``grouped_packed_weight`` (a :class:`GroupedPackedWeight`, the grouped
-CUDA kernel on the card) and ``grouped_einsum`` (raw [E, K, N] stacks, one
-batched ``torch.einsum`` on unfolded operands, as the reference leaves its
-raw expert contractions to XLA outside any kernel).
+The dense lowerings are ``packed_weight`` (load-time-packed weights, the
+fused-A kernel K1) and, for raw weights, the strategies of
+``core/strategy.py``: on the card the planner picks ``tiling`` (K7 on the
+strided operands) or ``tiling_packing_fused`` (K5 packs B per call, then
+K1), and the comparison strategies run when named; on the CPU the auto pick
+is ``torch_matmul``. The grouped ones are ``grouped_packed_weight`` (a
+:class:`GroupedPackedWeight`, K2 / K3) and, for raw [E, K, N] stacks,
+``grouped_einsum``, ``grouped_packed`` and ``grouped_packed_ragged``.
+Whether the call targets the card is read from the activation's device.
 """
 from __future__ import annotations
 
@@ -18,63 +20,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core import contraction as ctr
+from repro_torch.core import strategy as _strategy  # noqa: F401  (registers)
 from repro_torch.core.contraction import ContractionSpec, dispatch
 from repro_torch.core.epilogue import as_epilogue_spec
-from repro_torch.kernels.ref import ragged_row_mask
+from repro_torch.core.planner import GemmPlan
 
 # Importing the packed-weight module registers its lowering.
 from repro_torch.core import layered as _layered  # noqa: F401  isort: skip
-
-
-def _run_torch_matmul(spec, a, w, *, bias=None):
-    """Raw [K, N] weight, plain torch (the reference's jnp-backend library
-    lowering): ``accum="f32"`` contracts and applies the epilogue in f32;
-    ``"native"`` keeps the product in the input dtype."""
-    if a.is_cuda:
-        raise NotImplementedError(
-            "raw-weight contractions on the card lower to the blocked kernel "
-            "gemm_tiled (K7), which is not ported yet; serve with "
-            "ServeConfig(pack_weights=True)")
-    out_dtype = spec.resolved_out_dtype(a)
-    epi = spec.epilogue.with_bias(bias is not None)
-    if spec.accum == "f32":
-        acc = torch.matmul(a.to(torch.float32), w.to(torch.float32))
-        return epi.apply(acc, bias=bias).to(out_dtype)
-    dt = torch.promote_types(a.dtype, w.dtype)
-    acc = torch.matmul(a.to(dt), w.to(dt))
-    return epi.apply(acc.to(out_dtype), bias=bias)
-
-
-ctr.register_lowering(
-    "torch_matmul", "dense",
-    supports=lambda spec: spec.weight == "raw",
-    cost=lambda spec: 0.0,
-    run=_run_torch_matmul)
-
-
-def _run_grouped_einsum(spec, a, w, *, w2=None, bias=None, counts=None):
-    """Raw expert stacks on UNFOLDED operands (a [*lead, E, M, K], counts
-    [*lead, E]): one batched einsum per stream in the activation dtype,
-    the epilogue chain, and the ragged contract as an output mask (the
-    product is row-local, so masking the output alone establishes it)."""
-    acc = torch.einsum("...emk,ekn->...emn", a, w)
-    acc2 = (torch.einsum("...emk,ekn->...emn", a, w2)
-            if w2 is not None else None)
-    epi = spec.epilogue.with_bias(bias is not None)
-    out = epi.apply(acc, bias=None if bias is None else bias[:, None, :],
-                    gate=acc2).to(spec.resolved_out_dtype(a))
-    if counts is not None:
-        mask = ragged_row_mask(out.shape[-2], counts)[..., None]
-        out = torch.where(mask, out, torch.zeros((), dtype=out.dtype,
-                                                 device=out.device))
-    return out
-
-
-ctr.register_lowering(
-    "grouped_einsum", "grouped",
-    supports=lambda spec: spec.weight == "raw",
-    cost=lambda spec: 0.0,
-    run=_run_grouped_einsum, folds=False)
 
 
 def fold_grouped(x: torch.Tensor, counts: Optional[torch.Tensor] = None):
@@ -100,6 +52,15 @@ def fold_grouped(x: torch.Tensor, counts: Optional[torch.Tensor] = None):
     return x3, fc, restore
 
 
+def _check_gemm_extras(spec, c, alpha, beta) -> None:
+    # The c/alpha/beta form is dense-only: the grouped lowerings have no
+    # accumulate-into-C path, so reject rather than compute alpha=1, beta=0.
+    if spec.kind == "grouped" and (c is not None or alpha != 1.0
+                                   or beta != 0.0):
+        raise ValueError("c/alpha/beta are dense-only GEMM operands; got "
+                         f"them with {spec.describe()}")
+
+
 def _check_operands(spec, w, w2, bias, counts) -> None:
     if ctr.weight_kind(w) != spec.weight:
         raise ValueError(f"weight kind {ctr.weight_kind(w)!r} != spec "
@@ -115,23 +76,51 @@ def _check_operands(spec, w, w2, bias, counts) -> None:
 
 
 def contract(spec: ContractionSpec, a: torch.Tensor, w, *, w2=None,
-             bias=None, counts=None,
-             strategy: Optional[str] = None) -> torch.Tensor:
-    """Execute a declared contraction. Dense: ``a`` is [*lead, K]; leading
-    dims fold into M for the lowering and are restored on the way out.
-    Grouped: ``a`` is [*lead, E, M, K] with ``counts`` [*lead, E] for a
-    ragged spec and ``w2`` the gate-mul partner; folding lowerings see the
-    expert-major form (:func:`fold_grouped`)."""
+             c: Optional[torch.Tensor] = None, bias=None, counts=None,
+             alpha: float = 1.0, beta: float = 0.0,
+             strategy: Optional[str] = None,
+             plan: Optional[GemmPlan] = None) -> torch.Tensor:
+    """Execute a declared contraction. Dense: ``a`` is [*lead, K] (``c``
+    [*lead, N] when given); leading dims fold into M for the lowering and
+    are restored on the way out. Grouped: ``a`` is [*lead, E, M, K] with
+    ``counts`` [*lead, E] for a ragged spec and ``w2`` the gate-mul
+    partner; folding lowerings see the expert-major form
+    (:func:`fold_grouped`). The auto pick targets the card when ``a`` lies
+    on it."""
     _check_operands(spec, w, w2, bias, counts)
-    low = dispatch(spec, strategy=strategy)
+    _check_gemm_extras(spec, c, alpha, beta)
+    low = dispatch(spec, strategy=strategy, on_card=a.is_cuda)
     if spec.kind == "dense":
         lead = a.shape[:-1]
-        out = low.run(spec, a.reshape(-1, a.shape[-1]), w, bias=bias)
+        if c is not None:
+            c = c.reshape(-1, c.shape[-1])
+        out = low.run(spec, a.reshape(-1, a.shape[-1]), w, bias=bias, c=c,
+                      alpha=alpha, beta=beta, plan=plan)
         return out.reshape(*lead, out.shape[-1])
     if not low.folds:
         return low.run(spec, a, w, w2=w2, bias=bias, counts=counts)
     x3, fc, restore = fold_grouped(a, counts)
     return restore(low.run(spec, x3, w, w2=w2, bias=bias, counts=fc))
+
+
+def matmul(a: torch.Tensor, b, c: Optional[torch.Tensor] = None, *,
+           alpha: float = 1.0, beta: float = 0.0, strategy: str = "auto",
+           plan: Optional[GemmPlan] = None, out_dtype=None,
+           bias: Optional[torch.Tensor] = None,
+           epilogue="none") -> torch.Tensor:
+    """``C <- epilogue(alpha * A @ B + beta * C + bias)``, 2-D operands.
+
+    ``b`` is a raw [K, N] tensor or a :class:`PackedWeight`. ``accum`` is
+    pinned to "f32": the GEMM contract accumulates and applies the epilogue
+    in full precision. ``strategy`` names a lowering (any of
+    ``core.strategy.STRATEGIES`` for a raw ``b``) or "auto"."""
+    m, k = a.shape
+    n = b.n if ctr.is_packed(b) else b.shape[1]
+    spec = ContractionSpec.dense(
+        m, k, n, a.dtype, w=b, epilogue=as_epilogue_spec(epilogue),
+        bias=bias is not None, out_dtype=out_dtype, accum="f32")
+    return contract(spec, a, b, c=c, bias=bias, alpha=alpha, beta=beta,
+                    strategy=strategy, plan=plan)
 
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
@@ -148,5 +137,30 @@ def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     return contract(spec, x, w, bias=bias, strategy=strategy)
 
 
-__all__ = ["contract", "dispatch", "fold_grouped", "linear",
-           "ContractionSpec"]
+def resolve_strategy(m: int, k: int, n: int, dtype, strategy: str = "auto",
+                     *, on_card: bool = False) -> str:
+    """The lowering ``dispatch`` chooses for a raw-weight dense contraction
+    (explicit > env > auto), by name."""
+    spec = ContractionSpec.dense(m, k, n, dtype)
+    return dispatch(spec, strategy=strategy, on_card=on_card).name
+
+
+def resolve_grouped_strategy(e: int, m: int, k: int, n: int, dtype,
+                             strategy: str = "auto", *,
+                             counts_known: bool = False,
+                             occupancy: float = 1.0,
+                             on_card: bool = False) -> str:
+    """The lowering ``dispatch`` chooses for a raw-stack grouped
+    contraction, by name. An env override naming a dense lowering never
+    re-routes it."""
+    spec = ContractionSpec.grouped(e, m, k, n, dtype, counts=counts_known,
+                                   occupancy=occupancy)
+    return dispatch(spec, strategy=strategy, on_card=on_card).name
+
+
+run_strategy = _strategy.run
+run_grouped_strategy = _strategy.run_grouped
+
+__all__ = ["contract", "dispatch", "fold_grouped", "linear", "matmul",
+           "resolve_strategy", "resolve_grouped_strategy", "run_strategy",
+           "run_grouped_strategy", "ContractionSpec"]

@@ -34,7 +34,7 @@ from repro_torch.core.tile_format import TileFormat, normalize_packed
 from repro_torch.kernels.gemm_grouped import (gemm_grouped_packed,
                                               gemm_grouped_packed_ragged)
 from repro_torch.kernels.gemm_packed import gemm_packed_fused_a
-from repro_torch.kernels.ref import pack_b_ref
+from repro_torch.kernels.pack import pack_b, pack_b_grouped
 
 
 def _parse_quantize(quantize: Optional[str]):
@@ -62,11 +62,13 @@ class _PackedCommon:
 
     @staticmethod
     def _pack_tiles(w: torch.Tensor, plan: GemmPlan, quantize):
-        """``w`` [..., K, N] -> (packed, scales-or-None) per ``plan``."""
+        """``w`` [K, N] or [E, K, N] -> (packed, scales-or-None) per
+        ``plan``, by the pack kernel K5 (its plain version on the CPU)."""
         if quantize is not None and not plan.b_format.is_quantized:
             raise ValueError(f"quantize={quantize!r} needs a plan with "
                              f"b_dtype set (got {plan})")
-        return normalize_packed(pack_b_ref(w, plan.b_format), plan.b_format)
+        packer = pack_b if w.dim() == 2 else pack_b_grouped
+        return normalize_packed(packer(w, plan.b_format), plan.b_format)
 
     def _clamp_bm(self, rows: int) -> int:
         # The packed buffer does not depend on bm: clamp the m-block to the
@@ -90,7 +92,7 @@ class PackedWeight(_PackedCommon):
     def pack(cls, w: torch.Tensor, *, m_hint: int = 1024,
              plan: Optional[GemmPlan] = None,
              quantize: Optional[str] = None) -> "PackedWeight":
-        """Pack ``w`` [K, N] with the torch packer, on ``w``'s device."""
+        """Pack ``w`` [K, N] on ``w``'s device."""
         assert w.dim() == 2, tuple(w.shape)
         k, n = w.shape
         b_dtype, gran = _parse_quantize(quantize)
@@ -160,7 +162,7 @@ class GroupedPackedWeight(_PackedCommon):
     def pack(cls, w: torch.Tensor, *, m_hint: int = 1024,
              plan: Optional[GemmPlan] = None, n_b_streams: int = 1,
              quantize: Optional[str] = None) -> "GroupedPackedWeight":
-        """Pack ``w`` [E, K, N] with the torch packer, on ``w``'s device."""
+        """Pack ``w`` [E, K, N] on ``w``'s device."""
         assert w.dim() == 3, tuple(w.shape)
         e, k, n = w.shape
         b_dtype, gran = _parse_quantize(quantize)
@@ -265,7 +267,11 @@ class GroupedPackedWeight(_PackedCommon):
             epilogue="silu_gate", **self._kernel_kw(up, out_dtype, a))
 
 
-def _run_packed_weight(spec, a, w, *, bias=None):
+def _run_packed_weight(spec, a, w, *, bias=None, c=None, alpha=1.0, beta=0.0,
+                       plan=None):
+    if c is not None or alpha != 1.0 or beta != 0.0:
+        raise ValueError("the packed_weight lowering takes epilogue(a @ W + "
+                         "bias) only (no c/alpha/beta)")
     return w._matmul_impl(a, bias=bias, epilogue=spec.epilogue.kernel_name,
                           out_dtype=spec.resolved_out_dtype(a))
 
@@ -273,7 +279,8 @@ def _run_packed_weight(spec, a, w, *, bias=None):
 ctr.register_lowering(
     "packed_weight", "dense",
     supports=lambda spec: spec.weight == "packed",
-    cost=lambda spec: 0.0,   # load-time packing already paid: always the pick
+    # load-time packing already paid: always the pick
+    cost=lambda spec, on_card: 0.0,
     run=_run_packed_weight)
 
 
@@ -298,5 +305,5 @@ def _run_grouped_packed_weight(spec, a, w, *, w2=None, bias=None,
 ctr.register_lowering(
     "grouped_packed_weight", "grouped",
     supports=lambda spec: spec.weight == "packed",
-    cost=lambda spec: 0.0,
+    cost=lambda spec, on_card: 0.0,
     run=_run_grouped_packed_weight)

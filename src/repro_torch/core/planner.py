@@ -20,6 +20,12 @@ parallelism is 132 SMs that each want one or more blocks. The constraints:
 
 bk is as deep as the problem allows up to 128: fewer per-tile scale
 multiplies for quantized formats and longer contiguous B runs.
+
+The strategy choice (:func:`choose_strategy`, :func:`should_pack`) keeps
+the reference's two conditions for per-call packing of B, solved with the
+card's numbers: (a) more than one m-block (``m > max_bm``: otherwise each B
+tile is read once and a copy buys nothing), and (b) B larger than a small
+slice of a block's fast memory (``k * n * b_item > smem_per_block // 32``).
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core import dtypes as mdt
+from repro_torch.core.dtypes import ROW_ALIGN
 from repro_torch.core.tile_format import ScaleSpec, TileFormat, is_dequant_pair
 
 
@@ -50,6 +57,7 @@ class GemmPlan:
     bn: int
     dtype: str
     acc_dtype: str
+    layout_a: str = "row"
     layout_b: str = "row"
     b_dtype: Optional[str] = None   # B element dtype when it differs (int8/int4)
     b_scale: str = "tile"           # quantized scale granularity: tile | col
@@ -63,12 +71,15 @@ class GemmPlan:
         return TileFormat(bk=self.bk, bn=self.bn, layout=self.layout_b,
                           dtype=bdt, scale=scale)
 
+    def kwargs(self) -> dict:
+        return dict(bm=self.bm, bk=self.bk, bn=self.bn)
+
     def smem_working_set(self, target: HopperTarget = H100,
                          n_b_streams: int = 1) -> int:
         """(C1)'s left side: the staged A slice and ``n_b_streams`` B
         slices (the silu-gate pair stages a second one), widened to the
         accumulator type."""
-        acc_item = int(mdt.info(self.acc_dtype).itemsize)
+        acc_item = mdt.torch_dtype(self.acc_dtype).itemsize  # f32 or i32
         return target.kc * (self.bm + 1 + n_b_streams * (target.max_bn + 1)
                             ) * acc_item
 
@@ -125,3 +136,51 @@ def plan_grouped_gemm(e: int, m: int, k: int, n: int, dtype="float32", *,
                      layout_b=layout_b, scale_granularity=scale_granularity)
     plan.validate(target, n_b_streams)
     return plan
+
+
+def should_pack(m: int, k: int, n: int, dtype="float32", *,
+                b_dtype: Optional[str] = None, target: HopperTarget = H100,
+                group: int = 1, occupancy: float = 1.0) -> bool:
+    """Whether a per-call tile-major copy of B, streamed against A in its
+    own layout, pays for itself: (a) more than one m-block, ``m >
+    max_bm``, and (b) B's bytes (at B's own dtype) beyond
+    ``smem_per_block // 32``. ``group=E`` (the grouped kernel over a
+    stacked [E, K, N] B, ``m`` the per-expert rows): (a) becomes at least
+    one 16-row block of EXPECTED rows, ``m * occupancy > 16``, and (b) is
+    tested against the whole stack."""
+    item = mdt.info(mdt.dtype_name(dtype)).itemsize
+    b_item = mdt.info(mdt.dtype_name(b_dtype)).itemsize if b_dtype else item
+    if group > 1:
+        m_expected = m * min(max(occupancy, 0.0), 1.0)
+        return (m_expected > ROW_ALIGN
+                and group * k * n * b_item > target.smem_per_block // 32)
+    return m > target.max_bm and k * n * b_item > target.smem_per_block // 32
+
+
+def choose_strategy(m: int, k: int, n: int, dtype="float32", *,
+                    b_dtype: Optional[str] = None,
+                    target: HopperTarget = H100,
+                    weights_prepacked: bool = False) -> str:
+    """The kernel-target pick for a raw-weight dense GEMM: ``tiling`` (K7
+    on the strided operands) below the crossover, ``tiling_packing_fused``
+    (K5 packs B, K1 streams A pack-free) above it; load-time-packed weights
+    always take the fused kernel."""
+    if weights_prepacked or should_pack(m, k, n, dtype, b_dtype=b_dtype,
+                                        target=target):
+        return "tiling_packing_fused"
+    return "tiling"
+
+
+def choose_grouped_strategy(e: int, m: int, k: int, n: int, dtype="float32",
+                            *, b_dtype: Optional[str] = None,
+                            target: HopperTarget = H100,
+                            counts_known: bool = False,
+                            occupancy: float = 1.0) -> str:
+    """The kernel-target pick for a raw expert stack: above the grouped
+    crossover the stack is packed per call (K5) for the grouped kernel —
+    ``grouped_packed_ragged`` (K2) when counts come with the call, else
+    ``grouped_packed`` (K3) — below it one batched einsum."""
+    if should_pack(m, k, n, dtype, b_dtype=b_dtype, target=target, group=e,
+                   occupancy=occupancy):
+        return "grouped_packed_ragged" if counts_known else "grouped_packed"
+    return "grouped_einsum"

@@ -1,5 +1,6 @@
 """Shared pieces of the port's GEMM kernels: the store-epilogue table, the
-accumulator-dtype rule and padding helpers.
+accumulator-dtype rule, the plain versions' accumulator and store epilogue,
+and padding helpers.
 
 ``KERNEL_EPILOGUES`` is the plain-torch statement of what every kernel's
 store epilogue computes on its f32 accumulator; the CUDA kernels carry the
@@ -47,3 +48,28 @@ def acc_dtype_for(dtype: torch.dtype) -> torch.dtype:
     if not dtype.is_floating_point:
         return torch.int32
     return torch.float32
+
+
+def plain_acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on the accumulator type: f32 for float operands, i32 for
+    integer ones. The integer product is summed in f64 (exact below 2^53),
+    which the card's matmul supports where it has no i32 one."""
+    if acc_dtype_for(a.dtype) == torch.int32:
+        return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(
+            torch.int32)
+    return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def finalize(acc: torch.Tensor, c, alpha: float, beta: float, bias, epilogue,
+             out_dtype) -> torch.Tensor:
+    """The reference's ``finalize_gemm`` on a finished accumulator: alpha,
+    then beta * C, then bias, then the activation, then one cast. C and the
+    bias are cast to the accumulator's type first (i32 for an integer
+    product), and the arithmetic is f32, as an i32 accumulator times a
+    Python float is in the reference."""
+    out = alpha * acc.to(torch.float32)
+    if c is not None and beta != 0:
+        out = out + beta * c.to(acc.dtype).to(torch.float32)
+    if bias is not None:
+        out = out + bias.to(acc.dtype).to(torch.float32)
+    return KERNEL_EPILOGUES[kernel_epilogue_name(epilogue)](out).to(out_dtype)

@@ -1,6 +1,7 @@
-// Device code shared by the port's packed-B GEMM kernels
-// (gemm_packed_fused_a.cu, gemm_grouped_packed.cu): dtype codes, the
-// activation table and output store, scalar element loads (int4 nibbles
+// Device code shared by the port's GEMM kernels (gemm_packed_fused_a.cu,
+// gemm_grouped_packed.cu and, through gemm_blocked.cuh, gemm_tiled.cu,
+// gemm_packed.cu and gemm_vsx_like.cu): dtype codes, the activation table,
+// the output store and the fused store epilogue, scalar element loads (int4 nibbles
 // sign-extended, so -8 reads back), the mma.sync m16n8k16 / ldmatrix
 // wrappers for bf16 and f16, and the widening of a 32-bit B word into
 // 16-bit values for the tensor cores.
@@ -39,6 +40,31 @@ __device__ __forceinline__ void store_out(void* out, long long i, float v, int d
     default: break;
   }
 }
+
+// The fused store epilogue of every GEMM kernel (finalize_gemm): col scale,
+// alpha / beta * C, bias, activation, one store of the [M, N] output.
+struct Epilogue {
+  const float* scales;
+  int scale_mode;  // 0 none, 1 per (Nb, Kb) tile, 2 per Nb column
+  float alpha, beta;
+  const float* C;
+  long long ldc;
+  const float* bias;
+  int act;
+  void* out;
+  int out_dt;
+  int M, N;
+
+  // finalize_gemm: col scale, alpha/beta, bias, activation, one store.
+  __device__ __forceinline__ void store(float v, int r, int gn, int j) const {
+    if (r >= M || gn >= N) return;
+    if (scale_mode == 2) v *= scales[j];
+    v = alpha * v;
+    if (C != nullptr && beta != 0.0f) v += beta * C[static_cast<long long>(r) * ldc + gn];
+    if (bias != nullptr) v += bias[gn];
+    store_out(out, static_cast<long long>(r) * N + gn, activate(v, act), out_dt);
+  }
+};
 
 constexpr int FMA_THREADS = 256;  // a 16 x 16 grid of threads
 constexpr int MAX_BM = 64;

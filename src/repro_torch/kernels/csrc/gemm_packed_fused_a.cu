@@ -41,29 +41,6 @@
 
 namespace {
 
-struct Epilogue {
-  const float* scales;
-  int scale_mode;  // 0 none, 1 per (Nb, Kb) tile, 2 per Nb column
-  float alpha, beta;
-  const float* C;
-  long long ldc;
-  const float* bias;
-  int act;
-  void* out;
-  int out_dt;
-  int M, N;
-
-  // finalize_gemm: col scale, alpha/beta, bias, activation, one store.
-  __device__ __forceinline__ void store(float v, int r, int gn, int j) const {
-    if (r >= M || gn >= N) return;
-    if (scale_mode == 2) v *= scales[j];
-    v = alpha * v;
-    if (C != nullptr && beta != 0.0f) v += beta * C[static_cast<long long>(r) * ldc + gn];
-    if (bias != nullptr) v += bias[gn];
-    store_out(out, static_cast<long long>(r) * N + gn, activate(v, act), out_dt);
-  }
-};
-
 // ---------------------------------------------------------------------------
 // fused_a_fma: scalar FMAs on shared-memory tiles (f32 and int8 activations)
 // ---------------------------------------------------------------------------

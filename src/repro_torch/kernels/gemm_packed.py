@@ -1,9 +1,15 @@
-"""``gemm_packed_fused_a`` — natural-layout A against a load-time-packed B,
-with the dequant / alpha-beta / bias / activation epilogue fused into the
-store. The CUDA kernel is ``csrc/gemm_packed_fused_a.cu``; its plain torch
-version :func:`gemm_packed_fused_a_plain` sits beside it.
+"""The packed-operand GEMMs, each with the alpha-beta / bias / activation
+epilogue fused into the store:
 
-The wrapper takes the plain version only for tensors on the CPU. For a CUDA
+  * ``gemm_packed_fused_a`` (K1) — natural-layout A against a packed B
+    (float, or int8 / int4 tiles with scales, dequantized in the kernel).
+    CUDA kernel ``csrc/gemm_packed_fused_a.cu``, plain torch version
+    :func:`gemm_packed_fused_a_plain`.
+  * ``gemm_packed`` (K6) — BOTH operands packed tile-major (the paper's
+    Tiling+Packing: ``pack_a`` + ``pack_b`` + this kernel). CUDA kernel
+    ``csrc/gemm_packed.cu``, plain torch version :func:`gemm_packed_plain`.
+
+A wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback.
 """
 from __future__ import annotations
@@ -17,10 +23,12 @@ import torch
 from repro_torch.core.dtypes import dtype_name
 from repro_torch.core.tile_format import TileFormat
 from repro_torch.kernels import build
+from repro_torch.kernels import gemm_tiled as gt
 from repro_torch.kernels.common import (EPILOGUE_CODES, KERNEL_EPILOGUES,
-                                        acc_dtype_for, cdiv,
-                                        kernel_epilogue_name)
-from repro_torch.kernels.ref import fused_packed_acc_ref
+                                        acc_dtype_for, cdiv, finalize,
+                                        kernel_epilogue_name, plain_acc)
+from repro_torch.kernels.ref import (fused_packed_acc_ref, unpack_a_ref,
+                                     unpack_b_ref)
 
 # dtype codes of the CUDA source (enum DType).
 _DT = {"float32": 0, "bfloat16": 1, "float16": 2, "int8": 3, "int4": 4,
@@ -30,7 +38,6 @@ _B_DTYPES = ("float32", "bfloat16", "float16", "int8", "int4")
 _OUT_DTYPES = ("float32", "bfloat16", "float16", "int32")
 _BM_CHOICES = (16, 32, 48, 64)
 _BN_CHOICES = (64, 48, 32, 16)
-H100_SMS = 132
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,   # a, dt, lda, M
@@ -93,7 +100,7 @@ def _pick_bn(bn: int, blocks_per_col: int) -> int:
     blocks than SMs (decode-shaped M), else the narrowest that divides bn."""
     fits = [w for w in _BN_CHOICES if bn % w == 0]
     for w in fits:
-        if blocks_per_col * (bn // w) >= H100_SMS:
+        if blocks_per_col * (bn // w) >= gt.H100_SMS:
             return w
     return fits[-1]
 
@@ -225,3 +232,122 @@ def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
 
 
 gemm_packed_fused_a.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gemm_packed (K6): both operands packed
+# ---------------------------------------------------------------------------
+
+_PACKED_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,                      # a, a_col, bm
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int,                      # b, b_col, bn
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # Kb, bk, dt, M
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # N, bias, c, ldc
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,    # alpha, beta, out, dt
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # act, variant, BM, BN
+    ctypes.c_void_p,                                                  # stream
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_kernel():
+    fn = build.load("gemm_packed").gemm_packed_launch
+    fn.argtypes = _PACKED_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _packed_geometry(a_packed, b_packed, layout_a, layout_b):
+    """(bm, bk, bn) of the two stacks, after checking that they contract."""
+    for name, lay in (("layout_a", layout_a), ("layout_b", layout_b)):
+        if lay not in ("row", "col"):
+            raise ValueError(f"bad {name} {lay!r}")
+    if a_packed.dim() != 4 or b_packed.dim() != 4:
+        raise ValueError(f"packed A and B are [G, Kb, t0, t1] stacks; got "
+                         f"{tuple(a_packed.shape)}, {tuple(b_packed.shape)}")
+    bm, bk = (a_packed.shape[2:] if layout_a == "row"
+              else a_packed.shape[2:][::-1])
+    bk_b, bn = (b_packed.shape[2:] if layout_b == "row"
+                else b_packed.shape[2:][::-1])
+    if a_packed.shape[1] != b_packed.shape[1] or bk != bk_b:
+        raise ValueError(f"packed A {tuple(a_packed.shape)} ({layout_a}) and "
+                         f"B {tuple(b_packed.shape)} ({layout_b}) do not "
+                         f"contract")
+    return int(bm), int(bk), int(bn)
+
+
+def gemm_packed_plain(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
+                      n: int, c: Optional[torch.Tensor] = None, *,
+                      alpha: float = 1.0, beta: float = 0.0,
+                      layout_a: str = "row", layout_b: str = "row",
+                      out_dtype=None, epilogue: str = "none",
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain torch version: unpack both stacks, the product over the
+    whole padded depth on the accumulator type, then the store epilogue."""
+    _packed_geometry(a_packed, b_packed, layout_a, layout_b)
+    kdim = a_packed.shape[1] * (a_packed.shape[3] if layout_a == "row"
+                                else a_packed.shape[2])
+    a = unpack_a_ref(a_packed, m, kdim, layout_a)
+    b = unpack_b_ref(b_packed, kdim, n, layout_b)
+    out_dtype = out_dtype or (c.dtype if c is not None else a_packed.dtype)
+    return finalize(plain_acc(a, b), c, alpha, beta, bias, epilogue,
+                    out_dtype)
+
+
+def gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
+                n: int, c: Optional[torch.Tensor] = None, *,
+                alpha: float = 1.0, beta: float = 0.0, layout_a: str = "row",
+                layout_b: str = "row", out_dtype=None, epilogue: str = "none",
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``C[:m,:n] <- epilogue(alpha * unpack(A) @ unpack(B) + beta * C +
+    bias)``; ``a_packed`` from ``pack_a`` ([Mb, Kb, bm, bk] "row" or
+    [Mb, Kb, bk, bm] "col"), ``b_packed`` from ``pack_b`` (float or int8,
+    unscaled), one element dtype. On the CPU this is
+    :func:`gemm_packed_plain`."""
+    if a_packed.device.type == "cpu":
+        return gemm_packed_plain(a_packed, b_packed, m, n, c, alpha=alpha,
+                                 beta=beta, layout_a=layout_a,
+                                 layout_b=layout_b, out_dtype=out_dtype,
+                                 epilogue=epilogue, bias=bias)
+    if a_packed.device.type != "cuda":
+        raise ValueError(f"gemm_packed runs on cuda or cpu; got "
+                         f"{a_packed.device}")
+    bm, bk, bn = _packed_geometry(a_packed, b_packed, layout_a, layout_b)
+    dt = dtype_name(a_packed.dtype)
+    if b_packed.dtype != a_packed.dtype or dt not in gt.IN_DTYPES:
+        raise ValueError(f"kernel takes packed A and B of one dtype in "
+                         f"{gt.IN_DTYPES}; got {a_packed.dtype} and "
+                         f"{b_packed.dtype}")
+    if not (a_packed.is_contiguous() and b_packed.is_contiguous()):
+        raise ValueError("packed stacks must be contiguous")
+    if b_packed.device != a_packed.device:
+        raise ValueError(f"B on {b_packed.device}, A on {a_packed.device}")
+    if not (0 < m <= a_packed.shape[0] * bm and 0 < n <= b_packed.shape[0] * bn):
+        raise ValueError(f"m={m}, n={n} do not fit the packed stacks")
+    out_dtype = out_dtype or (c.dtype if c is not None else a_packed.dtype)
+    if dtype_name(out_dtype) not in gt.OUT_DTYPES:
+        raise ValueError(f"kernel stores {gt.OUT_DTYPES}; got {out_dtype}")
+    out = torch.empty((m, n), dtype=out_dtype, device=a_packed.device)
+    int_acc = acc_dtype_for(a_packed.dtype) == torch.int32
+    c32, bias32 = gt.epilogue_operands(c, bias, m, n, int_acc,
+                                       a_packed.device)
+    bm_k, bn_k = gt.fma_blocks(m, n, bm)
+    with torch.cuda.device(a_packed.device):
+        stream = torch.cuda.current_stream(a_packed.device).cuda_stream
+        rc = _packed_kernel()(
+            a_packed.data_ptr(), int(layout_a == "col"), bm,
+            b_packed.data_ptr(), int(layout_b == "col"), bn,
+            a_packed.shape[1], bk, gt.DT[dt], m, n,
+            None if bias32 is None else bias32.data_ptr(),
+            None if c32 is None else c32.data_ptr(), n, float(alpha),
+            float(beta if c is not None else 0.0), out.data_ptr(),
+            gt.DT[dtype_name(out_dtype)],
+            EPILOGUE_CODES[kernel_epilogue_name(epilogue)],
+            gt.pick_variant(a_packed.dtype, m), bm_k, bn_k, stream)
+    if rc != 0:
+        raise RuntimeError(f"gemm_packed launch failed: CUDA error {rc}")
+    gemm_packed.launches += 1
+    return out
+
+
+gemm_packed.launches = 0

@@ -1,6 +1,6 @@
-"""Plain-torch oracles of the packed-B layer: the load-time packers (2-D
-and grouped) and the unpack / dequant / fused-A accumulation / ragged
-references the kernels are held against. Buffers and scale grids are
+"""Plain-torch oracles of the GEMM layer: the plain products, the packers
+(A, B and grouped B) and the unpack / dequant / fused-A accumulation /
+ragged references the kernels are held against. Buffers and scale grids are
 byte-identical to the JAX package's ``repro.kernels.ref`` for the same
 :class:`TileFormat`.
 """
@@ -14,7 +14,51 @@ import torch.nn.functional as F
 from repro_torch.core.tile_format import (TileFormat, as_tile_format,
                                           pack_nibbles, quantize_tiles,
                                           unpack_nibbles)
-from repro_torch.kernels.common import KERNEL_EPILOGUES, pad2d
+from repro_torch.kernels.common import KERNEL_EPILOGUES, pad2d, plain_acc
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None):
+    """C = A @ B on the accumulator type (f32, or i32 for integers), cast to
+    ``out_dtype`` (default A's dtype)."""
+    return plain_acc(a, b).to(out_dtype or a.dtype)
+
+
+def gemm_ref(a, b, c, alpha: float = 1.0, beta: float = 1.0, out_dtype=None):
+    """Full GEMM semantics: C <- alpha * A@B + beta * C (paper Alg. 1)."""
+    out = alpha * plain_acc(a, b).to(torch.float32) \
+        + beta * c.to(torch.float32)
+    return out.to(out_dtype or c.dtype)
+
+
+def pack_a_ref(a: torch.Tensor, bm: int, bk: int, layout: str = "row"):
+    """Pack A[M, K] into tile-major [Mb, Kb, bm, bk] ("row") or [Mb, Kb, bk,
+    bm] ("col"), tiles in row-of-tiles order, zero-padded to whole tiles."""
+    if layout not in ("row", "col"):
+        raise ValueError(f"bad layout {layout!r}")
+    a = pad2d(a, bm, bk)
+    mb, kb = a.shape[0] // bm, a.shape[1] // bk
+    t = a.reshape(mb, bm, kb, bk).permute(0, 2, 1, 3)
+    if layout == "col":
+        t = t.transpose(2, 3)
+    return t.contiguous()
+
+
+def unpack_a_ref(ap: torch.Tensor, m: int, k: int,
+                 layout: str = "row") -> torch.Tensor:
+    """Tile-major A stack -> natural [M, K]."""
+    if layout == "col":
+        ap = ap.transpose(2, 3)
+    mb, kb, bm, bk = ap.shape
+    return ap.permute(0, 2, 1, 3).reshape(mb * bm, kb * bk)[:m, :k]
+
+
+def packed_matmul_ref(ap, bp, m: int, n: int, layout_a: str = "row",
+                      layout_b: str = "row", out_dtype=None) -> torch.Tensor:
+    """unpack(A) @ unpack(B) over the whole padded depth Kb * bk."""
+    kdim = ap.shape[1] * ap.shape[3 if layout_a == "row" else 2]
+    a = unpack_a_ref(ap, m, kdim, layout_a)
+    b = unpack_b_ref(bp, kdim, n, layout_b)
+    return matmul_ref(a, b, out_dtype=out_dtype)
 
 
 def pack_b_ref(b: torch.Tensor, bk, bn: Optional[int] = None,

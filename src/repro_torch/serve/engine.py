@@ -1,6 +1,10 @@
 """Batched serving engine: prefill, then a greedy or sampled decode loop.
 
   * KV caches stay on the device across steps; the host loop moves tokens.
+  * With the default ``ServeConfig`` the raw weights are served as they
+    are: on the card each contraction lowers to the planner's strategy,
+    ``gemm_tiled`` on the strided weight at decode and a per-call
+    ``pack_b`` + the fused-A kernel at prefill.
   * ``ServeConfig.pack_weights=True`` packs every dense weight, every MoE
     expert stack and the LM head tile-major ONCE at engine construction
     (``models.layers.pack_model_params``); each step then runs the fused-A
@@ -56,13 +60,14 @@ def _find_moe_subtree(tree):
     return None
 
 
-def serving_dispatch_report(model_cfg, cfg: ServeConfig,
-                            params) -> Dict[str, str]:
+def serving_dispatch_report(model_cfg, cfg: ServeConfig, params, *,
+                            on_card: bool = False) -> Dict[str, str]:
     """The serving step's canonical contractions, declared as
-    ContractionSpecs, with the lowering ``dispatch`` chooses for each: the
-    LM head at prefill and decode shapes and, for an MoE model, the gate/up
-    pair and the down projection at one routing group's capacity envelope
-    with the balanced-router occupancy ``1 / capacity_factor``."""
+    ContractionSpecs, with the lowering ``dispatch`` chooses for each (for
+    operands on the card when ``on_card``): the LM head at prefill and
+    decode shapes and, for an MoE model, the gate/up pair and the down
+    projection at one routing group's capacity envelope with the
+    balanced-router occupancy ``1 / capacity_factor``."""
     compute = model_cfg.compute_dtype
     d = model_cfg.d_model
     head = params.get("head_packed")
@@ -70,7 +75,8 @@ def serving_dispatch_report(model_cfg, cfg: ServeConfig,
     for phase, m in (("prefill", cfg.max_len), ("decode", 1)):
         spec = ContractionSpec.dense(m, d, model_cfg.vocab_size, compute,
                                      w=head, accum="f32")
-        report[f"lm_head.{phase}:{spec.describe()}"] = dispatch(spec).name
+        report[f"lm_head.{phase}:{spec.describe()}"] = dispatch(
+            spec, on_card=on_card).name
     moe = _find_moe_subtree(params)
     if moe is not None and model_cfg.num_experts > 1:
         e = model_cfg.num_experts
@@ -85,8 +91,10 @@ def serving_dispatch_report(model_cfg, cfg: ServeConfig,
             occupancy=occ)
         down = ContractionSpec.grouped(e, capacity, f, d, compute, w=wo,
                                        counts=ragged, occupancy=occ)
-        report[f"moe.gate_up:{gate.describe()}"] = dispatch(gate).name
-        report[f"moe.down:{down.describe()}"] = dispatch(down).name
+        report[f"moe.gate_up:{gate.describe()}"] = dispatch(
+            gate, on_card=on_card).name
+        report[f"moe.down:{down.describe()}"] = dispatch(
+            down, on_card=on_card).name
     return report
 
 
@@ -122,7 +130,8 @@ class Engine:
                                        quantize=cfg.quantize)
         self.params = params
         self.cfg = cfg
-        self.dispatch_report = serving_dispatch_report(model.cfg, cfg, params)
+        self.dispatch_report = serving_dispatch_report(
+            model.cfg, cfg, params, on_card=self.device.type == "cuda")
 
     @torch.inference_mode()
     def _prefill(self, tokens: torch.Tensor):

@@ -17,10 +17,12 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.models import build as ref_build
 from repro.serve.engine import Engine as RefEngine
 from repro.serve.engine import ServeConfig as RefServeConfig
-from repro_torch.configs import reduced_config
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core import strategy as tstrat
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import build
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve.engine import serving_dispatch_report
 
 torch.set_num_threads(1)
 
@@ -87,6 +89,45 @@ def test_f32_logits_and_greedy_tokens_match_reference(pack, scale):
         assert len(np.unique(got)) > 2
 
 
+@pytest.mark.parametrize("strategy", ["tiling", "tiling_packing_fused"])
+def test_raw_weights_through_the_card_strategies_match_reference(
+        strategy, monkeypatch):
+    """Raw-weight serving (the default ServeConfig) through the two
+    lowerings the planner picks on the card — ``tiling`` (K7) at decode,
+    ``tiling_packing_fused`` (K5 + K1) at prefill — forced for every
+    contraction with REPRO_TORCH_GEMM_STRATEGY (on CPU tensors the kernels
+    run their plain versions): f32 logits within atol=1e-4 of the
+    reference's and its greedy tokens, with every contraction of every
+    forward through the forced strategy."""
+    calls = []
+    real = tstrat._DENSE[strategy]
+    monkeypatch.setitem(tstrat._DENSE, strategy,
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    monkeypatch.setenv("REPRO_TORCH_GEMM_STRATEGY", strategy)
+    ref_engine, engine = _engines("float32", pack=False, scale=4.0)
+    prompt = np.random.default_rng(3).integers(0, 256, (2, 6)).astype(np.int32)
+    logits, toks = _step_logits(ref_engine, engine, prompt, 6)
+    for want, got in logits:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    for want, got in toks:
+        np.testing.assert_array_equal(got, want)
+    cfg = reduced_config("olmo-1b")
+    assert len(calls) == (7 * cfg.num_layers + 1) * 7   # prefill + 6 steps
+
+
+def test_raw_dispatch_report_on_the_card():
+    """Raw olmo-1b weights on the card: the LM head lowers to K5 + K1 at a
+    prefill of max_len rows and to K7 at decode; on the CPU to torch."""
+    cfg = get_config("olmo-1b")
+    report = serving_dispatch_report(cfg, ServeConfig(max_len=512), {},
+                                     on_card=True)
+    assert sorted(report.values()) == ["tiling", "tiling_packing_fused"]
+    assert [k.split(":")[0] for k, v in report.items()
+            if v == "tiling"] == ["lm_head.decode"]
+    cpu = serving_dispatch_report(cfg, ServeConfig(max_len=512), {})
+    assert set(cpu.values()) == {"torch_matmul"}
+
+
 def test_bf16_logits_match_reference():
     """bf16 compute: every activation is rounded to bf16 at a few places
     that the two frameworks order differently; logits of magnitude ~1 agree
@@ -138,7 +179,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 def test_port_imports_no_jax_and_nothing_of_the_reference():
     code = ("import sys, chip_smoke, repro_torch.interop, repro_torch.serve, "
             "repro_torch.kernels.build, repro_torch.models.moe, "
-            "repro_torch.kernels.gemm_grouped;"
+            "repro_torch.kernels.gemm_grouped, repro_torch.kernels.pack, "
+            "repro_torch.kernels.gemm_tiled, repro_torch.kernels.gemm_vsx_like, "
+            "repro_torch.core.strategy, repro_torch.core;"
+            "from repro_torch.core import matmul, STRATEGIES;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')];"
             "assert not bad, bad")
