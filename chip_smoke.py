@@ -1,6 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --planted-faults   # phase 6's check against a wrong K4
 
 Phases (any failure exits non-zero and prints no result line):
   1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
@@ -22,7 +23,14 @@ Phases (any failure exits non-zero and prints no result line):
        odd shapes; a transposed source); gemm_packed (K6), gemm_tiled (K7,
        also as one block) and matmul_vsx_like (K8, and its packed-B
        variant) in f32, bf16 and int8 at odd shapes, with strided and
-       transposed operands, bias, every epilogue and beta * C.
+       transposed operands, bias, every epilogue and beta * C; K8 timed
+       beside torch.matmul in bf16 and in f32 with TF32 off (CUDA cores);
+     - flash_attention (K4) in f32, bf16 and f16 at the reference test's
+       cases, Sq > Skv (rows that see no key exactly 0), a window without
+       causal, D = 128 and 256, GQA decode, strided q / k / v views;
+     - every ``repro_torch.kernels.ops`` wrapper once at a small odd shape
+       against the plain composition of what it launches, with its
+       launches counted (packed_matmul = 2 K5 + 1 K6, and so on).
   2. Serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16,
      random weights from a seed, made on the card) through
      ``Engine(..., ServeConfig(pack_weights=True))``: prompt batch 4 x 128,
@@ -43,6 +51,20 @@ Phases (any failure exits non-zero and prints no result line):
   5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
      default ``Engine(model, params)``: prefill logits against phase 2's,
      and the lowering of every contraction recorded.
+  6. Long-context attention through ``repro_torch.kernels.ops.attention``
+     (K4) in bf16 at full head width, lengths from ``configs.shapes``:
+     olmo-1b (16 heads x 128) at its served prefill and decode (A1, A2),
+     prefill_32k (A3, batch 1 of 32) and decode_32k (A4, batch 128);
+     mixtral-8x22b (48 / 8 heads x 128, window 4096) at prefill_32k (A5)
+     and decode_32k (A6). One counted call a shape (exactly one K4 launch),
+     checked against the plain version (each element within 2e-2 of |want|
+     + its row's RMS, at most |want| + 1e-2, the norm within 1e-2, and a uniform-weight probe that
+     catches one key too many or too few), timed beside its bound, the
+     plain version and F.scaled_dot_product_attention (the yardstick only).
+With ``--planted-faults`` the script runs no phase: it builds copies of
+K4's source with a fault planted in each (a KV tile dropped, the causal or
+the window edge shifted by one key) and shows that phase 6's check fails
+each at every shape it reaches and passes the kernel as built.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -55,6 +77,7 @@ per-kernel JSON summary.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -612,6 +635,8 @@ def phase_layered(torch, ks, tf):
         ws = [randn(n, k, std=0.02, dtype=bf16).t() if head else
               randn(k, n, std=0.02, dtype=bf16) for _ in range(copies)]
         bps = [pk.pack_b(x, fmt) for x in ws]
+        # K8's CUDA-core yardstick: the same product in f32 with TF32 off.
+        ws32 = [x.float() for x in ws]
         # K5 at the shapes the served paths pack: every projection of the
         # raw-weight prefill, and the LM head (table.t()) packed at load.
         main_err["pack_b"] = max(main_err["pack_b"], check_pack(
@@ -647,6 +672,8 @@ def phase_layered(torch, ks, tf):
                     (a, bps[0], n), dict(out_dtype=torch.float32), 1e-4, 1e-4))
             reps = 20 if m == 4 else 5
             lib = time_ms(lambda i: torch.matmul(a, ws[i % copies]), reps)
+            a32 = a.float()
+            lib_f32 = time_ms(lambda i: torch.matmul(a32, ws32[i % copies]), reps)
             for name, fn, plain, peak, a_bytes, out_item in (
                     ("gemm_tiled", lambda i: gt.gemm_tiled(a, ws[i % copies]),
                      lambda i: gt.gemm_tiled_plain(a, ws[i % copies]),
@@ -674,11 +701,13 @@ def phase_layered(torch, ks, tf):
                            else b_bytes)
                 t_b, by = gemm_bound_ms(m, k, n, a_bytes, bytes_b, out_item, peak)
                 rows.append(dict(kernel=name, m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
-                                 bound_ms=t_b, bound_by=by, library_ms=lib))
+                                 bound_ms=t_b, bound_by=by, library_ms=lib,
+                                 **({"library_f32_ms": lib_f32} if vsx else {})))
                 log(f"  time {name} M={m} K={k} N={n}: kernel {t_k:.4f} ms, "
-                    f"plain {t_p:.4f} ms, torch.matmul {lib:.4f} ms, bound "
-                    f"{t_b:.4f} ms ({by})")
-        del ws, bps
+                    f"plain {t_p:.4f} ms, torch.matmul {lib:.4f} ms"
+                    + (f" (f32, TF32 off: {lib_f32:.4f} ms)" if vsx else "")
+                    + f", bound {t_b:.4f} ms ({by})")
+        del ws, ws32, bps
     # pack_b_grouped at one mixtral-8x22b expert stack (gate, E=8).
     wst = randn(MIX_E, MIX_D, MIX_F, std=0.02, dtype=bf16)
     main_err["pack_b_grouped"] = check_pack(
@@ -716,6 +745,194 @@ def check_no_tensor_cores(path) -> str:
     if found:
         raise AssertionError(f"{path.name} issues tensor-core instructions {found}")
     return f"no HMMA/HGMMA/IMMA in {len(sass.splitlines())} SASS lines"
+
+
+# K4 checks, (B, Sq, Skv, H, Hkv, D, causal, window): the reference test's
+# CASES (tests/test_flash_attention.py), then Sq > Skv (rows that see no
+# key), a window without causal, D = 128 and 256, mixtral's GQA at decode,
+# and head dims that are no multiple of 8 (element-wise loads, not cp.async).
+ATTN_CASES = [
+    (2, 128, 128, 4, 2, 32, True, None), (1, 100, 100, 4, 4, 16, True, None),
+    (2, 64, 64, 4, 1, 32, True, 24), (1, 1, 96, 4, 2, 16, True, None),
+    (2, 48, 48, 2, 2, 16, False, None), (1, 37, 111, 3, 1, 8, True, None),
+    (1, 50, 20, 2, 1, 8, True, None), (2, 70, 40, 4, 2, 128, True, 9),
+    (1, 33, 90, 6, 2, 128, False, 17), (2, 130, 130, 4, 4, 128, True, None),
+    (1, 65, 65, 2, 1, 256, True, None), (1, 20, 300, 3, 3, 200, True, 50),
+    (3, 1, 1000, 48, 8, 128, True, 300), (1, 40, 60, 4, 2, 37, True, None),
+    (2, 30, 30, 2, 2, 1, False, None)]
+# K4 against its plain version, (rtol, atol, max_norm) for
+# attention_close. f32:
+# full f32 on both sides, other summation orders. bf16 / f16: the kernel
+# rounds P to the input type for the PV product and the output once; the
+# plain version keeps P in f32. In bf16 that costs about 2e-3 of the
+# output's norm and at most about a third of an element's limit (below) at
+# the shapes of phases 1 and 6 (a CPU model of the kernel's arithmetic).
+ATTN_TOL = {"float32": (2e-4, 2e-4, 2e-4), "bfloat16": (2e-2, 1e-2, 1e-2),
+            "float16": (2e-2, 1e-2, 1e-2)}
+# The uniform-weight probe of phase 6: with q = 0 every score is 0 and every
+# weight exactly 1 on both sides, so both add the same bf16 V rows in f32
+# and differ by output rounding only. One key more or less at 32k keys
+# moves the output's norm by 1/sqrt(32768) = 5.5e-3.
+ATTN_PROBE_TOL = (1e-2, 1e-3, 1e-3)
+
+
+def attention_close(got, want, rtol, atol, max_norm):
+    """K4's output against its plain version's: every element within
+    ``rtol * |want| + min(atol, rtol * scale)``, and the error's norm within
+    ``max_norm`` of the reference's. ``scale`` is the larger of the RMS of
+    the element's row (one query and head, over D) and the RMS of all of
+    ``want``: a limit scaled to the reference, whose rows differ in size by
+    the keys they see (an RMS of about sqrt(e / keys) for unit-normal
+    inputs, 0.009 at 32k keys, 1 at one key), and never above the plain
+    ``rtol * |want| + atol``. Returns (ok, max abs error, normwise error,
+    what failed: "element", "norm", both or "")."""
+    import torch
+    w = want.float()
+    err = (got.float() - w).abs()
+    scale = torch.maximum(w.pow(2).mean(-1, keepdim=True).sqrt(),
+                          w.pow(2).mean().sqrt())
+    limit = rtol * w.abs() + torch.clamp(rtol * scale, max=atol)
+    failed = [] if bool(torch.all(err <= limit)) else ["element"]
+    w_norm = float(torch.linalg.vector_norm(w))
+    norm = float(torch.linalg.vector_norm(err)) / w_norm if w_norm else float(
+        err.max() > 0)
+    if norm > max_norm:
+        failed.append("norm")
+    return not failed, float(err.max()), norm, "+".join(failed)
+
+
+def phase_attention_checks(torch, fa):
+    """K4 against its plain version on the card at ``ATTN_CASES`` in f32,
+    bf16 and f16, and once on strided views of a fused qkv tensor. Rows that
+    see no key must be exactly 0; an empty output counts no launch. Returns
+    the max abs error by dtype."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    fails, errs = [], {}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    def check(tag, q, k, v, causal, window, dtype):
+        rtol, atol, max_norm = ATTN_TOL[dtype]
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        ok, err, norm, _ = attention_close(got, want, rtol, atol, max_norm)
+        dead = q.shape[1] - k.shape[1] if causal else 0
+        zero = dead <= 0 or bool((got[:, :dead] == 0).all())
+        ok = ok and zero and got.dtype == q.dtype and bool(torch.isfinite(got).all())
+        errs[dtype] = max(errs.get(dtype, 0.0), err)
+        log(f"  check flash_attention {tag}: max_abs_err={err:.3e}, norm "
+            f"{norm:.2e} (rtol={rtol}, atol={atol} or less, norm <= {max_norm})"
+            f"{'; unseen rows 0' if dead > 0 else ''} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(tag)
+
+    for name in ATTN_TOL:
+        dt = getattr(torch, name)
+        for b, sq, skv, h, hkv, d, causal, window in ATTN_CASES:
+            check(f"{name} B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
+                  f"causal={causal} window={window}",
+                  randn(b, sq, h, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt),
+                  randn(b, skv, hkv, d, dtype=dt), causal, window, name)
+    qkv = randn(2, 77, 3, 4, 64, dtype=torch.bfloat16)   # [B, S, (q k v), H, D]
+    check("bfloat16 strided views of a fused qkv", qkv[:, :, 0], qkv[:, :, 1],
+          qkv[:, :, 2], True, None, "bfloat16")
+    before = fa.flash_attention.launches
+    empty = torch.empty((0, 4, 2, 16), device=DEVICE)
+    fa.flash_attention(empty, empty, empty)
+    if fa.flash_attention.launches != before:
+        fails.append("empty output counted a launch")
+    if fails:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version: {fails}")
+    return errs
+
+
+def phase_ops_checks(torch, ops, counters, ks):
+    """Each ``repro_torch.kernels.ops`` wrapper once at a small odd shape on
+    the card against the plain composition of what it launches, with its
+    launches counted (set to 0 just before the call, read just after).
+    Returns the counts by wrapper."""
+    pk, gp, gt, gv, gg, fa = (ks[x] for x in ("pack", "gp", "gt", "gv", "gg", "fa"))
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * std).to(dtype)
+
+    m, k, n, e = 37, 300, 200, 3
+    a, w, c, bias = randn(m, k), randn(k, n, std=0.05), randn(m, n), randn(n)
+    ab, wb = a.to(bf16), w.to(bf16)
+    ag = randn(e, m, k, dtype=bf16)
+    wg, wg2 = randn(e, k, n, std=0.05, dtype=bf16), randn(e, k, n, std=0.05, dtype=bf16)
+    bg = randn(e, n)
+    q, kk, vv = (randn(2, 45, 6, 64, dtype=bf16), randn(2, 90, 2, 64, dtype=bf16),
+                 randn(2, 90, 2, 64, dtype=bf16))
+    f32_tol, bf16_tol = (1e-4, 1e-4), (2e-2, 1e-3)
+    cases = [
+        ("tiled_matmul", lambda: ops.tiled_matmul(a, w, c, alpha=1.5, beta=0.5, bm=48),
+         lambda: gt.gemm_tiled_plain(a, w, c, alpha=1.5, beta=0.5), f32_tol,
+         {"gemm_tiled": 1}),
+        ("packed_matmul", lambda: ops.packed_matmul(
+            ab, wb, c, bm=64, bk=64, bn=32, layout_a="col", alpha=0.5, beta=2.0),
+         lambda: gp.gemm_packed_plain(
+             pk.pack_a_plain(ab, 64, 64, "col"), pk.pack_b_plain(wb, 64, 32), m, n,
+             c, alpha=0.5, beta=2.0, layout_a="col"), bf16_tol,
+         {"pack_a": 1, "pack_b": 1, "gemm_packed": 1}),
+        ("packed_matmul_fused", lambda: ops.packed_matmul_fused(
+            ab, wb, bias=bias, bm=48, bk=64, bn=64, epilogue="gelu"),
+         lambda: gp.gemm_packed_fused_a_plain(
+             ab, pk.pack_b_plain(wb, 64, 64), n, bias=bias, bm=48,
+             epilogue="gelu"), bf16_tol,
+         {"pack_b": 1, "gemm_packed_fused_a": 1}),
+        ("grouped_matmul_packed", lambda: ops.grouped_matmul_packed(
+            ag, wg, b2=wg2, bias=bg, bm=48, bk=64, bn=64, epilogue="silu_gate"),
+         lambda: gg.gemm_grouped_packed_plain(
+             ag, pk.pack_b_grouped_plain(wg, 64, 64), n,
+             b2_packed=pk.pack_b_grouped_plain(wg2, 64, 64), bias=bg, bm=48,
+             epilogue="silu_gate"), bf16_tol,
+         {"pack_b_grouped": 2, "gemm_grouped_packed": 1}),
+        ("vsx_matmul", lambda: ops.vsx_matmul(a, w, bm=32),
+         lambda: gv.matmul_vsx_like_plain(a, w), f32_tol, {"matmul_vsx_like": 1}),
+        ("attention", lambda: ops.attention(q, kk, vv, causal=True, window=40),
+         lambda: fa.flash_attention_plain(q, kk, vv, causal=True, window=40),
+         lambda g, w: attention_close(g, w, *ATTN_TOL["bfloat16"])[:2],
+         {"flash_attention": 1}),
+        ("pack_a_op", lambda: ops.pack_a_op(ab, 32, 64, "col"),
+         lambda: pk.pack_a_plain(ab, 32, 64, "col"), None, {"pack_a": 1}),
+        ("pack_b_op", lambda: ops.pack_b_op(wb, 64, 32),
+         lambda: pk.pack_b_plain(wb, 64, 32), None, {"pack_b": 1}),
+        ("pack_b_grouped_op", lambda: ops.pack_b_grouped_op(wg, 64, 32, "col"),
+         lambda: pk.pack_b_grouped_plain(wg, 64, 32, "col"), None,
+         {"pack_b_grouped": 1}),
+    ]
+    fails, counts = [], {}
+    for name, fn, plain, tol, want in cases:
+        counters.reset()
+        got = fn()
+        torch.cuda.synchronize()
+        launches = counters.read()
+        counts[name] = {kname: c for kname, c in launches.items() if c}
+        exp = plain()
+        if tol is None:
+            ok, detail = same_bytes(torch, got, exp), "byte-equal"
+        elif callable(tol):
+            ok, err = tol(got, exp)
+            detail = f"max_abs_err={err:.3e} (attention_close)"
+        else:
+            ok, err = close(got, exp, *tol)
+            detail = f"max_abs_err={err:.3e} (rtol={tol[0]}, atol={tol[1]})"
+        ok = ok and launches == counters.only(**want)
+        log(f"  check ops.{name}: {detail}; launches {counts[name]} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(name)
+    if fails:
+        raise AssertionError(f"ops wrappers disagree with their plain "
+                             f"compositions or launched other kernels: {fails}")
+    return counts
 
 
 SWEEP_SIZES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)  # paper_gemm.py
@@ -1262,6 +1479,303 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     return load, launches, timings
 
 
+def attention_shapes(cfgs, shapes):
+    """Phase 6: (tag, config, B, Sq, Skv, window, what it is and its cut).
+    Lengths and batches from ``configs.shapes.SHAPES``. decode_32k runs at
+    its global batch (A4's K and V are 2 x 17.2 GB). prefill_32k is cut to
+    one sequence for the run's time, not for memory: the plain version,
+    called three times a shape (check, probe, timing), takes about 0.3 s a
+    sequence there on an H100, so 32 would add about a minute a shape."""
+    olmo, mix = cfgs.get_config("olmo-1b"), cfgs.get_config("mixtral-8x22b")
+    pre, dec = shapes.SHAPES["prefill_32k"], shapes.SHAPES["decode_32k"]
+    w = mix.sliding_window
+    return [
+        ("A1", olmo, PROMPT[0], PROMPT[1], PROMPT[1], None,
+         f"olmo-1b's served prefill ({PROMPT[0]} x {PROMPT[1]}, phase 2)"),
+        ("A2", olmo, PROMPT[0], 1, PROMPT[1] + STEPS, None,
+         "olmo-1b's served decode, last step (phase 2)"),
+        ("A3", olmo, 1, pre.seq_len, pre.seq_len, None,
+         f"prefill_32k, global batch {pre.global_batch} -> 1 (run time)"),
+        ("A4", olmo, dec.global_batch, 1, dec.seq_len, None,
+         f"decode_32k, global batch {dec.global_batch}"),
+        ("A5", mix, 1, pre.seq_len, pre.seq_len, w,
+         f"prefill_32k, window {w}, global batch {pre.global_batch} -> 1 "
+         f"(run time)"),
+        ("A6", mix, dec.global_batch, 1, dec.seq_len, w,
+         f"decode_32k, window {w}, global batch {dec.global_batch}"),
+    ]
+
+
+def attention_inputs(torch, gen, cfg, b, sq, skv):
+    """Unit-normal bf16 q [B,Sq,H,D], k / v [B,Skv,Hkv,D] at ``cfg``'s head
+    widths, made on the card from ``gen``."""
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return tuple(torch.randn(shape, generator=gen, device=DEVICE,
+                             dtype=torch.bfloat16)
+                 for shape in ((b, sq, h, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+
+
+def attention_verdict(torch, fa, out, q, k, v, window, want, want_probe):
+    """Phase 6's check of one K4 output ``out`` (of q, k, v) against the
+    plain version's ``want``, plus the uniform-weight probe: K4 on q = 0
+    against ``want_probe``. The probe's call is a check and is not counted
+    on the path. Returns (ok, the errors by name)."""
+    ok, err, norm, why = attention_close(out, want, *ATTN_TOL["bfloat16"])
+    probe = fa.flash_attention(torch.zeros_like(q), k, v, causal=True,
+                               window=window)
+    torch.cuda.synchronize()
+    ok_p, err_p, norm_p, why_p = attention_close(probe, want_probe,
+                                                 *ATTN_PROBE_TOL)
+    failed = ([f"random {why}"] if why else []) + (
+        [f"probe {why_p}"] if why_p else [])
+    if out.shape != q.shape or not bool(torch.isfinite(out).all()):
+        failed.append("shape or finite")
+    return not failed, dict(max_abs_err=err, norm_err=norm,
+                            probe_max_abs_err=err_p, probe_norm_err=norm_p,
+                            failed=", ".join(failed))
+
+
+def attention_wants(torch, fa, q, k, v, window):
+    """The plain version's outputs for phase 6's check and its probe."""
+    return (fa.flash_attention_plain(q, k, v, causal=True, window=window),
+            fa.flash_attention_plain(torch.zeros_like(q), k, v, causal=True,
+                                     window=window))
+
+
+def attention_bound_ms(b, sq, skv, h, hkv, d, causal, window, item=2):
+    """Least time of one attention call on these inputs: 4 * B * H * D per
+    visible (query, key) pair over the bf16 tensor-core peak, against q, the
+    K / V rows that some query sees, and the output, each moved once, over
+    the HBM rate. Returns (ms, bound_by, pairs per head, keys seen)."""
+    import numpy as np
+    q_pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(skv - 1, q_pos) if causal else np.full(sq, skv - 1)
+    lo = (np.maximum(0, q_pos - window + 1) if window is not None
+          else np.zeros(sq, dtype=np.int64))
+    live = hi >= lo
+    pairs = int((hi - lo + 1)[live].sum())
+    seen = np.zeros(skv + 1, dtype=np.int64)      # keys some query sees
+    np.add.at(seen, lo[live], 1)
+    np.add.at(seen, hi[live] + 1, -1)
+    keys = int((np.cumsum(seen)[:skv] > 0).sum())
+    flops = 4.0 * b * h * d * pairs
+    nbytes = item * (2 * b * sq * h * d + 2 * b * keys * hkv * d)
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops > t_bytes else "bytes", pairs, keys)
+
+
+def sdpa_yardstick(torch, ref, q, k, v, window, reps):
+    """``F.scaled_dot_product_attention`` on the same inputs (the yardstick
+    only: the port never calls it), with ``enable_gqa=True``, ``is_causal``
+    where Sq == Skv and there is no window, else an explicit boolean mask of
+    the right-aligned positions. Tries the flash, cuDNN, memory-efficient
+    and math backends in turn (math only where its f32 scores fit) and
+    times the first that takes the call. Returns (ms, backend, output,
+    what the others said)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if sq == skv and window is None:
+        kw = dict(is_causal=True)
+    else:
+        q_pos = torch.arange(sq, device=q.device) + (skv - sq)
+        kw = dict(attn_mask=ref.attention_mask(
+            q_pos, torch.arange(skv, device=q.device), causal=True,
+            window=window))
+    refused = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and b * h * sq * skv * 4 > 8e9:
+            refused.append("MATH: f32 scores over 8 GB")
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                def call(i):
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, enable_gqa=True, **kw)
+                out = call(0).transpose(1, 2)
+                torch.cuda.synchronize()
+                return time_ms(call, reps), backend.name, out, refused
+        except RuntimeError as exc:
+            refused.append(f"{backend.name}: {str(exc).splitlines()[0][:120]}")
+    return None, None, None, refused
+
+
+def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
+    """Long-context attention through ``ops.attention`` at full head width
+    (bf16): one counted call a shape (counts set to 0 just before it, read
+    just after: exactly one K4 launch), checked against the plain version
+    by ``attention_verdict`` (rows that see no key excepted: none here),
+    then timed beside its bound, the plain version and SDPA. Returns
+    (launches, rows, max abs err)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    total = {name: 0 for name in counters.fns}
+    rows, max_err, fails = [], 0.0, []
+    for tag, cfg, b, sq, skv, window, what in attention_shapes(cfgs, shapes):
+        h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+        def make():
+            return attention_inputs(torch, gen, cfg, b, sq, skv)
+        q, k, v = make()
+        counters.reset()
+        out = ops.attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        launches = counters.read()
+        if launches != counters.only(flash_attention=1):
+            raise AssertionError(f"{tag}: ops.attention launched {launches}")
+        for name, c in launches.items():
+            total[name] += c
+        want, want_probe = attention_wants(torch, fa, q, k, v, window)
+        ok, errs = attention_verdict(torch, fa, out, q, k, v, window, want,
+                                     want_probe)
+        err = errs["max_abs_err"]
+        max_err = max(max_err, err)
+        if not ok:
+            fails.append(tag)
+        t_b, by, pairs, keys = attention_bound_ms(b, sq, skv, h, hkv, d, True,
+                                                  window)
+        # Small shapes rotate over copies (>= 128 MB in all) so that each
+        # call finds its operands in HBM, not in the 50 MB L2.
+        set_bytes = 2 * (q.numel() + k.numel() + v.numel())
+        copies = max(1, min(16, math.ceil(128e6 / set_bytes)))
+        sets = [(q, k, v)] + [make() for _ in range(copies - 1)]
+        reps = 20 if t_b < 0.1 else 5
+        t_k = time_ms(lambda i: ops.attention(*sets[i % copies], causal=True,
+                                              window=window), reps)
+        t_p = time_ms(lambda i: fa.flash_attention_plain(
+            *sets[i % copies], causal=True, window=window), 1 if t_b > 1 else 3)
+        del sets
+        t_l, backend, lib_out, refused = sdpa_yardstick(torch, ref, q, k, v,
+                                                        window, reps)
+        lib_err = (None if lib_out is None else
+                   float((lib_out.float() - want.float()).abs().max()))
+        rows.append(dict(tag=tag, model=cfg.name, what=what, b=b, sq=sq,
+                         skv=skv, h=h, hkv=hkv, d=d, window=window,
+                         ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by,
+                         library_ms=t_l, library_backend=backend,
+                         library_refused=refused, library_max_abs_err=lib_err,
+                         **errs, launches=launches["flash_attention"]))
+        log(f"  {tag} {cfg.name} B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
+            f"window={window} ({what}; {pairs} visible pairs a head, {keys} "
+            f"keys seen): max_abs_err={err:.3e} norm {errs['norm_err']:.2e}, "
+            f"probe {errs['probe_max_abs_err']:.2e} / norm "
+            f"{errs['probe_norm_err']:.2e} "
+            f"{'ok' if ok else 'FAIL ' + errs['failed']}; kernel {t_k:.4f} ms, "
+            f"bound {t_b:.4f} "
+            f"ms ({by}), plain {t_p:.4f} ms, SDPA "
+            + (f"{t_l:.4f} ms ({backend}, max_abs_err {lib_err:.2e})"
+               if t_l is not None else "none")
+            + (f"; refused: {refused}" if refused else ""))
+        del q, k, v, out, want, want_probe, lib_out
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {fails}")
+    return total, rows, max_err
+
+
+# Faults that ``--planted-faults`` plants in copies of K4's source: (name,
+# [(text replaced, its replacement), ...], whether the fault reaches a
+# phase-6 shape of this window). Phase 6's check must fail at every shape
+# each one reaches. A window edge moved out must move in the tile walk too:
+# at decode_32k the window starts on a tile edge, so a mask alone would
+# keep the extra key out.
+K4_FAULTS = [
+    ("one KV tile dropped", [("*j0 = static_cast<int>(k_lo / bkv);",
+                              "*j0 = static_cast<int>(k_lo / bkv) + 1;")],
+     lambda window: True),
+    ("causal edge one key in", [("(!p.causal || q_pos >= k_pos)",
+                                 "(!p.causal || q_pos > k_pos)")],
+     lambda window: True),
+    ("window edge one key in", [("(!p.has_window || q_pos - k_pos < p.window)",
+                                 "(!p.has_window || q_pos - k_pos < p.window - 1)")],
+     lambda window: window is not None),
+    ("window edge one key out", [
+        ("(!p.has_window || q_pos - k_pos < p.window)",
+         "(!p.has_window || q_pos - k_pos <= p.window)"),
+        ("k_lo = qp_lo - p.window + 1;", "k_lo = qp_lo - p.window;")],
+     lambda window: window is not None),
+]
+
+
+def planted_faults(torch, build, fa, cfgs, shapes) -> int:
+    """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
+    check catches a wrong K4. Builds K4 and one copy of its source for each
+    fault of ``K4_FAULTS`` (under ``build/kernels/planted/``, all at once),
+    then runs the kernel as built and each faulty copy through the wrapper
+    at A1-A6 and judges each output as phase 6 does. Exits 0 when the kernel
+    as built passes everywhere and each fault fails at every shape it
+    reaches."""
+    text = (build.CSRC / "flash_attention.cu").read_text()
+    out_dir = build.BUILD_DIR / "planted"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for i, (name, edits, _) in enumerate(K4_FAULTS):
+        faulty = text
+        for old, new in edits:
+            if faulty.count(old) != 1:
+                raise AssertionError(f"fault '{name}': '{old}' is not in the "
+                                     f"source exactly once")
+            faulty = faulty.replace(old, new)
+        src = out_dir / f"flash_attention_fault{i}.cu"
+        src.write_text(faulty)
+        lib, log_path = src.with_suffix(".so"), src.with_suffix(".log")
+        with open(log_path, "w") as log_f:
+            jobs.append((name, subprocess.Popen(
+                build.nvcc_command(src, lib), stdout=log_f,
+                stderr=subprocess.STDOUT), lib, log_path))
+    kernels = {"as built": fa._kernel()}
+    for name, proc, lib, log_path in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"fault '{name}' did not build:\n"
+                               + log_path.read_text()[-4000:])
+        fn = ctypes.CDLL(str(lib)).flash_attention_launch
+        fn.argtypes, fn.restype = fa._ARGTYPES, ctypes.c_int
+        kernels[name] = fn
+    log(f"  built K4 and {len(jobs)} faulty copies in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reach = {name: r for name, _, r in K4_FAULTS}
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    results, wrong = [], []
+    as_built = fa._kernel
+    try:
+        for tag, cfg, b, sq, skv, window, _ in attention_shapes(cfgs, shapes):
+            q, k, v = attention_inputs(torch, gen, cfg, b, sq, skv)
+            want, want_probe = attention_wants(torch, fa, q, k, v, window)
+            for name, fn in kernels.items():
+                fa._kernel = lambda fn=fn: fn
+                out = fa.flash_attention(q, k, v, causal=True, window=window)
+                torch.cuda.synchronize()
+                ok, errs = attention_verdict(torch, fa, out, q, k, v, window,
+                                             want, want_probe)
+                reached = name != "as built" and reach[name](window)
+                expect = "fail" if reached else "pass"
+                results.append(dict(shape=tag, kernel=name, expect=expect,
+                                    passed=ok, **errs))
+                if ok != (expect == "pass"):
+                    wrong.append(f"{tag} {name}")
+                log(f"  {tag} {name}: {'pass' if ok else 'FAIL'} (expected "
+                    f"{expect}); max_abs_err {errs['max_abs_err']:.2e}, norm "
+                    f"{errs['norm_err']:.2e}; probe {errs['probe_max_abs_err']:.2e}"
+                    f", norm {errs['probe_norm_err']:.2e}"
+                    + (f"; failed: {errs['failed']}" if errs['failed'] else ""))
+                del out
+            del q, k, v, want, want_probe
+            torch.cuda.empty_cache()
+    finally:
+        fa._kernel = as_built
+    log(json.dumps({"planted_faults": results, "ok": not wrong}))
+    if wrong:
+        log(f"chip_smoke: phase 6's check judged these as not expected: "
+            f"{wrong}")
+        return 1
+    return 0
+
+
 class Counters:
     """The launch counters of every kernel wrapper, by wrapper name."""
 
@@ -1289,19 +1803,26 @@ def forward_sum(rows, kernel, m, key, counts):
                if r["kernel"] == kernel and r.get("m") == m)
 
 
-def main() -> int:
+def main(argv) -> int:
+    if argv not in ([], ["--planted-faults"]):
+        print("usage: python3 chip_smoke.py [--planted-faults]",
+              file=sys.stderr)
+        return 2
     try:
         import torch
         from repro_torch import configs as cfgs
         from repro_torch import models, serve
         from repro_torch.core import contraction as ctr
         from repro_torch.core import gemm, strategy
+        from repro_torch.configs import shapes
         from repro_torch.core import tile_format as tf
         from repro_torch.kernels import build
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import gemm_grouped as gg
         from repro_torch.kernels import gemm_packed as gp
         from repro_torch.kernels import gemm_tiled as gt
         from repro_torch.kernels import gemm_vsx_like as gv
+        from repro_torch.kernels import ops
         from repro_torch.kernels import pack as pk
         from repro_torch.kernels import ref
     except ImportError as exc:
@@ -1319,10 +1840,15 @@ def main() -> int:
         f"{sys.version.split()[0]}")
     card = card_line()
     log(f"card: {card}")
+    if argv:
+        log("planted faults: K4 as built and with each fault of K4_FAULTS, "
+            "judged by phase 6's check at A1-A6")
+        return planted_faults(torch, build, fa, cfgs, shapes)
     counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
                          gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
                          pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
-                         gv.matmul_vsx_like, gv.matmul_vsx_like_packed])
+                         gv.matmul_vsx_like, gv.matmul_vsx_like_packed,
+                         fa.flash_attention])
 
     log("phase 1: build + kernel vs plain")
     t0 = time.perf_counter()
@@ -1339,6 +1865,9 @@ def main() -> int:
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
         torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
+    attn_err = phase_attention_checks(torch, fa)
+    ops_counts = phase_ops_checks(
+        torch, ops, counters, dict(pack=pk, gp=gp, gt=gt, gv=gv, gg=gg, fa=fa))
     torch.cuda.empty_cache()
 
     log("phase 2: serve full-width olmo-1b, packed weights")
@@ -1361,11 +1890,18 @@ def main() -> int:
     raw_launches, raw_t = phase_serve_raw(torch, counters, ctr, serve,
                                           packed_run)
     del packed_run
+    torch.cuda.empty_cache()
+
+    log("phase 6: long-context attention through ops.attention, full head "
+        "width, bf16")
+    attn_launches, attn_rows, attn_main_err = phase_attention(
+        torch, fa, ops, counters, ref, cfgs, shapes)
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "mixtral-8x22b packed, load": mix_load,
                "mixtral-8x22b packed": mix_launches,
-               "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches}
+               "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
+               "ops.attention": attn_launches}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -1399,6 +1935,12 @@ def main() -> int:
         out["library_ms"] = (None if None in lib else
                              forward_sum(layered_rows, kernel, m,
                                          "library_ms", counts))
+        if all("library_f32_ms" in r for r in rows):
+            out["library_f32_ms"] = forward_sum(layered_rows, kernel, m,
+                                                "library_f32_ms", counts)
+            out["library_f32"] = ("torch.matmul in f32 with TF32 off (CUDA "
+                                  "cores), the yardstick of a kernel kept off "
+                                  "the tensor cores")
         out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                            else "operations")
         out.update(work=work, shapes=rows, card=card)
@@ -1471,6 +2013,24 @@ def main() -> int:
           on_main_path=False, max_abs_err=layered_err["matmul_vsx_like_packed"],
           **layered_entry("matmul_vsx_like_packed", 4, count, decode_work +
                           ", B pre-packed, f32 output, CUDA cores only"))
+
+    def attn_sum(key):
+        vals = [r[key] for r in attn_rows]
+        return None if None in vals else sum(vals)
+    by_ops = sum(r["bound_ms"] for r in attn_rows if r["bound_by"] == "operations")
+    entry("flash_attention", "flash_attention.cu",
+          "src/repro/kernels/flash_attention.py:73", ["flash_attention"],
+          on_main_path=("reached through repro_torch.kernels.ops.attention "
+                        "(phase 6), not by the served models"),
+          max_abs_err=attn_main_err, checks_max_abs_err=attn_err,
+          ms=attn_sum("ms"), plain_ms=attn_sum("plain_ms"),
+          bound_ms=attn_sum("bound_ms"),
+          bound_by="operations" if 2 * by_ops > attn_sum("bound_ms") else "bytes",
+          library_ms=attn_sum("library_ms"),
+          library="F.scaled_dot_product_attention(enable_gqa=True), backend "
+                  "per shape",
+          work="one ops.attention call at each of A1-A6 (bf16), summed",
+          shapes=attn_rows, ops_launches=ops_counts, card=card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1481,7 +2041,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except Exception:  # any phase failing fails the run, with its traceback
         traceback.print_exc()
         sys.exit(1)

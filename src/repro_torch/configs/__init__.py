@@ -10,6 +10,8 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import (SHAPES, InputShape,  # noqa: F401
+                                        iter_cells, shape_applicability)
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
 

@@ -37,6 +37,12 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def nvcc_command(src: Path, out: Path) -> list:
+    """The ``nvcc`` command that builds ``src`` into the shared library
+    ``out``, with the shared headers of ``csrc/`` on the include path."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):  # the source and any shared header
@@ -60,8 +66,8 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
-        jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+        jobs[name] = (subprocess.Popen(nvcc_command(srcs[name], tmp), stdout=log,
+                                       stderr=subprocess.STDOUT),
                       tmp, out, log)
     failed = []
     for name, (proc, tmp, out, log) in jobs.items():

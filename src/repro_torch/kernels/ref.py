@@ -1,11 +1,12 @@
-"""Plain-torch oracles of the GEMM layer: the plain products, the packers
-(A, B and grouped B) and the unpack / dequant / fused-A accumulation /
-ragged references the kernels are held against. Buffers and scale grids are
-byte-identical to the JAX package's ``repro.kernels.ref`` for the same
-:class:`TileFormat`.
+"""Plain-torch oracles: the plain products, the packers (A, B and grouped
+B), the unpack / dequant / fused-A accumulation / ragged references the GEMM
+kernels are held against, and the softmax attention oracle. Buffers and
+scale grids are byte-identical to the JAX package's ``repro.kernels.ref``
+for the same :class:`TileFormat`.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -209,3 +210,48 @@ def grouped_ragged_ref(a, b, counts, *, b2=None, bias=None, epilogue_fn=None,
         out = acc
     out = torch.where(mask, out, torch.zeros((), dtype=out.dtype))
     return out.to(out_dtype or a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                   window: Optional[int]) -> torch.Tensor:
+    """[len(q_pos), len(k_pos)] bool: which keys each query sees (causal:
+    ``q_pos >= k_pos``; window: ``q_pos - k_pos < window``, also without
+    causal)."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None):
+    """Softmax attention oracle. q:[B,Sq,H,D] k/v:[B,Skv,Hkv,D] (GQA via
+    repeat), f32 scores and weights, output in q's dtype.
+
+    ``window``: sliding-window size (tokens attend to the previous ``window``
+    positions inclusive of self). Masked logits are ``-inf``, so a row that
+    sees no key is NaN, as in the reference.
+    """
+    _, sq, h, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if h != hkv:
+        rep = h // hkv
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    q_pos = torch.arange(sq, device=q.device) + (skv - sq)  # right-aligned
+    mask = attention_mask(q_pos, torch.arange(skv, device=q.device),
+                          causal=causal, window=window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    return out.to(q.dtype)
