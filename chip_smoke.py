@@ -1,13 +1,13 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --planted-faults   # phase 6's check against a wrong K4
+    python3 chip_smoke.py --planted-faults   # the checks against a wrong K4, K6, K8
 
 Phases (any failure exits non-zero and prints no result line):
   1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all at once, into ``build/kernels/``), check that K8's
-     library issues no tensor-core instruction, and hold each kernel
-     against its plain torch version on the card:
+     library issues no tensor-core instruction and K6's holds HGMMA (wgmma),
+     and hold each kernel against its plain torch version on the card:
      - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16, plus
        f32, int8 and int4 B with tile and col scales, both tile layouts,
        bias and every epilogue;
@@ -23,8 +23,14 @@ Phases (any failure exits non-zero and prints no result line):
        odd shapes; a transposed source); gemm_packed (K6), gemm_tiled (K7,
        also as one block) and matmul_vsx_like (K8, and its packed-B
        variant) in f32, bf16 and int8 at odd shapes, with strided and
-       transposed operands, bias, every epilogue and beta * C; K8 timed
-       beside torch.matmul in bf16 and in f32 with TF32 off (CUDA cores);
+       transposed operands, bias, every epilogue and beta * C; K6 and K8
+       again at their bodies' edges (M 1 ... 512, N and K off every block,
+       K = 8192 at decode so that K splits, A offset by 5 elements, B as
+       table.t(), the planner's packed tiles in every layout pair and tiles
+       it does not emit), with their launches counted by body; at
+       olmo-1b's shapes K6 must take V_TC_STREAM (M=4) / V_WGMMA (M=512)
+       and K8 fma_stream / fma_tiled; K8 timed beside torch.matmul in bf16
+       and in f32 with TF32 off (CUDA cores);
      - flash_attention (K4) in f32, bf16 and f16 at the reference test's
        cases, Sq > Skv (rows that see no key exactly 0), a window without
        causal, D = 128 and 256, GQA decode, strided q / k / v views;
@@ -46,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
      and ``auto`` (naive and pluto up to 512, intrinsic up to 2048), each
-     output against the f32 product; then the grouped lowerings on raw
+     output against the f32 product (from 256 up, tiling_packing must take
+     K6's V_WGMMA in bf16 and vsx K8's fma_tiled); then the grouped lowerings on raw
      expert stacks (a bf16 silu-gate pair, E=8, with and without counts).
   5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
      default ``Engine(model, params)``: prefill logits against phase 2's,
@@ -64,7 +71,10 @@ Phases (any failure exits non-zero and prints no result line):
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key) and shows that phase 6's check fails
-each at every shape it reaches and passes the kernel as built.
+each at every shape it reaches and passes the kernel as built; then copies
+of K8 with the last split-K chunk dropped and of K6 with its TMA ring one
+k-step short, which phase 1's K6 / K8 edge checks must fail while passing
+the kernels as built.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -130,6 +140,27 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn(i)`` over ``reps`` calls: the kernels' own
+    time from torch.profiler (CUPTI), without the host's launch gaps that
+    CUDA events around a loop of small calls include."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue  # a host op's device time is its kernels', counted here
+        t = getattr(ev, "self_device_time_total", None)
+        total += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+    return total / reps / 1e3
 
 
 def bound_ms(m, k, n, a_item, b_bytes, out_item, peak_flops):
@@ -459,6 +490,100 @@ def gemm_bound_ms(m, k, n, a_bytes, b_bytes, out_item, peak):
                                        else "bytes")
 
 
+# K6 / K8 edge shapes: rows on both sides of each body's limits (16 rows for
+# the decode bodies, 64 / 128-row tiles above), N and K off every block,
+# K = 8192 at decode (split K).
+EDGE_M = (1, 4, 16, 17, 64, 65, 512)
+EDGE_N = 200
+
+
+def k6_k8_checks(torch, ks, quiet=False) -> tuple:
+    """K8 (both entry points) and K6 against their plain versions at the
+    edge shapes: f32 and bf16 at 1e-4 for K8 (bf16 widens exactly, f32
+    sums), bf16 output 2e-2 / 1e-3 and f32 1e-4 for K6, int8 exact; A
+    offset by 5 elements (no 16-byte loads), the LM head's table.t() as B,
+    the planner's packed tiles in every layout pair, and tiles it does not
+    emit (bm 16 / 32 / 48, bk 64, bn 32) for K6's general body. Returns
+    (failed tags, launches by body of each wrapper over the checks)."""
+    pk, gp, gv = ks["pack"], ks["gp"], ks["gv"]
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fails = []
+    seen = {f.__name__: dict.fromkeys(f.variants, 0) for f in (
+        gp.gemm_packed, gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
+
+    def randn(*shape, std=1.0, dtype=f32):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * std).to(dtype)
+
+    def randi(*shape):
+        return torch.randint(-100, 100, shape, generator=gen, device=DEVICE,
+                             dtype=torch.int8)
+
+    def check(tag, fn, plain, args, kw, rtol, atol):
+        before = dict(fn.variants)
+        try:
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            seen[fn.__name__][v] += fn.variants[v] - before[v]
+        ok, err = close(got, plain(*args, **kw), rtol, atol)
+        if not ok:
+            fails.append(tag)
+        if not ok or not quiet:
+            log(f"  check {tag} [{'+'.join(ran)}]: max_abs_err={err:.3e} "
+                f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
+
+    for m in EDGE_M:
+        k, n = (8192 if m <= 16 else 750), EDGE_N
+        for dt in (f32, bf16):
+            nm = "f32" if dt == f32 else "bf16"
+            a, w = randn(m, k, dtype=dt), randn(k, n, std=0.05, dtype=dt)
+            shifted = randn(m, k + 5, dtype=dt)[:, 5:]
+            table = randn(n, k, std=0.05, dtype=dt)
+            check(f"matmul_vsx_like {nm} M={m} K={k} N={n}", gv.matmul_vsx_like,
+                  gv.matmul_vsx_like_plain, (a, w), dict(out_dtype=f32), 1e-4, 1e-4)
+            check(f"matmul_vsx_like {nm} M={m} A offset 5, B table.t()",
+                  gv.matmul_vsx_like, gv.matmul_vsx_like_plain, (shifted, table.t()),
+                  dict(out_dtype=f32), 1e-4, 1e-4)
+            for bk, bn, lb in ((64, 32, "row"), (128, 64, "col")):
+                check(f"matmul_vsx_like_packed {nm} M={m} bk {bk} bn {bn} {lb}",
+                      gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
+                      (a, pk.pack_b_plain(w, bk, bn, lb), n),
+                      dict(layout_b=lb, out_dtype=f32), 1e-4, 1e-4)
+        ai, wi = randi(m, k), randi(k, n)
+        check(f"matmul_vsx_like int8 M={m} -> int32 (exact)", gv.matmul_vsx_like,
+              gv.matmul_vsx_like_plain, (ai, wi), dict(out_dtype=torch.int32), 0.0, 0.0)
+        a, w = randn(m, k, dtype=bf16), randn(k, n, std=0.05, dtype=bf16)
+        c, bias = randn(m, n), randn(n)
+        plan_bm = 16 if m <= 16 else 64
+        geoms = [(plan_bm, 128, 64, la, lb) for la in ("row", "col")
+                 for lb in ("row", "col")]
+        geoms += [(16 if m <= 16 else 32, 64, 32, "row", "col"),
+                  (48, 64, 32, "col", "row")]
+        for bm, bk, bn, la, lb in geoms:
+            check(f"gemm_packed bf16 M={m} bm {bm} bk {bk} bn {bn} {la}/{lb}",
+                  gp.gemm_packed, gp.gemm_packed_plain,
+                  (pk.pack_a_plain(a, bm, bk, la), pk.pack_b_plain(w, bk, bn, lb), m, n),
+                  dict(c=c, alpha=1.5, beta=0.5, bias=bias, epilogue="tanh",
+                       layout_a=la, layout_b=lb), 2e-2, 1e-3)
+        a32, w32 = a.float(), w.float()
+        check(f"gemm_packed f32 M={m} bm {plan_bm} col/col", gp.gemm_packed,
+              gp.gemm_packed_plain,
+              (pk.pack_a_plain(a32, plan_bm, 128, "col"), pk.pack_b_plain(w32, 128, 64, "col"),
+               m, n), dict(bias=bias, epilogue="gelu", layout_a="col", layout_b="col"),
+              1e-4, 1e-4)
+        check(f"gemm_packed int8 M={m} -> int32 (exact)", gp.gemm_packed,
+              gp.gemm_packed_plain,
+              (pk.pack_a_plain(ai, plan_bm, 64), pk.pack_b_plain(wi, 64, 32), m, n),
+              dict(out_dtype=torch.int32), 0.0, 0.0)
+    return fails, seen
+
+
 def phase_layered(torch, ks, tf):
     """K5 (pack), K6 (gemm_packed), K7 (gemm_tiled) and K8 (matmul_vsx_like
     and its packed variant) against their plain versions on the card, then
@@ -619,6 +744,9 @@ def phase_layered(torch, ks, tf):
           gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
           (ai, pk.pack_b_plain(wi, 64, 32, "col"), 96),
           dict(layout_b="col", out_dtype=torch.int32), 0.0, 0.0)
+    edge_fails, edge_seen = k6_k8_checks(torch, ks)
+    log(f"  K6 / K8 edge checks, launches by body: {edge_seen}")
+    fails += edge_fails
     if fails:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{fails}")
@@ -628,6 +756,7 @@ def phase_layered(torch, ks, tf):
                           "matmul_vsx_like": 0.0,
                           "matmul_vsx_like_packed": 0.0}
     fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
+    tracked = (gp.gemm_packed, gv.matmul_vsx_like, gv.matmul_vsx_like_packed)
     for (k, n) in OLMO_SHAPES:
         head = (k, n) == (2048, 50304)
         copies = max(1, min(16, math.ceil(128e6 / (k * n * 2))))
@@ -655,6 +784,7 @@ def phase_layered(torch, ks, tf):
             a = randn(m, k, dtype=bf16)
             bm = min(64, -(-m // 16) * 16)
             ap = pk.pack_a(a, bm, 128)
+            before = {f.__name__: dict(f.variants) for f in tracked}
             main_err["gemm_tiled"] = max(main_err["gemm_tiled"], check(
                 f"gemm_tiled bf16 M={m} K={k} N={n}", gt.gemm_tiled,
                 gt.gemm_tiled_plain, (a, ws[0]), {}, 2e-2, 1e-3))
@@ -670,10 +800,21 @@ def phase_layered(torch, ks, tf):
                     f"matmul_vsx_like_packed bf16 M={m} K={k} N={n} -> f32",
                     gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
                     (a, bps[0], n), dict(out_dtype=torch.float32), 1e-4, 1e-4))
+            # The new bodies must have run: V_TC_STREAM / V_WGMMA for K6,
+            # fma_stream / fma_tiled for K8.
+            ran = {f.__name__: [v for v, c in f.variants.items()
+                                if c != before[f.__name__][v]] for f in tracked}
+            want = {"gemm_packed": ["tc_stream" if m <= 16 else "wgmma"],
+                    "matmul_vsx_like": ["fma_stream" if m <= 16 else "fma_tiled"]}
+            want["matmul_vsx_like_packed"] = want["matmul_vsx_like"]
+            verdict(f"bodies at M={m} K={k} N={n}", ran == want,
+                    f"ran {ran} (want {want})")
             reps = 20 if m == 4 else 5
             lib = time_ms(lambda i: torch.matmul(a, ws[i % copies]), reps)
+            lib_dev = device_ms(lambda i: torch.matmul(a, ws[i % copies]), reps)
             a32 = a.float()
             lib_f32 = time_ms(lambda i: torch.matmul(a32, ws32[i % copies]), reps)
+            lib_f32_dev = device_ms(lambda i: torch.matmul(a32, ws32[i % copies]), reps)
             for name, fn, plain, peak, a_bytes, out_item in (
                     ("gemm_tiled", lambda i: gt.gemm_tiled(a, ws[i % copies]),
                      lambda i: gt.gemm_tiled_plain(a, ws[i % copies]),
@@ -695,6 +836,7 @@ def phase_layered(torch, ks, tf):
                      H100_F32_FLOPS, m * k * 2, 4)):
                 vsx = name.startswith("matmul_vsx")
                 t_k = time_ms(fn, max(2, reps // 4) if vsx else reps)
+                t_dev = device_ms(fn, max(2, reps // 4) if vsx else reps)
                 t_p = time_ms(plain, max(2, reps // 4))
                 bytes_b = (fmt.packed_bytes(k, n)
                            if name in ("gemm_packed", "matmul_vsx_like_packed")
@@ -702,10 +844,16 @@ def phase_layered(torch, ks, tf):
                 t_b, by = gemm_bound_ms(m, k, n, a_bytes, bytes_b, out_item, peak)
                 rows.append(dict(kernel=name, m=m, k=k, n=n, ms=t_k, plain_ms=t_p,
                                  bound_ms=t_b, bound_by=by, library_ms=lib,
-                                 **({"library_f32_ms": lib_f32} if vsx else {})))
-                log(f"  time {name} M={m} K={k} N={n}: kernel {t_k:.4f} ms, "
-                    f"plain {t_p:.4f} ms, torch.matmul {lib:.4f} ms"
-                    + (f" (f32, TF32 off: {lib_f32:.4f} ms)" if vsx else "")
+                                 device_ms=t_dev, library_device_ms=lib_dev,
+                                 variant=ran.get(name),
+                                 **({"library_f32_ms": lib_f32,
+                                     "library_f32_device_ms": lib_f32_dev}
+                                    if vsx else {})))
+                log(f"  time {name} M={m} K={k} N={n}: kernel {t_k:.4f} ms "
+                    f"(device {t_dev:.4f}), plain {t_p:.4f} ms, torch.matmul "
+                    f"{lib:.4f} ms (device {lib_dev:.4f})"
+                    + (f" (f32, TF32 off: {lib_f32:.4f} ms, device "
+                       f"{lib_f32_dev:.4f})" if vsx else "")
                     + f", bound {t_b:.4f} ms ({by})")
         del ws, ws32, bps
     # pack_b_grouped at one mixtral-8x22b expert stack (gate, E=8).
@@ -730,21 +878,36 @@ def phase_layered(torch, ks, tf):
     return rows, main_err
 
 
-def check_no_tensor_cores(path) -> str:
-    """The SASS of the built K8 library holds no tensor-core instruction
-    (HMMA / HGMMA / IMMA); returns what was checked. Without cuobjdump the
-    check cannot be made, and the run fails."""
+def tensor_core_ops(path) -> tuple:
+    """(tensor-core opcodes found, SASS line count) of a built library.
+    Without cuobjdump the check cannot be made, and the run fails."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        raise AssertionError("cuobjdump not found: cannot check that K8 "
-                             "issues no tensor-core instruction")
+        raise AssertionError("cuobjdump not found: cannot read the kernels' "
+                             "SASS")
     sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    found = sorted({op for op in ("HMMA", "HGMMA", "IMMA") if op in sass})
+    return ({op for op in ("HMMA", "HGMMA", "IMMA") if op in sass},
+            len(sass.splitlines()))
+
+
+def check_no_tensor_cores(path) -> str:
+    """The SASS of the built K8 library holds no tensor-core instruction
+    (HMMA / HGMMA / IMMA); returns what was checked."""
+    found, lines = tensor_core_ops(path)
     if found:
-        raise AssertionError(f"{path.name} issues tensor-core instructions {found}")
-    return f"no HMMA/HGMMA/IMMA in {len(sass.splitlines())} SASS lines"
+        raise AssertionError(f"{path.name} issues tensor-core instructions "
+                             f"{sorted(found)}")
+    return f"no HMMA/HGMMA/IMMA in {lines} SASS lines"
+
+
+def check_wgmma(path) -> str:
+    """The SASS of the built K6 library holds HGMMA (wgmma)."""
+    found, lines = tensor_core_ops(path)
+    if "HGMMA" not in found:
+        raise AssertionError(f"{path.name} issues no HGMMA ({sorted(found)})")
+    return f"{sorted(found)} in {lines} SASS lines"
 
 
 # K4 checks, (B, Sq, Skv, H, Hkv, D, causal, window): the reference test's
@@ -985,11 +1148,16 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     want = {}
     outs = []
     counters.reset()
+    bodies = []  # the K6 / K8 bodies each case launched
     for dt, size, s, a, b in cases:
+        before = counters.variants()
         outs.append(gemm.matmul(a, b, strategy=s))
+        bodies.append(sorted(f"{name}:{v}" for name, vs in counters.variants().items()
+                             for v, c in vs.items() if c != before[name][v]))
     gouts = [grouped_call(s, wc) for s, wc in gcases]
     torch.cuda.synchronize()
     launches = counters.read()
+    variants = counters.variants()
     expect = {name: 0 for name in launches}
     for dt, size, s, a, b in cases:
         eff = s if s != "auto" else gemm.resolve_strategy(
@@ -1005,6 +1173,21 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     log(f"  sweep launches {launches} (want {expect})")
     if launches != expect:
         raise AssertionError(f"sweep launch counts {launches} != {expect}")
+    # From 256 up, tiling_packing takes V_WGMMA (bf16) / fma_tiled (f32) and
+    # vsx fma_tiled.
+    log(f"  sweep launches by body {variants}")
+    wrong = []
+    for (dt, size, s, a, b), ran in zip(cases, bodies):
+        eff = s if s != "auto" else gemm.resolve_strategy(
+            size, size, size, dt, on_card=True)
+        body = {"tiling_packing": ["gemm_packed:wgmma" if dt == torch.bfloat16
+                                   else "gemm_packed:fma_tiled"],
+                "vsx": ["matmul_vsx_like:fma_tiled"]}.get(eff)
+        if size >= 256 and body is not None and ran != body:
+            wrong.append((str(dt), size, s, ran, body))
+    if wrong:
+        raise AssertionError(f"sweep cases from 256 up did not take the new "
+                             f"bodies: {wrong}")
 
     # -- checks against the f32 product --------------------------------------
     # Error relative to the output's scale (max |C|): f32 outputs 1e-4
@@ -1060,6 +1243,25 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
         row["library_ms"] = lib[(dt, size)]
     for grow, (s, wc) in zip(grows, gcases):
         grow["ms"] = timed(lambda i: grouped_call(s, wc))
+    # tiling_packing without its two per-call packs: K6 alone on the
+    # planner's packed operands (uncounted).
+    from repro_torch.core.planner import plan_gemm
+    from repro_torch.kernels import gemm_packed as gp
+    from repro_torch.kernels import pack as pk
+    k6_alone = {}
+    for dt, size, s, a, b in cases:
+        if s != "tiling_packing" or size < 1024:
+            continue
+        plan = plan_gemm(size, size, size, str(dt).replace("torch.", ""))
+        ap = pk.pack_a(a, plan.bm, plan.bk, layout=plan.layout_a)
+        bp = pk.pack_b(b, plan.bk, plan.bn, layout=plan.layout_b)
+        k6_alone[(str(dt).replace("torch.", ""), size)] = timed(
+            lambda i: gp.gemm_packed(ap, bp, size, size, layout_a=plan.layout_a,
+                                     layout_b=plan.layout_b))
+        del ap, bp
+    for row in rows:
+        if row["strategy"] == "tiling_packing":
+            row["gemm_packed_alone_ms"] = k6_alone.get((row["dtype"], row["size"]))
     for dt in ("float32", "bfloat16"):
         log(f"  sweep {dt} (ms; rel err <= {1e-4 if dt == 'float32' else 1e-2}"
             f" of max|C| against the f32 product):")
@@ -1070,14 +1272,17 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
             auto = gemm.resolve_strategy(size, size, size, dt, on_card=True)
             for r in rs:
                 r["winner"] = best["strategy"]
+            alone = k6_alone.get((dt, size))
             log(f"    {size:5d}: " + ", ".join(
                 f"{r['strategy']} {r['ms']:.4f}" for r in rs)
                 + f"; torch.matmul {rs[0]['library_ms']:.4f}; winner "
-                f"{best['strategy']}; auto -> {auto}")
+                f"{best['strategy']}; auto -> {auto}"
+                + (f"; K6 alone (tiling_packing without its packs) {alone:.4f}"
+                   if alone is not None else ""))
     log("  grouped E=8 C=64 K=N=1024 bf16 silu-gate pair (ms): " + ", ".join(
         f"{g['strategy']}{'+counts' if g['counts'] else ''} {g['ms']:.4f} "
         f"(err {g['rel_err']:.1e})" for g in grows))
-    return launches, rows, grows
+    return launches, rows, grows, variants
 
 
 def serve_timings(torch, engine, prompt, steps, kernel_tags):
@@ -1701,14 +1906,89 @@ K4_FAULTS = [
 ]
 
 
-def planted_faults(torch, build, fa, cfgs, shapes) -> int:
+# K6 / K8 faults: (name, kernel source, the header the fault is planted in,
+# edits of that header). The source and the faulty header are copied into a
+# directory of their own, where the source's include finds the copy first.
+K6_K8_FAULTS = [
+    ("K8: last split-K chunk dropped", "gemm_vsx_like", "gemm_blocked.cuh",
+     [("for (int s = 0; s < splits; ++s) v += ws[s * total + i];",
+       "for (int s = 0; s < splits - 1; ++s) v += ws[s * total + i];")]),
+    ("K6: ring one k-step short", "gemm_packed", "gemm_wgmma.cuh",
+     [("return ktiles * (bk / BOX);", "return ktiles * (bk / BOX) - 1;")]),
+]
+
+
+def planted_k6_k8(torch, build, ks) -> tuple:
+    """Phase 1's K6 / K8 edge checks (k6_k8_checks) against the kernels as
+    built and a copy of each with a fault of ``K6_K8_FAULTS``: the kernels
+    as built must pass, each fault must fail. Returns (results, wrong)."""
+    gp, gv = ks["gp"], ks["gv"]
+    entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES),
+             "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES)}
+    t0 = time.perf_counter()
+    jobs = []
+    for i, (name, kernel, header, edits) in enumerate(K6_K8_FAULTS):
+        faulty = (build.CSRC / header).read_text()
+        for old, new in edits:
+            if faulty.count(old) != 1:
+                raise AssertionError(f"fault '{name}': '{old}' is not in "
+                                     f"{header} exactly once")
+            faulty = faulty.replace(old, new)
+        out_dir = build.BUILD_DIR / "planted" / f"{kernel}_fault{i}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / header).write_text(faulty)
+        src = out_dir / f"{kernel}.cu"
+        src.write_text((build.CSRC / f"{kernel}.cu").read_text())
+        lib, log_path = src.with_suffix(".so"), src.with_suffix(".log")
+        with open(log_path, "w") as log_f:
+            jobs.append((name, kernel, subprocess.Popen(
+                build.nvcc_command(src, lib), stdout=log_f,
+                stderr=subprocess.STDOUT), lib, log_path))
+    runs = [("as built", None, None)]
+    for name, kernel, proc, lib, log_path in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"fault '{name}' did not build:\n"
+                               + log_path.read_text()[-4000:])
+        fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
+        fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
+        runs.append((name, kernel, fn))
+    log(f"  built {len(jobs)} faulty copies of K6 / K8 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    as_built = {"gemm_vsx_like": gv._kernel, "gemm_packed": gp._packed_kernel}
+    results, wrong = [], []
+    try:
+        for name, kernel, fn in runs:
+            if kernel == "gemm_vsx_like":
+                gv._kernel = lambda fn=fn: fn
+            elif kernel == "gemm_packed":
+                gp._packed_kernel = lambda fn=fn: fn
+            fails, _ = k6_k8_checks(torch, ks, quiet=True)
+            gv._kernel, gp._packed_kernel = (as_built["gemm_vsx_like"],
+                                             as_built["gemm_packed"])
+            expect = "pass" if kernel is None else "fail"
+            ok = not fails
+            results.append(dict(kernel=name, expect=expect, passed=ok,
+                                failed_checks=len(fails)))
+            if ok != (expect == "pass"):
+                wrong.append(name)
+            log(f"  phase 1 K6 / K8 checks, {name}: "
+                f"{'pass' if ok else 'FAIL'} (expected {expect}); "
+                f"{len(fails)} checks failed" + (f", first {fails[:3]}" if fails else ""))
+    finally:
+        gv._kernel, gp._packed_kernel = (as_built["gemm_vsx_like"],
+                                         as_built["gemm_packed"])
+    return results, wrong
+
+
+def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
-    check catches a wrong K4. Builds K4 and one copy of its source for each
-    fault of ``K4_FAULTS`` (under ``build/kernels/planted/``, all at once),
-    then runs the kernel as built and each faulty copy through the wrapper
-    at A1-A6 and judges each output as phase 6 does. Exits 0 when the kernel
-    as built passes everywhere and each fault fails at every shape it
-    reaches."""
+    check catches a wrong K4 and phase 1's a wrong K6 or K8. Builds K4 and
+    one copy of its source for each fault of ``K4_FAULTS`` (under
+    ``build/kernels/planted/``, all at once), then runs the kernel as built
+    and each faulty copy through the wrapper at A1-A6 and judges each output
+    as phase 6 does; then the same for K6 / K8 (planted_k6_k8). Exits 0 when
+    the kernels as built pass everywhere and each fault fails at every shape
+    it reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
     out_dir = build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1768,10 +2048,12 @@ def planted_faults(torch, build, fa, cfgs, shapes) -> int:
             torch.cuda.empty_cache()
     finally:
         fa._kernel = as_built
-    log(json.dumps({"planted_faults": results, "ok": not wrong}))
-    if wrong:
-        log(f"chip_smoke: phase 6's check judged these as not expected: "
-            f"{wrong}")
+    results_68, wrong_68 = planted_k6_k8(torch, build, ks)
+    log(json.dumps({"planted_faults": results, "planted_faults_k6_k8": results_68,
+                    "ok": not wrong and not wrong_68}))
+    if wrong or wrong_68:
+        log(f"chip_smoke: the checks judged these as not expected: "
+            f"{wrong + wrong_68}")
         return 1
     return 0
 
@@ -1785,9 +2067,16 @@ class Counters:
     def reset(self):
         for fn in self.fns.values():
             fn.launches = 0
+            for v in getattr(fn, "variants", {}):
+                fn.variants[v] = 0
 
     def read(self) -> dict:
         return {name: fn.launches for name, fn in self.fns.items()}
+
+    def variants(self) -> dict:
+        """Launches by body of the wrappers that count them (K6, K8)."""
+        return {name: dict(fn.variants) for name, fn in self.fns.items()
+                if hasattr(fn, "variants")}
 
     def only(self, **want) -> dict:
         """The counts of a run that launched ``want`` and nothing else."""
@@ -1842,8 +2131,10 @@ def main(argv) -> int:
     log(f"card: {card}")
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
-            "judged by phase 6's check at A1-A6")
-        return planted_faults(torch, build, fa, cfgs, shapes)
+            "judged by phase 6's check at A1-A6; K6 / K8 as built and with "
+            "each fault of K6_K8_FAULTS, judged by phase 1's edge checks")
+        return planted_faults(torch, build, fa, cfgs, shapes,
+                              dict(pack=pk, gp=gp, gv=gv))
     counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
                          gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
                          pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
@@ -1861,6 +2152,7 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  gemm_vsx_like SASS: {check_no_tensor_cores(paths['gemm_vsx_like'])}")
+    log(f"  gemm_packed SASS: {check_wgmma(paths['gemm_packed'])}")
     table, main_err = phase_kernels(torch, gp, ref, tf)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
@@ -1882,7 +2174,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     log("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
-    sweep_launches, sweep_rows, grouped_sweep = phase_sweep(
+    sweep_launches, sweep_rows, grouped_sweep, sweep_variants = phase_sweep(
         torch, counters, gemm, strategy, ref)
     torch.cuda.empty_cache()
 
@@ -1931,6 +2223,13 @@ def main(argv) -> int:
                 and r.get("m") == m]
         out = {key: forward_sum(layered_rows, kernel, m, key, counts)
                for key in ("ms", "plain_ms", "bound_ms")}
+        if all("device_ms" in r for r in rows):
+            for key in ("device_ms", "library_device_ms"):
+                out[key] = forward_sum(layered_rows, kernel, m, key, counts)
+            out["prefill_512"] = {key: forward_sum(layered_rows, kernel, 512, key,
+                                                   counts)
+                                  for key in ("ms", "device_ms", "library_ms",
+                                              "library_device_ms", "bound_ms")}
         lib = [r["library_ms"] for r in rows]
         out["library_ms"] = (None if None in lib else
                              forward_sum(layered_rows, kernel, m,
@@ -1938,6 +2237,8 @@ def main(argv) -> int:
         if all("library_f32_ms" in r for r in rows):
             out["library_f32_ms"] = forward_sum(layered_rows, kernel, m,
                                                 "library_f32_ms", counts)
+            out["library_f32_device_ms"] = forward_sum(
+                layered_rows, kernel, m, "library_f32_device_ms", counts)
             out["library_f32"] = ("torch.matmul in f32 with TF32 off (CUDA "
                                   "cores), the yardstick of a kernel kept off "
                                   "the tensor cores")
@@ -1996,6 +2297,7 @@ def main(argv) -> int:
                f"{MIX_F} bf16", grouped_sweep=grouped_sweep, card=card)
     entry("gemm_packed", "gemm_packed.cu", "src/repro/kernels/gemm_packed.py:93",
           ["gemm_packed"], max_abs_err=layered_err["gemm_packed"],
+          sweep_launches_by_body=sweep_variants["gemm_packed"],
           **layered_entry("gemm_packed", 4, count, decode_work +
                           ", A and B pre-packed"))
     entry("gemm_tiled", "gemm_tiled.cu", "src/repro/kernels/gemm_tiled.py:58",
@@ -2006,6 +2308,7 @@ def main(argv) -> int:
     entry("matmul_vsx_like", "gemm_vsx_like.cu",
           "src/repro/kernels/gemm_vsx_like.py:73", ["matmul_vsx_like"],
           max_abs_err=layered_err["matmul_vsx_like"],
+          sweep_launches_by_body=sweep_variants["matmul_vsx_like"],
           **layered_entry("matmul_vsx_like", 4, count, decode_work +
                           ", f32 output, CUDA cores only"))
     entry("matmul_vsx_like_packed", "gemm_vsx_like.cu",

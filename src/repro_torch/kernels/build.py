@@ -18,8 +18,11 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# --split-compile=0: NVVM and ptxas optimise a source's kernels on all the
+# machine's cores (the GEMM sources instantiate dozens of kernels each).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas", "-v,--split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

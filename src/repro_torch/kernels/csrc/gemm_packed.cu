@@ -12,38 +12,122 @@
 // tile transposed, the paper's MMA-preferred A layout); B is [Nb, Kb, bk,
 // bn] ("row") or [Nb, Kb, bn, bk] ("col"), zero-filled past K and N by the
 // packer. The contraction runs over the whole padded depth Kb * bk, as the
-// reference's does. Both operands have one element type: f32 and int8 (i32
-// accumulators) on scalar FMAs, bf16 / f16 on the tensor cores. A "col"
-// tile is transposed on its way into shared memory, so the tensor cores see
-// the same [row][k] slices for both layouts (gemm_blocked.cuh).
+// reference's does. Both operands have one element type.
 //
-// What bounds it on an H100: the same as gemm_tiled (bytes at small M,
-// multiply-adds at large M); the packed streams make every tile one
-// contiguous run of memory.
+// What bounds it on an H100: at decode (M of a few rows) the bytes of B
+// over 3.35 TB/s; above that the tensor cores (989 TFLOP/s bf16) for bf16 /
+// f16, the CUDA cores for f32 and int8.
 //
-// Not yet: vectorized staging loads, TMA, wgmma.
+// What the design does about it: every packed tile is one contiguous run
+// of memory, so the bf16 / f16 bodies (gemm_wgmma.cuh) move whole tiles
+// with TMA and never compute an element's address:
+//  * V_WGMMA (bm = bn = 64, bk a multiple of 64): 128 x 128 output tiles,
+//    a 4-stage TMA ring fed by one producer warp, two consumer warpgroups
+//    on wgmma (the transpose bits take "col" A and "row" B as they lie);
+//  * V_TC_STREAM (decode: bm = 16 "row" A, bn = 64, bk a multiple of 64):
+//    B streamed once through a TMA ring, mma.sync on 16-row A boxes, Kb
+//    split so that at least two blocks run on each SM;
+//  * any other geometry the packer emits (bm 16 / 32 / 48, bn 16 / 32 / 48,
+//    bk 16 / 32, "col" A at decode, unaligned buffers) takes
+//    gemm_blocked.cuh's blocked_mma (variants 1 / 2).
+// f32 and int8 (i32 accumulators) take the CUDA-core bodies fma_tiled /
+// fma_stream of gemm_blocked.cuh, shared with K7 and K8.
 
-#include "gemm_blocked.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// The TMA bodies for bf16 / f16; cudaErrorInvalidValue for a geometry they
+// do not take. `kt_chunk` is the split's packed k-tiles (V_TC_STREAM).
 template <typename T>
-PackedOperand<T> packed(const void* p, int tr, int tk, int kb, int k_major) {
-  return PackedOperand<T>{static_cast<const T*>(p), tr, tk, kb, k_major, !k_major};
+int launch_tc(int variant, const void* a, int a_col, int bm, const void* b, int b_col, int bn,
+              int Kb, int bk, int dt, int M, int N, const Epilogue& ep, int splits, int kt_chunk,
+              void* ws, cudaStream_t s) {
+  const int Mb = (M + bm - 1) / bm, Nb = (N + bn - 1) / bn;
+  const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b) % 16 == 0 && bk % BOX == 0 && bn == BOX;
+  CUtensorMap ta, tb;
+  // B "row" tiles are [bk][bn] (MN-major), "col" [bn][bk] (K-major).
+  const bool tb_ok = aligned && (b_col ? make_tensor_map(&tb, b, dt, 1LL * Nb * Kb * bn, bk, BOX)
+                                       : make_tensor_map(&tb, b, dt, 1LL * Nb * Kb * bk, bn, BOX));
+  if (variant == V_WGMMA) {
+    if (!tb_ok || bm != BOX) return static_cast<int>(cudaErrorInvalidValue);
+    const bool ta_ok = a_col ? make_tensor_map(&ta, a, dt, 1LL * Mb * Kb * bk, bm, BOX)
+                             : make_tensor_map(&ta, a, dt, 1LL * Mb * Kb * bm, bk, BOX);
+    if (!ta_ok) return static_cast<int>(cudaErrorInvalidValue);
+    const int tiles_m = (Mb + 1) / 2, tiles_n = (Nb + 1) / 2;
+    const int grid = grid_for(static_cast<long long>(tiles_m) * tiles_n, sm_count());
+    // The four layout pairs share one signature: `id` keeps each one's
+    // shared-memory limit apart (raised on its first launch).
+    auto run = [&](auto kernel, int id) {
+      static bool raised[4] = {};
+      if (!raised[id]) {
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+        raised[id] = true;
+      }
+      kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep);
+    };
+    if (a_col && !b_col) run(wgmma_packed<T, true, true>, 0);
+    else if (a_col) run(wgmma_packed<T, true, false>, 1);
+    else if (!b_col) run(wgmma_packed<T, false, true>, 2);
+    else run(wgmma_packed<T, false, false>, 3);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // V_TC_STREAM
+  if (!tb_ok || bm != 16 || a_col || M > 16 || splits < 1 || kt_chunk < 1 ||
+      static_cast<long long>(splits) * kt_chunk < Kb ||
+      static_cast<long long>(splits - 1) * kt_chunk >= Kb || (splits > 1 && ws == nullptr) ||
+      !make_tensor_map(&ta, a, dt, 1LL * Kb * bm, bk, 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = static_cast<int>(static_cast<long long>(Nb) * splits);
+  float* wsf = static_cast<float*>(ws);
+  auto run = [&](auto kernel, int id) {
+    static bool raised[2] = {};
+    if (!raised[id]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TS_SMEM);
+      raised[id] = true;
+    }
+    kernel<<<grid, TS_THREADS, TS_SMEM, s>>>(ta, tb, Kb, bk, Nb, splits, kt_chunk, wsf, ep);
+  };
+  if (b_col) run(mma_stream<T, false>, 0);
+  else run(mma_stream<T, true>, 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = static_cast<long long>(M) * N;
+  const long long blocks = (total + 255) / 256;
+  splitk_reduce<float><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      wsf, splits, ep);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). `a_col` / `b_col` are the tile
-// layouts (1 for "col"); `dt` the element type of both; `variant` as in
-// gemm_tiled (0 scalar FMA for f32 / int8, 1 mma decode, 2 mma prefill for
-// bf16 / f16); BM / BN the FMA tile; `c` and `bias` f32; the output a
-// contiguous [M, N] of `out_dt`. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for what the kernel does not take.
+// layouts (1 for "col"); `dt` the element type of both; `variant` 0 CUDA
+// cores (f32 / int8, with the FmaPlan `fma_body`, `fma_tile`, `splits`,
+// `kchunk` in elements of k), 1 / 2 blocked_mma decode / prefill, 3
+// V_WGMMA, 4 V_TC_STREAM (`splits` chunks of `kchunk` packed k-tiles) for
+// bf16 / f16; `ws` the split-K workspace ([splits, M, N] of the
+// accumulator type); `c` and `bias` f32; the output a contiguous [M, N] of
+// `out_dt`. Returns the CUDA error after the launches, or
+// cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int gemm_packed_launch(const void* a, int a_col, int bm, const void* b, int b_col,
                                   int bn, int Kb, int bk, int dt, int M, int N, const void* bias,
                                   const void* c, long long ldc, float alpha, float beta, void* out,
-                                  int out_dt, int act, int variant, int BM, int BN, void* stream) {
+                                  int out_dt, int act, int variant, int fma_body, int fma_tile,
+                                  int splits, int kchunk, void* ws, void* stream) {
   if (M <= 0 || N <= 0 || Kb <= 0 || bm <= 0 || bn <= 0 || bk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -51,27 +135,34 @@ extern "C" int gemm_packed_launch(const void* a, int a_col, int bm, const void* 
   const Epilogue ep = make_epilogue(bias, c, ldc, alpha, beta, out, out_dt, act, M, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = (variant == V_MMA_DECODE || variant == V_MMA_PREFILL);
-  const bool fma_ok = variant == V_FMA && valid_block(BM) && valid_block(BN);
+  const bool tc = (variant == V_WGMMA || variant == V_TC_STREAM);
+  const FmaPlan plan{fma_body, fma_tile, splits, kchunk, ws};
   const int big = 0x7fffffff;
   // A rows are m ("col" tiles are k-major); B rows are n ("row" tiles are
   // k-major).
   switch (dt) {
     case DT_F32:
-      if (!fma_ok) break;
-      launch_fma<float>(packed<float>(a, bm, bk, Kb, a_col), packed<float>(b, bn, bk, Kb, !b_col),
-                        M, N, K, ep, BM, BN, big, s);
-      return static_cast<int>(cudaGetLastError());
+      if (variant != V_FMA) break;
+      return launch_fma<float>(packed<float>(a, bm, bk, Kb, a_col),
+                               packed<float>(b, bn, bk, Kb, !b_col), M, N, K, ep, plan, big, s);
     case DT_I8:
-      if (!fma_ok) break;
-      launch_fma<int>(packed<int8_t>(a, bm, bk, Kb, a_col), packed<int8_t>(b, bn, bk, Kb, !b_col),
-                      M, N, K, ep, BM, BN, big, s);
-      return static_cast<int>(cudaGetLastError());
+      if (variant != V_FMA) break;
+      return launch_fma<int>(packed<int8_t>(a, bm, bk, Kb, a_col),
+                             packed<int8_t>(b, bn, bk, Kb, !b_col), M, N, K, ep, plan, big, s);
     case DT_BF16:
+      if (tc) {
+        return launch_tc<__nv_bfloat16>(variant, a, a_col, bm, b, b_col, bn, Kb, bk, dt, M, N, ep,
+                                        splits, kchunk, ws, s);
+      }
       if (!mma) break;
       launch_mma<__nv_bfloat16>(variant, packed<__nv_bfloat16>(a, bm, bk, Kb, a_col),
                                 packed<__nv_bfloat16>(b, bn, bk, Kb, !b_col), M, N, K, ep, big, s);
       return static_cast<int>(cudaGetLastError());
     case DT_F16:
+      if (tc) {
+        return launch_tc<__half>(variant, a, a_col, bm, b, b_col, bn, Kb, bk, dt, M, N, ep, splits,
+                                 kchunk, ws, s);
+      }
       if (!mma) break;
       launch_mma<__half>(variant, packed<__half>(a, bm, bk, Kb, a_col),
                          packed<__half>(b, bn, bk, Kb, !b_col), M, N, K, ep, big, s);

@@ -12,9 +12,10 @@
 // copied: the raw LM head is B = table.t(), a transposed view of the
 // [vocab, d_model] embedding, which the kernel streams k-contiguous
 // (gemm_blocked.cuh picks the staging order from the strides). A and B have
-// one element type: f32 and int8 (i32 accumulators) run the scalar-FMA body
-// in full precision (no TF32, as the reference accumulates f32 GEMMs in
-// f32); bf16 / f16 run on the tensor cores with f32 accumulators.
+// one element type: f32 and int8 (i32 accumulators) run gemm_blocked.cuh's
+// CUDA-core bodies in full precision (no TF32, as the reference accumulates
+// f32 GEMMs in f32): fma_tiled above 16 rows, fma_stream at decode, both
+// with split-K; bf16 / f16 run on the tensor cores with f32 accumulators.
 //
 // What bounds it on an H100: at decode (M of a few rows) the weight stream,
 // B's bytes over 3.35 TB/s; at large M the multiply-adds. The Pallas grid
@@ -22,47 +23,39 @@
 // runs the whole problem in one block, which is the reference's one-step
 // grid for "Intrinsic" (one TensorCore on a TPU v5e; here 1 of 132 SMs).
 //
-// Not yet: vectorized (16-byte) staging loads, TMA, wgmma, split-K.
+// Not yet for bf16 / f16: vectorized staging loads, TMA, wgmma, split-K.
 
 #include "gemm_blocked.cuh"
 
-namespace {
-
-template <typename T>
-StridedOperand<T> strided(const void* p, long long s_row, long long s_k) {
-  return StridedOperand<T>{static_cast<const T*>(p), s_row, s_k, s_k == 1};
-}
-
-}  // namespace
-
 // Plain C entry point (bound with ctypes). `dt` is A's and B's element type;
-// `variant` 0 scalar FMA (f32, int8), 1 mma decode, 2 mma prefill (bf16,
-// f16); BM / BN the FMA tile; `c` and `bias` are f32 (the wrapper converts
+// `variant` 0 CUDA cores (f32, int8) with the FmaPlan (`fma_body`,
+// `fma_tile`, `splits`, `kchunk`, workspace `ws`), 1 mma decode, 2 mma
+// prefill (bf16, f16); `c` and `bias` are f32 (the wrapper converts
 // them); the output is a contiguous [M, N] of `out_dt`. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for what
 // the kernel does not take.
 extern "C" int gemm_tiled_launch(const void* a, long long sam, long long sak, const void* b,
                                  long long sbk, long long sbn, int dt, int M, int K, int N,
                                  const void* bias, const void* c, long long ldc, float alpha,
-                                 float beta, void* out, int out_dt, int act, int variant, int BM,
-                                 int BN, int max_blocks, void* stream) {
+                                 float beta, void* out, int out_dt, int act, int variant,
+                                 int fma_body, int fma_tile, int splits, int kchunk, void* ws,
+                                 int max_blocks, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || max_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Epilogue ep = make_epilogue(bias, c, ldc, alpha, beta, out, out_dt, act, M, N);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool mma = (variant == V_MMA_DECODE || variant == V_MMA_PREFILL);
-  const bool fma_ok = variant == V_FMA && valid_block(BM) && valid_block(BN);
+  const bool fma_ok = variant == V_FMA;
+  const FmaPlan plan{fma_body, fma_tile, splits, kchunk, ws};
   // B is seen by (n, k): its row stride is sbn.
   switch (dt) {
     case DT_F32:
       if (!fma_ok) break;
-      launch_fma<float>(strided<float>(a, sam, sak), strided<float>(b, sbn, sbk), M, N, K, ep,
-                        BM, BN, max_blocks, s);
-      return static_cast<int>(cudaGetLastError());
+      return launch_fma<float>(strided<float>(a, sam, sak), strided<float>(b, sbn, sbk), M, N,
+                               K, ep, plan, max_blocks, s);
     case DT_I8:
       if (!fma_ok) break;
-      launch_fma<int>(strided<int8_t>(a, sam, sak), strided<int8_t>(b, sbn, sbk), M, N, K, ep,
-                      BM, BN, max_blocks, s);
-      return static_cast<int>(cudaGetLastError());
+      return launch_fma<int>(strided<int8_t>(a, sam, sak), strided<int8_t>(b, sbn, sbk), M, N,
+                             K, ep, plan, max_blocks, s);
     case DT_BF16:
       if (!mma) break;
       launch_mma<__nv_bfloat16>(variant, strided<__nv_bfloat16>(a, sam, sak),

@@ -244,9 +244,52 @@ _PACKED_ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # Kb, bk, dt, M
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # N, bias, c, ldc
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,    # alpha, beta, out, dt
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # act, variant, BM, BN
-    ctypes.c_void_p,                                                  # stream
+    ctypes.c_int, ctypes.c_int,                                       # act, variant
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # fma body, tile, splits, kchunk
+    ctypes.c_void_p, ctypes.c_void_p,                                 # ws, stream
 ]
+
+# K6's bodies (variant codes of csrc/gemm_packed.cu, by name): the TMA
+# bodies of gemm_wgmma.cuh, blocked_mma for any other bf16 / f16 geometry,
+# and the CUDA-core bodies for f32 / int8.
+WGMMA, TC_STREAM = 3, 4
+PACKED_VARIANTS = ("wgmma", "tc_stream", "mma_general", "fma_tiled",
+                   "fma_stream")
+TC_BOX = 64   # a TMA box's contiguous axis, elements
+
+
+def packed_variant(dtype: torch.dtype, m: int, bm: int, bk: int, bn: int,
+                   layout_a: str, aligned: bool) -> int:
+    """K6's body for packed tiles of ``dtype``: bf16 / f16 take V_WGMMA
+    when the tiles are 64 x 64 with bk a multiple of 64 (any layouts),
+    V_TC_STREAM at decode (m <= 16) on 16-row "row" A tiles, bn 64 and bk
+    a multiple of 64; both need 16-byte aligned stacks (``aligned``). Any
+    other bf16 / f16 geometry takes blocked_mma (MMA_DECODE up to 16 rows,
+    else MMA_PREFILL); f32 and int8 the CUDA-core bodies (FMA)."""
+    if dtype_name(dtype) not in ("bfloat16", "float16"):
+        return gt.FMA
+    if aligned and bk % TC_BOX == 0 and bn == TC_BOX:
+        if bm == TC_BOX:
+            return WGMMA
+        if bm == 16 and layout_a == "row" and m <= 16:
+            return TC_STREAM
+    return gt.pick_variant(dtype, m)
+
+
+def tc_stream_split(kb: int, nb: int) -> tuple:
+    """(splits, kt_chunk) of V_TC_STREAM: Kb cut into chunks of whole
+    packed tiles so that nb 64-column stripes give at least two blocks an
+    SM (as far as Kb allows); every split non-empty."""
+    want = cdiv(2 * gt.H100_SMS, nb)
+    chunk = max(1, kb // want)
+    return cdiv(kb, chunk), chunk
+
+
+def variant_name(variant: int, fma_body: int) -> str:
+    """The ``.variants`` key of a launch."""
+    if variant == gt.FMA:
+        return ("fma_tiled", "fma_stream")[fma_body]
+    return {WGMMA: "wgmma", TC_STREAM: "tc_stream"}.get(variant, "mma_general")
 
 
 @functools.lru_cache(maxsize=None)
@@ -303,7 +346,8 @@ def gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
     bias)``; ``a_packed`` from ``pack_a`` ([Mb, Kb, bm, bk] "row" or
     [Mb, Kb, bk, bm] "col"), ``b_packed`` from ``pack_b`` (float or int8,
     unscaled), one element dtype. On the CPU this is
-    :func:`gemm_packed_plain`."""
+    :func:`gemm_packed_plain`; on the card :func:`packed_variant` picks the
+    body, and ``.variants`` counts the launches by body."""
     if a_packed.device.type == "cpu":
         return gemm_packed_plain(a_packed, b_packed, m, n, c, alpha=alpha,
                                  beta=beta, layout_a=layout_a,
@@ -331,7 +375,22 @@ def gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
     int_acc = acc_dtype_for(a_packed.dtype) == torch.int32
     c32, bias32 = gt.epilogue_operands(c, bias, m, n, int_acc,
                                        a_packed.device)
-    bm_k, bn_k = gt.fma_blocks(m, n, bm)
+    kb = a_packed.shape[1]
+    aligned = a_packed.data_ptr() % 16 == 0 and b_packed.data_ptr() % 16 == 0
+    variant = packed_variant(a_packed.dtype, m, bm, bk, bn, layout_a, aligned)
+    ws = None
+    if variant == gt.FMA:
+        fma, ws = gt.fma_args(m, kb * bk, n, acc_dtype_for(a_packed.dtype),
+                              a_packed.device, item=a_packed.element_size(),
+                              b_kfast=layout_b == "col", align=bk)
+    elif variant == TC_STREAM:
+        splits, chunk = tc_stream_split(kb, cdiv(n, bn))
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=a_packed.device)
+        fma = (0, 0, splits, chunk, None if ws is None else ws.data_ptr())
+    else:
+        fma = (0, 0, 1, 0, None)
     with torch.cuda.device(a_packed.device):
         stream = torch.cuda.current_stream(a_packed.device).cuda_stream
         rc = _packed_kernel()(
@@ -342,12 +401,14 @@ def gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
             None if c32 is None else c32.data_ptr(), n, float(alpha),
             float(beta if c is not None else 0.0), out.data_ptr(),
             gt.DT[dtype_name(out_dtype)],
-            EPILOGUE_CODES[kernel_epilogue_name(epilogue)],
-            gt.pick_variant(a_packed.dtype, m), bm_k, bn_k, stream)
+            EPILOGUE_CODES[kernel_epilogue_name(epilogue)], variant, *fma,
+            stream)
     if rc != 0:
         raise RuntimeError(f"gemm_packed launch failed: CUDA error {rc}")
     gemm_packed.launches += 1
+    gemm_packed.variants[variant_name(variant, fma[0])] += 1
     return out
 
 
 gemm_packed.launches = 0
+gemm_packed.variants = dict.fromkeys(PACKED_VARIANTS, 0)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -38,9 +39,15 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # dt, M, K, N
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,              # bias, c, ldc
     ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int,    # alpha, beta, out, dt
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # act, variant, BM, BN
-    ctypes.c_int, ctypes.c_void_p,                                    # max_blocks, stream
+    ctypes.c_int, ctypes.c_int,                                       # act, variant
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # fma body, tile, splits, kchunk
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,                   # ws, max_blocks, stream
 ]
+
+# The CUDA-core bodies of gemm_blocked.cuh (FmaPlan::body).
+FMA_TILED, FMA_STREAM = 0, 1
+STREAM_ROWS = 16     # fma_stream takes at most this many rows
+MIN_KCHUNK = 128     # the least k a split covers: partial sums stay a few % of B
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,21 +61,69 @@ def _kernel():
 def pick_variant(dtype: torch.dtype, m: int) -> int:
     """Tensor cores (mma.sync) for bf16 / f16: the decode variant (16 x 16
     tiles) up to 16 rows, the prefill variant (64 x 64) above. f32 and int8
-    take the scalar-FMA body (f32 in full f32, as the reference)."""
+    take the CUDA-core bodies (f32 in full f32, as the reference), planned
+    by :func:`fma_geometry`."""
     if dtype_name(dtype) in ("bfloat16", "float16"):
         return MMA_DECODE if m <= 16 else MMA_PREFILL
     return FMA
 
 
-def fma_blocks(m: int, n: int, bm: int) -> tuple:
-    """(BM, BN) of the scalar-FMA body: BM the plan's bm clamped to the
-    rows (multiples of 16, at most 64); BN the widest of 64/48/32/16 that
-    still gives the card more blocks than SMs, else 16."""
-    bm_k = min(64, max(16, -(-min(bm, m) // 16) * 16))
-    for bn_k in (64, 48, 32, 16):
-        if cdiv(m, bm_k) * cdiv(n, bn_k) >= H100_SMS:
-            return bm_k, bn_k
-    return bm_k, 16
+def vec_elems(item: int) -> int:
+    """Elements of one staging vector (``vec_elems`` of the CUDA source):
+    16 bytes, at most 8 elements."""
+    return min(8, 16 // item)
+
+
+def stream_bn(item: int, b_kfast: bool) -> int:
+    """Columns of one fma_stream work item (``stream_bn`` of the source)."""
+    return 32 if b_kfast else 8 * vec_elems(item)
+
+
+def split_k(k: int, tiles: int, align: int, target: int) -> tuple:
+    """(splits, kchunk): K cut into chunks of ``kchunk`` (a multiple of
+    ``align``, at least MIN_KCHUNK rounded up to it), each non-empty, so
+    that ``tiles`` output tiles give the card at least ``target`` blocks
+    (as far as K allows)."""
+    floor = cdiv(MIN_KCHUNK, align) * align
+    if tiles >= target:
+        return 1, max(cdiv(k, align) * align, align)
+    want = cdiv(target, tiles)
+    kchunk = max(floor, (k // want) // align * align)
+    return cdiv(k, kchunk), kchunk
+
+
+def fma_geometry(m: int, k: int, n: int, *, item: int, b_kfast: bool,
+                 align: int = 16, single_block: bool = False) -> tuple:
+    """The CUDA-core plan ``(body, tile, splits, kchunk)`` of
+    gemm_blocked.cuh for an [m, k] x [k, n] product of ``item``-byte
+    elements: up to STREAM_ROWS rows fma_stream with the least of 4 / 16
+    rows that holds m; above, fma_tiled with 64 x 64 tiles (tile 1) up to
+    64 rows, else 128 x 128 (tile 2). K is split (on multiples of
+    ``align``: a packed operand's bk) until the card holds two blocks an
+    SM (fma_stream, and the 64 x 64 tiles, of which two fit an SM) or one
+    (the 128 x 128 tiles); never for ``single_block``."""
+    align = align * 16 // math.gcd(align, 16)
+    target = 2 * H100_SMS
+    if m <= STREAM_ROWS:
+        body, tile = FMA_STREAM, (4 if m <= 4 else 16)
+        tiles = cdiv(n, stream_bn(item, b_kfast))
+    else:
+        body, tile = FMA_TILED, (1 if m <= 64 else 2)
+        tiles = cdiv(m, 64 * tile) * cdiv(n, 64 * tile)
+        target = H100_SMS if tile == 2 else target
+    if single_block:
+        return body, tile, 1, cdiv(k, align) * align
+    return (body, tile) + split_k(k, tiles, align, target)
+
+
+def fma_args(m: int, k: int, n: int, acc_dtype, device, **geometry) -> tuple:
+    """The FmaPlan arguments of a C entry point, ``(body, tile, splits,
+    kchunk, workspace)``: the workspace is a [splits, m, n] tensor of the
+    accumulator type when K is split (returned too, to outlive the launch)."""
+    body, tile, splits, kchunk = fma_geometry(m, k, n, **geometry)
+    ws = (torch.empty((splits, m, n), dtype=acc_dtype, device=device)
+          if splits > 1 else None)
+    return (body, tile, splits, kchunk, None if ws is None else ws.data_ptr()), ws
 
 
 def epilogue_operands(c, bias, m: int, n: int, int_acc: bool, device):
@@ -111,8 +166,10 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor,
     """``C <- epilogue(alpha * A @ B + beta * C + bias)``, A [M, K] and B
     [K, N] of one dtype, read through their strides.
 
-    ``bm`` sets the scalar-FMA body's m-block; the tensor-core bodies stage
-    fixed tiles (16 x 16 up to 16 rows, 64 x 64 above). ``single_block``
+    ``bm`` is the reference's m-block and does not change the launch: the
+    CUDA-core bodies take their plan from :func:`fma_geometry`, the
+    tensor-core bodies stage fixed tiles (16 x 16 up to 16 rows, 64 x 64
+    above). ``single_block``
     runs the whole problem in ONE block, the reference's one-step grid of
     the "intrinsic" strategy. On the CPU this is :func:`gemm_tiled_plain`.
     """
@@ -145,7 +202,11 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor,
     int_acc = acc_dtype_for(a.dtype) == torch.int32
     c32, bias32 = epilogue_operands(c, bias, m, n, int_acc, a.device)
     variant = pick_variant(a.dtype, m)
-    bm_k, bn_k = fma_blocks(m, n, bm)
+    fma, ws = (0, 0, 1, 0, None), None
+    if variant == FMA:
+        fma, ws = fma_args(m, k, n, acc_dtype_for(a.dtype), a.device,
+                           item=a.element_size(), b_kfast=b.stride(0) == 1,
+                           single_block=single_block)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _kernel()(
@@ -155,8 +216,8 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor,
             None if c32 is None else c32.data_ptr(), n, float(alpha),
             float(beta if c is not None else 0.0), out.data_ptr(),
             DT[dtype_name(out_dtype)],
-            EPILOGUE_CODES[kernel_epilogue_name(epilogue)], variant, bm_k,
-            bn_k, 1 if single_block else ALL_BLOCKS, stream)
+            EPILOGUE_CODES[kernel_epilogue_name(epilogue)], variant, *fma,
+            1 if single_block else ALL_BLOCKS, stream)
     if rc != 0:
         raise RuntimeError(f"gemm_tiled launch failed: CUDA error {rc}")
     gemm_tiled.launches += 1

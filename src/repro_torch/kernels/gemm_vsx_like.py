@@ -7,7 +7,11 @@ baseline of the matrix-engine comparison (Fig. 10b). The CUDA kernel is
 beside it.
 
 Operands are widened to the accumulator type (f32, or i32 for int8) and the
-accumulator is stored as ``out_dtype`` with no other epilogue.
+accumulator is stored as ``out_dtype`` with no other epilogue. Both entry
+points run the two CUDA-core bodies of ``csrc/gemm_blocked.cuh``, planned
+by :func:`repro_torch.kernels.gemm_tiled.fma_geometry`: ``fma_stream`` up
+to 16 rows, ``fma_tiled`` above; each wrapper counts its launches by body
+in ``.variants``.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback.
@@ -23,7 +27,7 @@ from repro_torch.core.dtypes import dtype_name
 from repro_torch.core.tile_format import TileFormat, cdiv
 from repro_torch.kernels import build
 from repro_torch.kernels import gemm_tiled as gt
-from repro_torch.kernels.common import plain_acc
+from repro_torch.kernels.common import acc_dtype_for, plain_acc
 from repro_torch.kernels.ref import unpack_b_ref
 
 _ARGTYPES = [
@@ -31,8 +35,10 @@ _ARGTYPES = [
     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,            # M, K, b, packed
     ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,     # sbk, sbn, b_col, Kb
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,            # bk, bn, N, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,            # dt, BM, BN, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,               # dt, body, tile, splits
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,                       # kchunk, ws, stream
 ]
+VARIANTS = ("fma_tiled", "fma_stream")   # by FmaPlan body
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +95,7 @@ def _launch(a, b, n, *, packed_fmt, bm, out_dtype, wrapper):
         if min(b.stride()) < 0:
             raise ValueError("kernel takes non-negative strides")
         b_args = (0, b.stride(0), b.stride(1), 0, 0, 0, 0)
+        b_kfast, align = b.stride(0) == 1, 16
     else:
         fmt = packed_fmt
         if not b.is_contiguous() or b.dim() != 4 \
@@ -97,23 +104,27 @@ def _launch(a, b, n, *, packed_fmt, bm, out_dtype, wrapper):
                              f"{tuple(a.shape)} and n={n}")
         b_args = (1, 0, 0, int(fmt.layout == "col"), b.shape[1], fmt.bk,
                   fmt.bn)
-    bm_k, bn_k = gt.fma_blocks(m, n, bm)
+        b_kfast, align = fmt.layout == "col", fmt.bk
+    del bm  # the reference's m-block; the plan comes from the shape
+    fma, ws = gt.fma_args(m, k, n, acc_dtype_for(a.dtype), a.device,
+                          item=a.element_size(), b_kfast=b_kfast, align=align)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _kernel()(a.data_ptr(), a.stride(0), a.stride(1), gt.DT[dt], m, k,
                        b.data_ptr(), *b_args, n, out.data_ptr(),
-                       gt.DT[dtype_name(out_dtype)], bm_k, bn_k, stream)
+                       gt.DT[dtype_name(out_dtype)], *fma, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    wrapper.variants[VARIANTS[fma[0]]] += 1
     return out
 
 
 def matmul_vsx_like(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64,
                     out_dtype=None) -> torch.Tensor:
     """A [M, K] @ B [K, N] (any strides) by rank-1 CUDA-core updates. ``bm``
-    sets the block's m-tile. On the CPU this is
-    :func:`matmul_vsx_like_plain`."""
+    is the reference's m-block; the kernel's plan comes from the shape. On
+    the CPU this is :func:`matmul_vsx_like_plain`."""
     if a.device.type == "cpu":
         return matmul_vsx_like_plain(a, b, bm=bm, out_dtype=out_dtype)
     if b.dim() != 2 or a.shape[-1] != b.shape[0]:
@@ -140,3 +151,5 @@ def matmul_vsx_like_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int,
 
 matmul_vsx_like.launches = 0
 matmul_vsx_like_packed.launches = 0
+matmul_vsx_like.variants = dict.fromkeys(VARIANTS, 0)
+matmul_vsx_like_packed.variants = dict.fromkeys(VARIANTS, 0)

@@ -269,13 +269,15 @@ def test_c_alpha_beta_are_dense_only_and_packed_weights_refuse_them():
     (torch.int8, 512, "FMA")])
 def test_blocked_kernels_pick_tensor_cores_for_half_types_only(dtype, m, want):
     """K6/K7 run bf16/f16 on the tensor cores (the decode variant up to 16
-    rows) and f32/int8 on the scalar-FMA body (f32 in full f32); the FMA
-    body's block clamps the plan's bm to the rows and narrows its columns
-    until the card has more blocks than SMs."""
+    rows) and f32/int8 on the CUDA-core bodies (f32 in full f32): the
+    streaming body up to 16 rows, K split until the card has two blocks an
+    SM; the 128 x 128 tiled body at M=512, N=8192."""
     from repro_torch.kernels import gemm_tiled as gt
     assert gt.pick_variant(dtype, m) == getattr(gt, want)
-    assert gt.fma_blocks(4, 2048, 64) == (16, 16)
-    assert gt.fma_blocks(512, 8192, 64) == (64, 64)
+    assert gt.fma_geometry(4, 2048, 2048, item=4, b_kfast=False) == (
+        gt.FMA_STREAM, 4, 6, 400)
+    assert gt.fma_geometry(512, 2048, 8192, item=4, b_kfast=False)[:2] == (
+        gt.FMA_TILED, 2)
 
 
 @pytest.mark.cuda
