@@ -1,16 +1,26 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --planted-faults   # the checks against a wrong K4, K6, K8
+    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K4, K6, K8
+    python3 chip_smoke.py --served-attention OTHER/layers.py   # served attention, A/B
 
 Phases (any failure exits non-zero and prints no result line):
   1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
      per source, all at once, into ``build/kernels/``), check that K8's
-     library issues no tensor-core instruction and K6's holds HGMMA (wgmma),
-     and hold each kernel against its plain torch version on the card:
-     - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16, plus
-       f32, int8 and int4 B with tile and col scales, both tile layouts,
-       bias and every epilogue;
+     library issues no tensor-core instruction, K6's holds HGMMA (wgmma),
+     and K1's CUDA-core functions issue none while its wgmma functions
+     issue HGMMA (per function: one library holds both), and hold each
+     kernel against its plain torch version on the card:
+     - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16 (M=4 on
+       tc_stream, M=512 on wgmma, timed with CUDA events and by
+       torch.profiler's kernel time beside torch.matmul's), plus f32, int8
+       and int4 B with tile and col scales, both tile layouts, bias and
+       every epilogue; then at its bodies' edges (k1_checks: a strided A
+       whose columns past K hold NaN, K 700 / 750 / 2048, M 1 ... 512, N
+       200 / 8192 / 50304, both layouts with bk 64 and 128, every epilogue
+       with c, alpha and beta at M=4 (split K) and 512, a misaligned A on
+       mma_general, f32 / int8 on the CUDA-core bodies), each call held to
+       the body it must take;
      - gemm_grouped_packed_ragged (K2) and gemm_grouped_packed (K3, the
        same operands with every row live) at mixtral-8x22b's expert shapes
        (the gate/up pair K=6144 N=16384, the down projection K=16384
@@ -40,24 +50,29 @@ Phases (any failure exits non-zero and prints no result line):
   2. Serve full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16,
      random weights from a seed, made on the card) through
      ``Engine(..., ServeConfig(pack_weights=True))``: prompt batch 4 x 128,
-     then 32 greedy decode steps. The first prefill's logits are compared
-     with the same weights run through the plain versions on the card.
+     then 32 greedy decode steps (K1's launches by body: wgmma at prefill,
+     tc_stream for the prefill's LM head and at decode, nothing else). The
+     first prefill's logits are compared with the same weights run through
+     the plain versions on the card.
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
      8 KV heads x 128, d_ff 16384, 8 experts top-2, vocab 32768) with its
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
      layers of f32 weights are 40 GB, plus 20 GB packed in bf16) — the
      same way: prefill logits against the plain versions, expert choices
-     compared.
+     compared, K1's launches by body as for olmo-1b.
   4. The paper's strategy comparison: square GEMMs of the paper's sizes
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
      and ``auto`` (naive and pluto up to 512, intrinsic up to 2048), each
      output against the f32 product (from 256 up, tiling_packing must take
-     K6's V_WGMMA in bf16 and vsx K8's fma_tiled); then the grouped lowerings on raw
+     K6's V_WGMMA in bf16, tiling_packing_fused K1's wgmma, vsx K8's
+     fma_tiled; at f32 K1 runs on fma_tiled / fma_stream at every size);
+     then the grouped lowerings on raw
      expert stacks (a bf16 silu-gate pair, E=8, with and without counts).
   5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
      default ``Engine(model, params)``: prefill logits against phase 2's,
-     and the lowering of every contraction recorded.
+     and the lowering of every contraction recorded (K1 at prefill on
+     wgmma only).
   6. Long-context attention through ``repro_torch.kernels.ops.attention``
      (K4) in bf16 at full head width, lengths from ``configs.shapes``:
      olmo-1b (16 heads x 128) at its served prefill and decode (A1, A2),
@@ -68,13 +83,17 @@ Phases (any failure exits non-zero and prints no result line):
      + its row's RMS, at most |want| + 1e-2, the norm within 1e-2, and a uniform-weight probe that
      catches one key too many or too few), timed beside its bound, the
      plain version and F.scaled_dot_product_attention (the yardstick only).
+     Then served attention alone: ``models.layers.chunked_attention`` (what
+     the served models run) at olmo-1b's served prefill and decode and one
+     prefill_32k sequence, timed.
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key) and shows that phase 6's check fails
 each at every shape it reaches and passes the kernel as built; then copies
-of K8 with the last split-K chunk dropped and of K6 with its TMA ring one
-k-step short, which phase 1's K6 / K8 edge checks must fail while passing
-the kernels as built.
+of K8 with the last split-K chunk dropped, of K6 with its TMA ring one
+k-step short, and of K1 with A's tensor map lda wide instead of K and with
+the last split dropped from tc_stream's reduction, which phase 1's K6 / K8
+and K1 edge checks must fail while passing the kernels as built.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -82,6 +101,11 @@ the kernels as built.
   decode forwards alone, a profile of the decode forward; for each kernel
   shape its time beside its bound, its plain version and one PyTorch call;
   for the sweep each strategy's time per size.
+With ``--served-attention PATH`` it runs no phase either: it times the
+served models' ``chunked_attention`` from another copy of
+``models/layers.py`` (for example a parent commit's) against this tree's,
+in turns (other, this, this, other), at the shapes of phase 6's served
+attention timing, on one card.
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
 """
@@ -180,7 +204,115 @@ def close(got, want, rtol, atol):
     return ok, float(err.max())
 
 
-def phase_kernels(torch, gp, ref, tf):
+K1_EDGE_M = (1, 4, 15, 16, 17, 37, 512)
+K1_EDGE_K = (700, 750, 2048)
+
+
+def k1_body(m):
+    """K1's body for bf16 A against the planner's aligned bf16 tiles."""
+    return "tc_stream" if m <= 16 else "wgmma"
+
+
+def k1_checks(torch, ks, quiet=False) -> tuple:
+    """K1 against its plain version at its new bodies' edges, each call
+    also held to the body it must take: A as a strided view whose columns
+    past K hold NaN (the tensor map must be K wide), K 700 / 750 / 2048
+    (tails whose last 64-deep box is padding), M 1 ... 512 (both sides of
+    16), N = 200, both B layouts with bk 64 and 128; every epilogue with
+    bias, c, alpha and beta at M=4 (K split) and M=512; N = 8192 and the
+    LM head's 50304 at M 4 and 512 (blocks that walk several tiles); a
+    misaligned A on mma_general; f32 and int8 on the CUDA-core bodies.
+    bf16 output 2e-2 / 1e-3 (f32 sums in other orders, one bf16
+    rounding), f32 1e-4, int8 exact. Returns (failed tags, launches by
+    body over the checks)."""
+    pk, gp, tf = ks["pack"], ks["gp"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    bf16, f32 = torch.bfloat16, torch.float32
+    fn = gp.gemm_packed_fused_a
+    fails, seen = [], dict.fromkeys(fn.variants, 0)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * std
+
+    def a_view(m, k, dtype=bf16, nan_pad=True):
+        """[m, k] view of a buffer with row stride a multiple of 8 whose
+        columns past k hold NaN."""
+        buf = torch.full((m, -(-k // 8) * 8 + 8), math.nan if nan_pad else 0.0,
+                         device=DEVICE)
+        buf[:, :k] = randn(m, k)
+        return buf.to(dtype)[:, :k]
+
+    def check(tag, body, a, bp, n, fmt, rtol, atol, **kw):
+        before = dict(fn.variants)
+        try:
+            got = fn(a, bp, n, b_format=fmt, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            seen[v] += fn.variants[v] - before[v]
+        ok, err = close(got, gp.gemm_packed_fused_a_plain(a, bp, n, b_format=fmt,
+                                                          **kw), rtol, atol)
+        ok = ok and ran == [body]
+        if not ok:
+            fails.append(tag)
+        if not ok or not quiet:
+            log(f"  check {tag} [{'+'.join(ran)}; want {body}]: max_abs_err="
+                f"{err:.3e} (rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'}")
+
+    n = EDGE_N
+    for k in K1_EDGE_K:
+        w = randn(k, n, std=0.05).to(bf16)
+        packs = {(bk, lay): (tf.TileFormat(bk=bk, bn=64, layout=lay, dtype="bfloat16"),
+                             pk.pack_b_plain(w, bk, 64, lay))
+                 for bk in (64, 128) for lay in ("row", "col")}
+        for m in K1_EDGE_M:
+            a = a_view(m, k)
+            for (bk, lay), (fmt, bp) in packs.items():
+                check(f"K1 bf16 NaN-padded A M={m} K={k} N={n} bk {bk} {lay}",
+                      k1_body(m), a, bp, n, fmt, 2e-2, 1e-3)
+    fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
+    for nn in (2048, 8192, 50304):
+        bp = pk.pack_b_plain(randn(2048, nn, std=0.02).to(bf16), 128, 64, "row")
+        for m in (4, 512):
+            a = a_view(m, 2048)
+            if nn == 2048:
+                c, bias = randn(m, nn), randn(nn)
+                for epi in EPIS:
+                    check(f"K1 bf16 M={m} K=2048 N={nn} {epi}+bias, c, alpha, beta",
+                          k1_body(m), a, bp, nn, fmt, 2e-2, 1e-3, c=c, alpha=1.5,
+                          beta=0.5, bias=bias, epilogue=epi)
+            else:
+                check(f"K1 bf16 M={m} K=2048 N={nn}", k1_body(m), a, bp, nn, fmt,
+                      2e-2, 1e-3)
+    k, w = 300, randn(300, n, std=0.05)
+    bp = pk.pack_b_plain(w.to(bf16), 128, 64, "row")
+    for m in (4, 37):
+        check(f"K1 bf16 A offset 5 (misaligned) M={m}", "mma_general",
+              randn(m, k + 20).to(bf16)[:, 5:k + 5], bp, n, fmt, 2e-2, 1e-3,
+              epilogue="gelu")
+    fmt32 = tf.TileFormat(bk=64, bn=64, layout="col")
+    bp32 = pk.pack_b_plain(randn(750, n, std=0.05), 64, 64, "col")
+    fmt8 = tf.TileFormat(bk=64, bn=64, dtype="int8")
+    wi = torch.randint(-100, 100, (750, n), generator=gen, device=DEVICE,
+                       dtype=torch.int8)
+    bp8 = pk.pack_b_plain(wi, 64, 64, "row")
+    for m in K1_EDGE_M:
+        body = "fma_stream" if m <= 16 else "fma_tiled"
+        check(f"K1 f32 M={m} K=750 strided A col silu", body,
+              a_view(m, 750, f32, nan_pad=False), bp32, n, fmt32, 1e-4, 1e-4,
+              epilogue="silu")
+        ai = torch.randint(-100, 100, (m, 758), generator=gen, device=DEVICE,
+                           dtype=torch.int8)[:, :750]
+        check(f"K1 int8 M={m} K=750 -> int32 (exact)", body, ai, bp8, n, fmt8,
+              0.0, 0.0, out_dtype=torch.int32)
+    return fails, seen
+
+
+def phase_kernels(torch, gp, ref, tf, pk):
     """Kernel vs plain version on the card; returns the per-shape table."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -219,28 +351,39 @@ def phase_kernels(torch, gp, ref, tf):
         for m in (4, 512):
             a = randn(m, k).to(torch.bfloat16)
             bm = min(64, -(-m // 16) * 16)
+            before = dict(gp.gemm_packed_fused_a.variants)
             for epi in (("none", "silu") if (k, n) == (2048, 8192)
                         else ("none",)):
                 main_err = max(main_err, check(
                     f"bf16 M={m} K={k} N={n} {epi}", a, bps[0], n, fmt,
                     2e-2, 1e-3, bm=bm, epilogue=epi))
+            ran = [v for v, c in gp.gemm_packed_fused_a.variants.items()
+                   if c != before[v]]
+            log(f"  body at M={m} K={k} N={n}: {ran} (want {[k1_body(m)]})")
+            if ran != [k1_body(m)]:
+                fails.append(f"body at M={m} K={k} N={n}")
             # Round-robin over `copies` packed weights (>= 128 MB in all) so
             # that B comes from HBM, not from the 50 MB L2, as in serving.
             reps = 20 if m == 4 else 5
             t_k = time_ms(lambda i: gp.gemm_packed_fused_a(
                 a, bps[i % copies], n, bm=bm, b_format=fmt), reps)
+            t_dev = device_ms(lambda i: gp.gemm_packed_fused_a(
+                a, bps[i % copies], n, bm=bm, b_format=fmt), reps)
             t_p = time_ms(lambda i: gp.gemm_packed_fused_a_plain(
                 a, bps[i % copies], n, bm=bm, b_format=fmt), max(2, reps // 4))
             t_l = time_ms(lambda i: torch.matmul(a, b_nat[i % copies]), reps)
+            t_l_dev = device_ms(lambda i: torch.matmul(a, b_nat[i % copies]),
+                                reps)
             b_bytes = fmt.packed_bytes(k, n)
             t_b, by = bound_ms(m, k, n, 2, b_bytes, 2, H100_BF16_FLOPS)
-            variant = gp.pick_variant(a.dtype, fmt, m)
-            table.append(dict(m=m, k=k, n=n, variant=variant, ms=t_k,
-                              plain_ms=t_p, library_ms=t_l, bound_ms=t_b,
-                              bound_by=by))
-            log(f"  time M={m} K={k} N={n}: kernel {t_k:.4f} ms (variant "
-                f"{variant}), plain {t_p:.4f} ms, "
-                f"torch.matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by})")
+            table.append(dict(m=m, k=k, n=n, variant=ran[0] if ran else None,
+                              ms=t_k, device_ms=t_dev, plain_ms=t_p,
+                              library_ms=t_l, library_device_ms=t_l_dev,
+                              bound_ms=t_b, bound_by=by))
+            log(f"  time M={m} K={k} N={n}: kernel {t_k:.4f} ms (device "
+                f"{t_dev:.4f}; {ran}), plain {t_p:.4f} ms, torch.matmul "
+                f"{t_l:.4f} ms (device {t_l_dev:.4f}), bound {t_b:.4f} ms "
+                f"({by})")
         del bps, b_nat
 
     # -- f32, quantized B, both layouts, bias, every epilogue ---------------
@@ -282,6 +425,9 @@ def phase_kernels(torch, gp, ref, tf):
     fi = tf.TileFormat(bk=64, bn=32, dtype="int8")
     check("int8 A x int8 B -> int32 (exact)", ai, ref.pack_b_ref(wi, fi), 96,
           fi, 0.0, 0.0, bm=48, out_dtype=torch.int32)
+    edge_fails, edge_seen = k1_checks(torch, dict(pack=pk, gp=gp, tf=tf))
+    log(f"  K1 edge checks, launches by body: {edge_seen}")
+    fails += edge_fails
     if fails:
         raise AssertionError(f"kernel disagrees with its plain version: {fails}")
     return table, main_err
@@ -878,18 +1024,64 @@ def phase_layered(torch, ks, tf):
     return rows, main_err
 
 
-def tensor_core_ops(path) -> tuple:
-    """(tensor-core opcodes found, SASS line count) of a built library.
-    Without cuobjdump the check cannot be made, and the run fails."""
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA")
+
+
+def dump_sass(path) -> str:
+    """The SASS of a built library. Without cuobjdump the checks cannot be
+    made, and the run fails."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise AssertionError("cuobjdump not found: cannot read the kernels' "
                              "SASS")
-    sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True,
+    return subprocess.run([tool, "--dump-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
-    return ({op for op in ("HMMA", "HGMMA", "IMMA") if op in sass},
+
+
+def tensor_core_ops(path) -> tuple:
+    """(tensor-core opcodes found, SASS line count) of a built library."""
+    sass = dump_sass(path)
+    return ({op for op in TENSOR_CORE_OPS if op in sass},
             len(sass.splitlines()))
+
+
+def sass_by_function(path) -> dict:
+    """{kernel function (mangled name): tensor-core opcodes in its SASS}."""
+    funcs, name = {}, None
+    for line in dump_sass(path).splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = set()
+        elif name is not None:
+            funcs[name].update(op for op in TENSOR_CORE_OPS if op in line)
+    return funcs
+
+
+# K1's CUDA-core kernel functions, by a piece of their names: the f32 /
+# int8 bodies and the split reduction (no tensor-core instruction), and its
+# wgmma body (HGMMA).
+K1_CORE_FUNCTIONS = ("fma_tiled", "fma_stream", "fused_a_fma", "splitk_reduce")
+
+
+def check_k1_sass(path) -> str:
+    """K1's library holds its bf16 tensor-core bodies too, so the check is
+    per function: every CUDA-core function (fma_tiled, fma_stream, the f32
+    / int8 bodies, and the split reduction) issues no HMMA / HGMMA / IMMA,
+    and every wgmma_packed function issues HGMMA."""
+    funcs = sass_by_function(path)
+    core = {n: ops for n, ops in funcs.items()
+            if any(t in n for t in K1_CORE_FUNCTIONS)}
+    wg = {n: ops for n, ops in funcs.items() if "wgmma_packed" in n}
+    missing = [t for t in K1_CORE_FUNCTIONS if not any(t in n for n in core)]
+    bad = sorted(n for n, ops in core.items() if ops)
+    if missing or bad or not wg or not all("HGMMA" in ops for ops in wg.values()):
+        raise AssertionError(f"{path.name}: CUDA-core functions missing "
+                             f"{missing}, with tensor-core ops {bad}; wgmma "
+                             f"functions {len(wg)} "
+                             f"{sorted(set().union(*wg.values())) if wg else []}")
+    return (f"{len(core)} CUDA-core functions without HMMA/HGMMA/IMMA, "
+            f"{len(wg)} wgmma functions with HGMMA, of {len(funcs)}")
 
 
 def check_no_tensor_cores(path) -> str:
@@ -1173,21 +1365,28 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     log(f"  sweep launches {launches} (want {expect})")
     if launches != expect:
         raise AssertionError(f"sweep launch counts {launches} != {expect}")
-    # From 256 up, tiling_packing takes V_WGMMA (bf16) / fma_tiled (f32) and
-    # vsx fma_tiled.
+    # From 256 up, tiling_packing takes V_WGMMA (bf16) / fma_tiled (f32),
+    # tiling_packing_fused (K1) wgmma / fma_tiled, and vsx fma_tiled; at f32
+    # K1 runs on the CUDA-core bodies at every size.
     log(f"  sweep launches by body {variants}")
     wrong = []
     for (dt, size, s, a, b), ran in zip(cases, bodies):
         eff = s if s != "auto" else gemm.resolve_strategy(
             size, size, size, dt, on_card=True)
-        body = {"tiling_packing": ["gemm_packed:wgmma" if dt == torch.bfloat16
+        bf = dt == torch.bfloat16
+        body = {"tiling_packing": ["gemm_packed:wgmma" if bf
                                    else "gemm_packed:fma_tiled"],
+                "tiling_packing_fused": ["gemm_packed_fused_a:wgmma" if bf
+                                         else "gemm_packed_fused_a:fma_tiled"],
                 "vsx": ["matmul_vsx_like:fma_tiled"]}.get(eff)
         if size >= 256 and body is not None and ran != body:
             wrong.append((str(dt), size, s, ran, body))
+        if eff == "tiling_packing_fused" and not bf and ran not in (
+                ["gemm_packed_fused_a:fma_tiled"], ["gemm_packed_fused_a:fma_stream"]):
+            wrong.append((str(dt), size, s, ran, "K1 on fma_tiled / fma_stream"))
     if wrong:
-        raise AssertionError(f"sweep cases from 256 up did not take the new "
-                             f"bodies: {wrong}")
+        raise AssertionError(f"sweep cases did not take the new bodies: "
+                             f"{wrong}")
 
     # -- checks against the f32 product --------------------------------------
     # Error relative to the output's scale (max |C|): f32 outputs 1e-4
@@ -1411,11 +1610,19 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = counters.read()
+    bodies = k1_bodies(counters)
+    # Prefill: the 7 projections a layer at 4 x 128 rows on wgmma, the LM
+    # head at the last positions (4 rows) on tc_stream; decode: tc_stream.
+    want_bodies = dict(tc_stream=1 + per_forward * STEPS,
+                       wgmma=7 * cfg.num_layers)
     log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} ms; "
         f"launches {launches} (want gemm_packed_fused_a {per_forward} x "
-        f"{STEPS + 1} = {per_forward * (STEPS + 1)}, nothing else)")
+        f"{STEPS + 1} = {per_forward * (STEPS + 1)}, nothing else); K1 by "
+        f"body {bodies} (want {want_bodies})")
     if launches != counters.only(gemm_packed_fused_a=per_forward * (STEPS + 1)):
         raise AssertionError(f"launch counts {launches}")
+    if bodies != want_bodies:
+        raise AssertionError(f"K1 launches by body {bodies}")
     check_tokens(tokens, cfg)
 
     # -- logits against the plain version on the card ----------------------
@@ -1439,8 +1646,9 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     if rel > 5e-2 or same_tok != 1:
         raise AssertionError("served logits disagree with the plain version")
 
-    timings = serve_timings(torch, engine, prompt, STEPS, {"K1": "fused_a"})
-    timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3)
+    timings = serve_timings(torch, engine, prompt, STEPS, K1_KERNEL_TAGS)
+    timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3,
+                   k1_launches_by_body=bodies)
     del engine
     return load, launches, timings, (model, params, logits_k, prompt)
 
@@ -1481,13 +1689,18 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         launches = counters.read()
+        bodies = k1_bodies(counters)
     finally:
         ctr.LOWERINGS.update(real)
+    want_bodies = dict(wgmma=7 * layers)   # the prefill's 4 x 128 rows
     log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} "
-        f"ms; launches {launches} (want {want}); lowerings {picks}")
+        f"ms; launches {launches} (want {want}); lowerings {picks}; K1 by "
+        f"body {bodies} (want {want_bodies})")
     if launches != want or picks.get("torch_matmul", 0) != 0:
         raise AssertionError(f"raw-weight launch counts {launches}, "
                              f"lowerings {picks}")
+    if bodies != want_bodies:
+        raise AssertionError(f"K1 launches by body {bodies}")
     check_tokens(tokens, cfg)
 
     logits_raw, _ = engine.prefill_request(prompt[0])
@@ -1505,9 +1718,9 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         raise AssertionError("raw-weight logits disagree with the packed run")
     timings = serve_timings(torch, engine, prompt, STEPS,
                             {"K7": "blocked_mma", "K5": "pack_tiles",
-                             "K1": "fused_a"})
+                             **K1_KERNEL_TAGS})
     timings.update(rel_fro_vs_packed=rel, first_generate_ms=t_gen * 1e3,
-                   lowerings=picks)
+                   lowerings=picks, k1_launches_by_body=bodies)
     del engine
     return launches, timings
 
@@ -1518,6 +1731,20 @@ def check_tokens(tokens, cfg):
         raise AssertionError(f"bad tokens {tokens.shape} "
                              f"[{tokens.min()}, {tokens.max()}]")
     log(f"  tokens[0][:8] = {tokens[0][:8].tolist()}")
+
+
+def k1_bodies(counters) -> dict:
+    """K1's launches by body since the counters were set to 0 (bodies with
+    at least one)."""
+    return {v: c for v, c in counters.variants()["gemm_packed_fused_a"].items()
+            if c}
+
+
+# K1's CUDA kernels in a profile, by a piece of their names: tc_stream and
+# wgmma are K6's templates instantiated on natural A (NaturalA), the
+# quantized bodies fused_a_*, and the split reduction after tc_stream.
+K1_KERNEL_TAGS = {"K1 tc_stream": "mma_stream", "K1 wgmma": "wgmma_packed",
+                  "K1 quantized": "fused_a", "splitk_reduce": "splitk_reduce"}
 
 
 class plain_kernels:
@@ -1600,12 +1827,17 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = counters.read()
+    bodies = k1_bodies(counters)
+    want_bodies = dict(tc_stream=1 + (4 * cfg.num_layers + 1) * STEPS,
+                       wgmma=4 * cfg.num_layers)
     log(f"  generate 4x128 + {STEPS} steps: {t_gen * 1e3:.1f} ms; launches "
         f"{launches} (want K1 {want_k1}, K2 {want_k2}, K3 0: the model always "
-        f"passes counts)")
+        f"passes counts); K1 by body {bodies} (want {want_bodies})")
     if launches != counters.only(gemm_packed_fused_a=want_k1,
                                  gemm_grouped_packed_ragged=want_k2):
         raise AssertionError(f"launch counts {launches}")
+    if bodies != want_bodies:
+        raise AssertionError(f"K1 launches by body {bodies}")
     check_tokens(tokens, cfg)
 
     # -- logits against the plain versions on the card ---------------------
@@ -1674,14 +1906,55 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     del runs
 
     timings = serve_timings(torch, engine, prompt, STEPS,
-                            {"K1": "fused_a", "K2": "grouped_"})
+                            {**K1_KERNEL_TAGS, "K2": "grouped_"})
     timings.update(rel_fro_pinned=rel_p, rel_fro_free=rel_f,
                    expert_choice_flips_free=flips_free,
                    expert_choices=n_choices, first_generate_ms=t_gen * 1e3,
+                   k1_launches_by_body=bodies,
                    prefill_counts=counts, prefill_dropped=dropped)
     del engine
     torch.cuda.empty_cache()
     return load, launches, timings
+
+
+def served_attention(torch, chunked, cfgs, shapes) -> list:
+    """Served attention alone: ``chunked`` (the served models'
+    ``models.layers.chunked_attention``) in bf16 at olmo-1b's widths (16
+    heads x 128) at its served prefill (4 x 128), its decode (4 rows
+    against phase 2's ring cache of MAX_LEN slots at the last step, as
+    ``decode_attention`` calls it) and one prefill_32k sequence; causal.
+    Each output is checked finite and of its shape; times from CUDA
+    events."""
+    cfg = cfgs.get_config("olmo-1b")
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    long = shapes.SHAPES["prefill_32k"].seq_len
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    b, s = PROMPT
+    pos = torch.full((b,), s + STEPS - 1, dtype=torch.long, device=DEVICE)
+    slot_ids = torch.arange(MAX_LEN, device=DEVICE)[None]
+    k_pos = pos[:, None] - ((pos[:, None] - slot_ids) % MAX_LEN)
+    decode_kw = dict(causal=True, q_positions=pos[:, None], k_positions=k_pos,
+                     kv_valid=k_pos >= 0, chunk=1)
+    cases = [("prefill", b, s, s, dict(causal=True)),
+             ("decode", b, 1, MAX_LEN, decode_kw),
+             ("prefill_32k", 1, long, long, dict(causal=True))]
+    rows = []
+    for tag, bb, sq, skv, kw in cases:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEVICE).to(torch.bfloat16)
+                   for shape in ((bb, sq, h, d), (bb, skv, hkv, d), (bb, skv, hkv, d)))
+        out = chunked(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (bb, sq, h, d) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"served attention {tag}: {tuple(out.shape)}")
+        del out
+        t = time_ms(lambda i: chunked(q, k, v, **kw), 3 if sq > 1024 else 20)
+        rows.append(dict(shape=tag, b=bb, sq=sq, skv=skv, heads=h, kv_heads=hkv,
+                         head_dim=d, ms=t))
+        log(f"  served attention (chunked_attention) {tag} B={bb} Sq={sq} "
+            f"Skv={skv}: {t:.4f} ms")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
 
 
 def attention_shapes(cfgs, shapes):
@@ -1906,45 +2179,62 @@ K4_FAULTS = [
 ]
 
 
-# K6 / K8 faults: (name, kernel source, the header the fault is planted in,
-# edits of that header). The source and the faulty header are copied into a
-# directory of their own, where the source's include finds the copy first.
-K6_K8_FAULTS = [
+# GEMM faults: (name, kernel source, the file the fault is planted in,
+# edits of that file). The source and every shared header are copied into a
+# directory of their own, the fault applied to its copy of the file, so
+# that every include finds the copies. Phase 1's checks of the kernel
+# (k1_checks for K1, k6_k8_checks for K6 / K8) must fail each fault.
+GEMM_FAULTS = [
     ("K8: last split-K chunk dropped", "gemm_vsx_like", "gemm_blocked.cuh",
      [("for (int s = 0; s < splits; ++s) v += ws[s * total + i];",
        "for (int s = 0; s < splits - 1; ++s) v += ws[s * total + i];")]),
     ("K6: ring one k-step short", "gemm_packed", "gemm_wgmma.cuh",
      [("return ktiles * (bk / BOX);", "return ktiles * (bk / BOX) - 1;")]),
+    ("K1: A's tensor map lda wide, not K", "gemm_packed_fused_a",
+     "gemm_packed_fused_a.cu",
+     [("!make_tensor_map(&ta, a, dt, M, K, box_rows, lda)",
+       "!make_tensor_map(&ta, a, dt, M, lda, box_rows, lda)")]),
+    ("K1: last split dropped from tc_stream's reduction", "gemm_packed_fused_a",
+     "gemm_packed_fused_a.cu",
+     [("return reduce_splits(wsf, splits, ep, s);",
+       "return reduce_splits(wsf, splits - 1, ep, s);")]),
 ]
 
 
-def planted_k6_k8(torch, build, ks) -> tuple:
-    """Phase 1's K6 / K8 edge checks (k6_k8_checks) against the kernels as
-    built and a copy of each with a fault of ``K6_K8_FAULTS``: the kernels
-    as built must pass, each fault must fail. Returns (results, wrong)."""
+def planted_gemm(torch, build, ks) -> tuple:
+    """Phase 1's GEMM edge checks against the kernels as built and a copy
+    of each with a fault of ``GEMM_FAULTS``: the kernels as built must
+    pass, each fault must fail. Returns (results, wrong)."""
     gp, gv = ks["gp"], ks["gv"]
-    entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES),
-             "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES)}
+    # kernel -> (entry point, argtypes, wrapper module, its loader's name)
+    entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES, gv, "_kernel"),
+             "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES, gp,
+                             "_packed_kernel"),
+             "gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES, gp,
+                                     "_kernel")}
+    judge = {"gemm_vsx_like": k6_k8_checks, "gemm_packed": k6_k8_checks,
+             "gemm_packed_fused_a": k1_checks}
     t0 = time.perf_counter()
     jobs = []
-    for i, (name, kernel, header, edits) in enumerate(K6_K8_FAULTS):
-        faulty = (build.CSRC / header).read_text()
-        for old, new in edits:
-            if faulty.count(old) != 1:
-                raise AssertionError(f"fault '{name}': '{old}' is not in "
-                                     f"{header} exactly once")
-            faulty = faulty.replace(old, new)
+    for i, (name, kernel, target, edits) in enumerate(GEMM_FAULTS):
         out_dir = build.BUILD_DIR / "planted" / f"{kernel}_fault{i}"
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / header).write_text(faulty)
+        for f in list(build.CSRC.glob("*.cuh")) + [build.CSRC / f"{kernel}.cu"]:
+            text = f.read_text()
+            if f.name == target:
+                for old, new in edits:
+                    if text.count(old) != 1:
+                        raise AssertionError(f"fault '{name}': '{old}' is not "
+                                             f"in {target} exactly once")
+                    text = text.replace(old, new)
+            (out_dir / f.name).write_text(text)
         src = out_dir / f"{kernel}.cu"
-        src.write_text((build.CSRC / f"{kernel}.cu").read_text())
         lib, log_path = src.with_suffix(".so"), src.with_suffix(".log")
         with open(log_path, "w") as log_f:
             jobs.append((name, kernel, subprocess.Popen(
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
-    runs = [("as built", None, None)]
+    runs = [("as built", kernel, None) for kernel in ("gemm_packed_fused_a", "gemm_packed")]
     for name, kernel, proc, lib, log_path in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"fault '{name}' did not build:\n"
@@ -1952,43 +2242,42 @@ def planted_k6_k8(torch, build, ks) -> tuple:
         fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
         fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
         runs.append((name, kernel, fn))
-    log(f"  built {len(jobs)} faulty copies of K6 / K8 in "
+    log(f"  built {len(jobs)} faulty copies of K1 / K6 / K8 in "
         f"{time.perf_counter() - t0:.1f} s")
-    as_built = {"gemm_vsx_like": gv._kernel, "gemm_packed": gp._packed_kernel}
+    as_built = {k: getattr(mod, attr) for k, (_, _, mod, attr) in entry.items()}
     results, wrong = [], []
     try:
         for name, kernel, fn in runs:
-            if kernel == "gemm_vsx_like":
-                gv._kernel = lambda fn=fn: fn
-            elif kernel == "gemm_packed":
-                gp._packed_kernel = lambda fn=fn: fn
-            fails, _ = k6_k8_checks(torch, ks, quiet=True)
-            gv._kernel, gp._packed_kernel = (as_built["gemm_vsx_like"],
-                                             as_built["gemm_packed"])
-            expect = "pass" if kernel is None else "fail"
+            _, _, mod, attr = entry[kernel]
+            if fn is not None:
+                setattr(mod, attr, lambda fn=fn: fn)
+            fails, _ = judge[kernel](torch, ks, quiet=True)
+            setattr(mod, attr, as_built[kernel])
+            expect = "pass" if fn is None else "fail"
             ok = not fails
-            results.append(dict(kernel=name, expect=expect, passed=ok,
-                                failed_checks=len(fails)))
+            checks = "K1" if judge[kernel] is k1_checks else "K6 / K8"
+            results.append(dict(kernel=name, checks=checks, expect=expect,
+                                passed=ok, failed_checks=len(fails)))
             if ok != (expect == "pass"):
-                wrong.append(name)
-            log(f"  phase 1 K6 / K8 checks, {name}: "
+                wrong.append(f"{name} ({checks} checks)")
+            log(f"  phase 1 {checks} checks, {name}: "
                 f"{'pass' if ok else 'FAIL'} (expected {expect}); "
                 f"{len(fails)} checks failed" + (f", first {fails[:3]}" if fails else ""))
     finally:
-        gv._kernel, gp._packed_kernel = (as_built["gemm_vsx_like"],
-                                         as_built["gemm_packed"])
+        for k, (_, _, mod, attr) in entry.items():
+            setattr(mod, attr, as_built[k])
     return results, wrong
 
 
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
-    check catches a wrong K4 and phase 1's a wrong K6 or K8. Builds K4 and
-    one copy of its source for each fault of ``K4_FAULTS`` (under
+    check catches a wrong K4 and phase 1's a wrong K1, K6 or K8. Builds K4
+    and one copy of its source for each fault of ``K4_FAULTS`` (under
     ``build/kernels/planted/``, all at once), then runs the kernel as built
     and each faulty copy through the wrapper at A1-A6 and judges each output
-    as phase 6 does; then the same for K6 / K8 (planted_k6_k8). Exits 0 when
-    the kernels as built pass everywhere and each fault fails at every shape
-    it reaches."""
+    as phase 6 does; then the same for K1 / K6 / K8 (planted_gemm). Exits 0
+    when the kernels as built pass everywhere and each fault fails at every
+    shape it reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
     out_dir = build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2048,8 +2337,8 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
             torch.cuda.empty_cache()
     finally:
         fa._kernel = as_built
-    results_68, wrong_68 = planted_k6_k8(torch, build, ks)
-    log(json.dumps({"planted_faults": results, "planted_faults_k6_k8": results_68,
+    results_68, wrong_68 = planted_gemm(torch, build, ks)
+    log(json.dumps({"planted_faults": results, "planted_faults_gemm": results_68,
                     "ok": not wrong and not wrong_68}))
     if wrong or wrong_68:
         log(f"chip_smoke: the checks judged these as not expected: "
@@ -2092,10 +2381,30 @@ def forward_sum(rows, kernel, m, key, counts):
                if r["kernel"] == kernel and r.get("m") == m)
 
 
+def served_attention_ab(torch, cfgs, shapes, other_path) -> int:
+    """``--served-attention PATH``: ``chunked_attention`` of the
+    ``models/layers.py`` at PATH against this tree's, in turns (other,
+    this, this, other), each through served_attention."""
+    import importlib.util
+    from repro_torch.models import layers
+    spec = importlib.util.spec_from_file_location("other_layers", other_path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    times = {"other": [], "this": []}
+    for tag, fn in (("other", other.chunked_attention), ("this", layers.chunked_attention),
+                    ("this", layers.chunked_attention), ("other", other.chunked_attention)):
+        log(f"  {tag}: {other_path if tag == 'other' else 'this tree'}")
+        rows = served_attention(torch, fn, cfgs, shapes)
+        times[tag].append({r["shape"]: r["ms"] for r in rows})
+    log(json.dumps({"served_attention_ab": times, "other": str(other_path)}))
+    return 0
+
+
 def main(argv) -> int:
-    if argv not in ([], ["--planted-faults"]):
-        print("usage: python3 chip_smoke.py [--planted-faults]",
-              file=sys.stderr)
+    if not (argv in ([], ["--planted-faults"])
+            or (len(argv) == 2 and argv[0] == "--served-attention")):
+        print("usage: python3 chip_smoke.py [--planted-faults | "
+              "--served-attention OTHER/layers.py]", file=sys.stderr)
         return 2
     try:
         import torch
@@ -2129,12 +2438,16 @@ def main(argv) -> int:
         f"{sys.version.split()[0]}")
     card = card_line()
     log(f"card: {card}")
+    if argv and argv[0] == "--served-attention":
+        log("served attention: chunked_attention of another layers.py "
+            "against this tree's, in turns")
+        return served_attention_ab(torch, cfgs, shapes, argv[1])
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
-            "judged by phase 6's check at A1-A6; K6 / K8 as built and with "
-            "each fault of K6_K8_FAULTS, judged by phase 1's edge checks")
+            "judged by phase 6's check at A1-A6; K1 / K6 / K8 as built and "
+            "with each fault of GEMM_FAULTS, judged by phase 1's edge checks")
         return planted_faults(torch, build, fa, cfgs, shapes,
-                              dict(pack=pk, gp=gp, gv=gv))
+                              dict(pack=pk, gp=gp, gv=gv, tf=tf))
     counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
                          gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
                          pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
@@ -2153,7 +2466,9 @@ def main(argv) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"  gemm_vsx_like SASS: {check_no_tensor_cores(paths['gemm_vsx_like'])}")
     log(f"  gemm_packed SASS: {check_wgmma(paths['gemm_packed'])}")
-    table, main_err = phase_kernels(torch, gp, ref, tf)
+    log(f"  gemm_packed_fused_a SASS: "
+        f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
+    table, main_err = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
         torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
@@ -2188,6 +2503,10 @@ def main(argv) -> int:
         "width, bf16")
     attn_launches, attn_rows, attn_main_err = phase_attention(
         torch, fa, ops, counters, ref, cfgs, shapes)
+    from repro_torch.models import layers as model_layers
+    served_attn = served_attention(torch, model_layers.chunked_attention, cfgs,
+                                   shapes)
+    log(json.dumps({"served_attention": served_attn, "card": card}))
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "mixtral-8x22b packed, load": mix_load,
@@ -2206,7 +2525,14 @@ def main(argv) -> int:
     prefill_count = {s: c * layers for s, c in OLMO_SHAPES.items() if c}
     dec = [r for r in table if r["m"] == 4]
     agg = {key: sum(r[key] * count[(r["k"], r["n"])] for r in dec)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "library_device_ms", "bound_ms")}
+    pre = [r for r in table if r["m"] == 512 and (r["k"], r["n"]) in prefill_count]
+    k1_prefill = {key: sum(r[key] * prefill_count[(r["k"], r["n"])] for r in pre)
+                  for key in ("ms", "device_ms", "library_ms",
+                              "library_device_ms", "bound_ms")}
+    k1_prefill["work"] = ("the 112 projections of one olmo-1b prefill forward "
+                          "at 4 x 128 = 512 rows (the LM head runs at 4 rows)")
     # One decode forward of the 4-layer mixtral: a gate/up pair and a down
     # projection per layer at the decode envelope (phase 1's counts).
     gdec = [r for r in grouped_rows if r["envelope"] == "decode"]
@@ -2268,8 +2594,15 @@ def main(argv) -> int:
           bound_ms=agg["bound_ms"],
           bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in dec)
                     else "operations"),
-          library_ms=agg["library_ms"], work=decode_work, shapes=table,
-          serve=serve_t, card=card)
+          library_ms=agg["library_ms"], device_ms=agg["device_ms"],
+          library_device_ms=agg["library_device_ms"], prefill_512=k1_prefill,
+          launches_by_body={
+              "olmo-1b packed": serve_t["k1_launches_by_body"],
+              "mixtral-8x22b packed": mix_t["k1_launches_by_body"],
+              "strategy sweep": {v: c for v, c in
+                                 sweep_variants["gemm_packed_fused_a"].items() if c},
+              "olmo-1b raw": raw_t["k1_launches_by_body"]},
+          work=decode_work, shapes=table, serve=serve_t, card=card)
     entry("gemm_grouped_packed_ragged", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
           max_abs_err=grouped_err, ms=gsum("k2_ms"), plain_ms=gsum("k2_plain_ms"),

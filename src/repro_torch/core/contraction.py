@@ -184,7 +184,9 @@ def register_lowering(name: str, kind: str, *, supports, cost, run,
 
 
 def _ensure_registered() -> None:
-    if not LOWERINGS:
+    # Importing core.gemm registers the strategy lowerings; core.layered
+    # alone registers only the packed ones, so test for a strategy's name.
+    if "torch_matmul" not in LOWERINGS:
         import repro_torch.core.gemm  # noqa: F401  (registration side effect)
 
 

@@ -474,6 +474,17 @@ __global__ void splitk_reduce(const Acc* ws, int splits, Epilogue ep) {
   }
 }
 
+// Launches splitk_reduce over the [splits, M, N] workspace; returns the
+// CUDA error of the launch.
+template <typename Acc>
+int reduce_splits(const Acc* ws, int splits, const Epilogue& ep, cudaStream_t s) {
+  const long long total = static_cast<long long>(ep.M) * ep.N;
+  const long long blocks = (total + 255) / 256;
+  splitk_reduce<Acc><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(ws, splits,
+                                                                                     ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Staging coordinates of element `idx` of a rows x depth slice.
 __device__ __forceinline__ void slice_coords(int kfast, int rows, int depth, int idx, int& r,
                                              int& q) {
@@ -682,11 +693,7 @@ int launch_fma(OpA a, OpB b, int M, int N, int K, const Epilogue& ep, const FmaP
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
-  const long long total = static_cast<long long>(M) * N;
-  const long long blocks = (total + 255) / 256;
-  splitk_reduce<Acc><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(ws, p.splits,
-                                                                                    ep);
-  return static_cast<int>(cudaGetLastError());
+  return reduce_splits(ws, p.splits, ep, s);
 }
 
 Epilogue make_epilogue(const void* bias, const void* c, long long ldc, float alpha, float beta,

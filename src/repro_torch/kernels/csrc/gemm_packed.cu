@@ -19,8 +19,9 @@
 // f16, the CUDA cores for f32 and int8.
 //
 // What the design does about it: every packed tile is one contiguous run
-// of memory, so the bf16 / f16 bodies (gemm_wgmma.cuh) move whole tiles
-// with TMA and never compute an element's address:
+// of memory, so the bf16 / f16 bodies (gemm_wgmma.cuh, shared with K1,
+// whose A boxes come from natural A instead) move whole tiles with TMA and
+// never compute an element's address:
 //  * V_WGMMA (bm = bn = 64, bk a multiple of 64): 128 x 128 output tiles,
 //    a 4-stage TMA ring fed by one producer warp, two consumer warpgroups
 //    on wgmma (the transpose bits take "col" A and "row" B as they lie);
@@ -37,17 +38,6 @@
 
 namespace {
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (n <= 0) n = 132;
-  }
-  return n;
-}
-
 // The TMA bodies for bf16 / f16; cudaErrorInvalidValue for a geometry they
 // do not take. `kt_chunk` is the split's packed k-tiles (V_TC_STREAM).
 template <typename T>
@@ -58,58 +48,36 @@ int launch_tc(int variant, const void* a, int a_col, int bm, const void* b, int 
   const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0 && bk % BOX == 0 && bn == BOX;
   CUtensorMap ta, tb;
-  // B "row" tiles are [bk][bn] (MN-major), "col" [bn][bk] (K-major).
-  const bool tb_ok = aligned && (b_col ? make_tensor_map(&tb, b, dt, 1LL * Nb * Kb * bn, bk, BOX)
-                                       : make_tensor_map(&tb, b, dt, 1LL * Nb * Kb * bk, bn, BOX));
+  const bool tb_ok = aligned && make_packed_b_map(&tb, b, dt, b_col, Nb, Kb, bk, bn);
   if (variant == V_WGMMA) {
     if (!tb_ok || bm != BOX) return static_cast<int>(cudaErrorInvalidValue);
     const bool ta_ok = a_col ? make_tensor_map(&ta, a, dt, 1LL * Mb * Kb * bk, bm, BOX)
                              : make_tensor_map(&ta, a, dt, 1LL * Mb * Kb * bm, bk, BOX);
     if (!ta_ok) return static_cast<int>(cudaErrorInvalidValue);
     const int tiles_m = (Mb + 1) / 2, tiles_n = (Nb + 1) / 2;
-    const int grid = grid_for(static_cast<long long>(tiles_m) * tiles_n, sm_count());
-    // The four layout pairs share one signature: `id` keeps each one's
-    // shared-memory limit apart (raised on its first launch).
-    auto run = [&](auto kernel, int id) {
-      static bool raised[4] = {};
-      if (!raised[id]) {
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
-        raised[id] = true;
-      }
-      kernel<<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep);
-    };
-    if (a_col && !b_col) run(wgmma_packed<T, true, true>, 0);
-    else if (a_col) run(wgmma_packed<T, true, false>, 1);
-    else if (!b_col) run(wgmma_packed<T, false, true>, 2);
-    else run(wgmma_packed<T, false, false>, 3);
-    return static_cast<int>(cudaGetLastError());
+    if (a_col && !b_col) {
+      return launch_wgmma<T, PackedA<true>, true>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+    }
+    if (a_col) {
+      return launch_wgmma<T, PackedA<true>, false>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+    }
+    if (!b_col) {
+      return launch_wgmma<T, PackedA<false>, true>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+    }
+    return launch_wgmma<T, PackedA<false>, false>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
   }
   // V_TC_STREAM
-  if (!tb_ok || bm != 16 || a_col || M > 16 || splits < 1 || kt_chunk < 1 ||
-      static_cast<long long>(splits) * kt_chunk < Kb ||
-      static_cast<long long>(splits - 1) * kt_chunk >= Kb || (splits > 1 && ws == nullptr) ||
+  if (!tb_ok || bm != 16 || a_col || M > 16 || !valid_tile_split(Kb, splits, kt_chunk, ws) ||
       !make_tensor_map(&ta, a, dt, 1LL * Kb * bm, bk, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = static_cast<int>(static_cast<long long>(Nb) * splits);
   float* wsf = static_cast<float*>(ws);
-  auto run = [&](auto kernel, int id) {
-    static bool raised[2] = {};
-    if (!raised[id]) {
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TS_SMEM);
-      raised[id] = true;
-    }
-    kernel<<<grid, TS_THREADS, TS_SMEM, s>>>(ta, tb, Kb, bk, Nb, splits, kt_chunk, wsf, ep);
-  };
-  if (b_col) run(mma_stream<T, false>, 0);
-  else run(mma_stream<T, true>, 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long total = static_cast<long long>(M) * N;
-  const long long blocks = (total + 255) / 256;
-  splitk_reduce<float><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      wsf, splits, ep);
-  return static_cast<int>(cudaGetLastError());
+  const int err = b_col ? launch_mma_stream<T, PackedA<false>, false>(ta, tb, Kb, bk, Nb, splits,
+                                                                      kt_chunk, wsf, ep, s)
+                        : launch_mma_stream<T, PackedA<false>, true>(ta, tb, Kb, bk, Nb, splits,
+                                                                     kt_chunk, wsf, ep, s);
+  if (err != 0 || splits == 1) return err;
+  return reduce_splits(wsf, splits, ep, s);
 }
 
 }  // namespace

@@ -9,40 +9,48 @@
 //   C[:M,:N] = act(colscale * alpha * sum_k A[:, kblk] @ deq(B[j, k])
 //                  + beta * Cin + bias)
 //
-// A is natural [M, K] (row stride lda, unit column stride), read directly
-// with the ragged M/K edges masked here. B is tile-major [Nb, Kb, t0, t1]:
-// [bk, bn] tiles ("row") or [bn, bk] ("col"), zero-filled past K/N, as
-// float32 / bfloat16 / float16 / int8, or int4 nibble-packed two a byte
-// (element 2i in the low nibble). Quantized tiles carry f32 scales: [Nb, Kb]
-// per tile, multiplied into each K-step's partial sum, or [Nb] per column,
-// multiplied once at store ahead of alpha/beta, bias and activation.
+// A is natural [M, K] (row stride lda, unit column stride), never copied.
+// B is tile-major [Nb, Kb, t0, t1]: [bk, bn] tiles ("row") or [bn, bk]
+// ("col"), zero-filled past K/N, as float32 / bfloat16 / float16 / int8, or
+// int4 nibble-packed two a byte (element 2i in the low nibble). Quantized
+// tiles carry f32 scales: [Nb, Kb] per tile, multiplied into each K-step's
+// partial sum, or [Nb] per column, multiplied once at store ahead of
+// alpha/beta, bias and activation.
 //
 // What bounds it on an H100: at decode (M of a few rows) the weight stream,
 // B's bytes over 3.35 TB/s; at prefill (M in the hundreds) the tensor-core
-// multiply-adds. Two kernels share the epilogue:
+// multiply-adds (989 TFLOP/s bf16), the CUDA cores for f32 / int8.
 //
-//  * fused_a_mma (bf16 / f16 activations, B of the same type or int8/int4):
-//    tensor cores through mma.sync m16n8k16 with f32 accumulators. Each
-//    block stages a KS-deep slice of A and of its B column chunk in shared
-//    memory (int tiles widened exactly to the activation type on the way,
-//    as contract_tile casts them), B stored k-contiguous per column so that
-//    ldmatrix feeds mma's "col" operand. Prefill blocks are 64 x 64 with
-//    four warps of 32 x 32. Decode blocks are 16 rows by 16 columns, so an
-//    N = 2048 projection still spreads over 128 blocks, and their four warps
-//    split the slice's k-steps between them (the partial sums meet in
-//    shared memory in a fixed order): more weight bytes in flight per SM
-//    against the weight-stream bound.
-//  * fused_a_fma (every other combination: f32 A in full f32 without TF32,
-//    int8 A with i32 accumulators): shared-memory tiles and scalar FMAs.
-//
-// Not yet: TMA, wgmma, warp specialisation, a deeper copy pipeline.
+// What the design does about it: the wrapper picks a body per call
+// (gemm_packed.py fused_a_body) and counts its launches by name:
+//  * tc_stream / wgmma (bf16 / f16 A against B tiles of the same type, bn
+//    64, bk a multiple of 64, A's base 16-byte aligned and lda a multiple
+//    of 8): K6's TMA bodies of gemm_wgmma.cuh with A's boxes from a 2-D
+//    tensor map over natural A (NaturalA), K wide, so that rows past M and
+//    columns past K read as zeros. Decode (M <= 16): mma_stream, B's
+//    64-column stripes streamed once through a TMA ring, Kb split on whole
+//    packed tiles, the partials reduced in split order before the one
+//    epilogue. Above: wgmma_packed, 128 x 128 output tiles, a TMA ring fed
+//    by one producer warp, two consumer warpgroups on wgmma.
+//  * mma_general (bf16 / f16 float tiles of any other geometry or
+//    alignment): gemm_blocked.cuh's blocked_mma over a StridedOperand A and
+//    a PackedOperand B.
+//  * fma_stream / fma_tiled (f32 A with f32 tiles, int8 A with unscaled
+//    int8 tiles and i32 accumulators): gemm_blocked.cuh's CUDA-core bodies
+//    with split-K, as K8's packed variant runs them; no tensor-core
+//    instruction for f32, which the reference accumulates in full f32.
+//  * mma_quant / fma_quant (every other pair: int8 / int4 tiles with tile
+//    or col scales under 16-bit or f32 A, int4 under int8 A, mixed float
+//    types): the quantized bodies below, fused_a_mma (mma.sync m16n8k16,
+//    int tiles widened exactly to the activation type in shared memory) and
+//    fused_a_fma (scalar FMAs on shared-memory tiles).
 
-#include "gemm_common.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// fused_a_fma: scalar FMAs on shared-memory tiles (f32 and int8 activations)
+// fma_quant (fused_a_fma): scalar FMAs on shared-memory tiles
 // ---------------------------------------------------------------------------
 
 template <typename Acc>
@@ -133,7 +141,7 @@ fused_a_fma(const void* __restrict__ A, int a_dt, long long lda, int K,
 }
 
 // ---------------------------------------------------------------------------
-// fused_a_mma: tensor cores (mma.sync m16n8k16, f32 accumulators)
+// mma_quant (fused_a_mma): mma.sync m16n8k16, f32 accumulators
 // ---------------------------------------------------------------------------
 
 // Warps: WM x WN over the block's rows and columns, WK splitting each slice's
@@ -298,9 +306,10 @@ fused_a_mma(const T* __restrict__ A, long long lda, int K,
 }
 
 template <typename T>
-void launch_mma(int variant, const void* a, long long lda, int M, int K, const char* b, int b_dt,
-                int col_layout, int Nb, int Kb, int bk, int bn, long long tile_bytes,
-                const Epilogue& ep, cudaStream_t s) {
+void launch_quant_mma(int variant, const void* a, long long lda, int M, int K, const char* b,
+                      int b_dt,
+                      int col_layout, int Nb, int Kb, int bk, int bn, long long tile_bytes,
+                      const Epilogue& ep, cudaStream_t s) {
   const T* at = static_cast<const T*>(a);
   if (variant == V_MMA_DECODE) {  // 16 x 16 blocks, four warps split k
     const dim3 grid(static_cast<unsigned>(Nb * (bn / 16)), static_cast<unsigned>((M + 15) / 16));
@@ -321,20 +330,82 @@ void launch_mma(int variant, const void* a, long long lda, int M, int K, const c
   }
 }
 
+// The bodies of the `body` argument (the wrapper's _BODY_CODE).
+enum FusedBody {
+  F_FMA_QUANT = 0,
+  F_MMA_QUANT_DECODE = 1,
+  F_MMA_QUANT_PREFILL = 2,
+  F_WGMMA = 3,
+  F_TC_STREAM = 4,
+  F_MMA_GENERAL = 5,
+  F_FMA = 6
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// tc_stream (M <= 16) and wgmma: natural A and the packed B stack through
+// 2-D tensor maps; cudaErrorInvalidValue for what they do not take.
+template <typename T>
+int launch_tma(int body, const void* a, long long lda, int M, int K, const void* b, int b_col,
+               int Nb, int Kb, int bk, int bn, int dt, int N, const Epilogue& ep, int splits,
+               int kt_chunk, void* ws, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  const int box_rows = body == F_WGMMA ? BOX : 16;
+  // A's map is K wide, not lda: the columns of a strided view past K are
+  // not zeros, and a NaN there would meet B's zero padding (0 * NaN).
+  if (bn != BOX || bk % BOX != 0 || !aligned16(a) || !aligned16(b) || lda % 8 != 0 || lda < K ||
+      !make_packed_b_map(&tb, b, dt, b_col, Nb, Kb, bk, bn) ||
+      !make_tensor_map(&ta, a, dt, M, K, box_rows, lda)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tiles_n = (N + BOX - 1) / BOX;
+  if (body == F_WGMMA) {
+    const int tiles_m = ((M + BOX - 1) / BOX + 1) / 2, tiles_n2 = (tiles_n + 1) / 2;
+    return b_col ? launch_wgmma<T, NaturalA, false>(ta, tb, Kb, bk, tiles_m, tiles_n2, ep, s)
+                 : launch_wgmma<T, NaturalA, true>(ta, tb, Kb, bk, tiles_m, tiles_n2, ep, s);
+  }
+  if (M > 16 || !valid_tile_split(Kb, splits, kt_chunk, ws)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* wsf = static_cast<float*>(ws);
+  const int err = b_col ? launch_mma_stream<T, NaturalA, false>(ta, tb, Kb, bk, tiles_n, splits,
+                                                                kt_chunk, wsf, ep, s)
+                        : launch_mma_stream<T, NaturalA, true>(ta, tb, Kb, bk, tiles_n, splits,
+                                                               kt_chunk, wsf, ep, s);
+  if (err != 0 || splits == 1) return err;
+  return reduce_splits(wsf, splits, ep, s);
+}
+
+// mma_general: blocked_mma over natural A and any float tile geometry.
+template <typename T>
+int launch_general(const void* a, long long lda, int M, int K, const void* b, int b_col, int Kb,
+                   int bk, int bn, int N, const Epilogue& ep, cudaStream_t s) {
+  // B rows are n: "row" tiles [bk][bn] are k-major.
+  launch_mma<T>(M <= 16 ? V_MMA_DECODE : V_MMA_PREFILL, strided<T>(a, lda, 1),
+                packed<T>(b, bn, bk, Kb, !b_col), M, N, K, ep, 0x7fffffff, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). `variant` picks the kernel
-// (0 fma, 1 mma decode, 2 mma prefill; the caller checks eligibility, see
-// gemm_packed.py); BM / BN / KC are the fma kernel's block shape. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// geometry the kernel does not take. `stream` is the caller's cudaStream_t.
+// Plain C entry point (bound with ctypes). `body` picks the body (enum
+// FusedBody; the caller checks eligibility, see gemm_packed.py): 0 / 1 / 2
+// the quantized bodies fma_quant and mma_quant decode / prefill (BM / BN /
+// KC the fma body's block shape), 3 wgmma, 4 tc_stream (`splits` chunks of
+// `kchunk` packed k-tiles), 5 mma_general, 6 fma_tiled / fma_stream (the
+// FmaPlan `fma_body`, `fma_tile`, `splits`, `kchunk` in elements of k);
+// `ws` the split-K workspace ([splits, M, N] of the accumulator type).
+// Returns the CUDA error after the launches, or cudaErrorInvalidValue for
+// what the body does not take. `stream` is the caller's cudaStream_t.
 extern "C" int gemm_packed_fused_a_launch(
     const void* a, int a_dt, long long lda, int M, int K,
     const void* b, int b_dt, int col_layout, int Nb, int Kb, int bk, int bn,
     const void* scales, int scale_mode, const void* bias, const void* c,
     long long ldc, float alpha, float beta, void* out, int out_dt, int N,
-    int act, int BM, int BN, int KC, int int_acc, int variant, void* stream) {
-  if (M <= 0 || N <= 0 || Nb <= 0 || Kb <= 0 || bk % 16 || bn % 16) {
+    int act, int body, int BM, int BN, int KC, int int_acc,
+    int fma_body, int fma_tile, int splits, int kchunk, void* ws, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || Nb <= 0 || Kb <= 0 || bk % 16 || bn % 16 ||
+      static_cast<long long>(Nb) * bn < N || static_cast<long long>(Kb) * bk < K) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long tile_bytes = (b_dt == DT_I4)
@@ -345,23 +416,71 @@ extern "C" int gemm_packed_fused_a_launch(
                     act, out, out_dt, M, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const char* bp = static_cast<const char*>(b);
-  if (variant == V_MMA_DECODE || variant == V_MMA_PREFILL) {
-    const bool half_a = (a_dt == DT_BF16 || a_dt == DT_F16);
-    const bool b_ok = (b_dt == a_dt || b_dt == DT_I8 || b_dt == DT_I4);
-    const bool shape_ok = (variant == V_MMA_DECODE) ? (bk % 64 == 0)
-                                                    : (bk % 32 == 0 && bn % 64 == 0);
-    if (!half_a || !b_ok || !shape_ok || int_acc) return static_cast<int>(cudaErrorInvalidValue);
-    if (a_dt == DT_BF16)
-      launch_mma<__nv_bfloat16>(variant, a, lda, M, K, bp, b_dt, col_layout, Nb, Kb, bk, bn,
-                                tile_bytes, ep, s);
-    else
-      launch_mma<__half>(variant, a, lda, M, K, bp, b_dt, col_layout, Nb, Kb, bk, bn,
-                         tile_bytes, ep, s);
-    return static_cast<int>(cudaGetLastError());
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool float_pair = scale_mode == 0 && !int_acc && b_dt == a_dt;
+  switch (body) {
+    case F_WGMMA:
+    case F_TC_STREAM:
+      if (!float_pair) return invalid;
+      if (a_dt == DT_BF16) {
+        return launch_tma<__nv_bfloat16>(body, a, lda, M, K, b, col_layout, Nb, Kb, bk, bn, a_dt,
+                                         N, ep, splits, kchunk, ws, s);
+      }
+      if (a_dt == DT_F16) {
+        return launch_tma<__half>(body, a, lda, M, K, b, col_layout, Nb, Kb, bk, bn, a_dt, N, ep,
+                                  splits, kchunk, ws, s);
+      }
+      return invalid;
+    case F_MMA_GENERAL:
+      if (!float_pair) return invalid;
+      if (a_dt == DT_BF16) {
+        return launch_general<__nv_bfloat16>(a, lda, M, K, b, col_layout, Kb, bk, bn, N, ep, s);
+      }
+      if (a_dt == DT_F16) {
+        return launch_general<__half>(a, lda, M, K, b, col_layout, Kb, bk, bn, N, ep, s);
+      }
+      return invalid;
+    case F_FMA: {
+      const FmaPlan plan{fma_body, fma_tile, splits, kchunk, ws};
+      const int big = 0x7fffffff;
+      if (scale_mode != 0 || b_dt != a_dt) return invalid;
+      if (a_dt == DT_F32 && !int_acc) {
+        return launch_fma<float>(strided<float>(a, lda, 1),
+                                 packed<float>(b, bn, bk, Kb, !col_layout), M, N, K, ep, plan,
+                                 big, s);
+      }
+      if (a_dt == DT_I8 && int_acc) {
+        return launch_fma<int>(strided<int8_t>(a, lda, 1),
+                               packed<int8_t>(b, bn, bk, Kb, !col_layout), M, N, K, ep, plan, big,
+                               s);
+      }
+      return invalid;
+    }
+    case F_MMA_QUANT_DECODE:
+    case F_MMA_QUANT_PREFILL: {
+      const bool half_a = (a_dt == DT_BF16 || a_dt == DT_F16);
+      const bool b_ok = (b_dt == DT_I8 || b_dt == DT_I4);  // float tiles: 3 / 4 / 5
+      const bool shape_ok = (body == F_MMA_QUANT_DECODE) ? (bk % 64 == 0)
+                                                         : (bk % 32 == 0 && bn % 64 == 0);
+      if (!half_a || !b_ok || !shape_ok || int_acc) return invalid;
+      if (a_dt == DT_BF16) {
+        launch_quant_mma<__nv_bfloat16>(body, a, lda, M, K, bp, b_dt, col_layout, Nb, Kb, bk, bn,
+                                        tile_bytes, ep, s);
+      } else {
+        launch_quant_mma<__half>(body, a, lda, M, K, bp, b_dt, col_layout, Nb, Kb, bk, bn,
+                                 tile_bytes, ep, s);
+      }
+      return static_cast<int>(cudaGetLastError());
+    }
+    case F_FMA_QUANT:
+      if (b_dt == a_dt && scale_mode == 0) return invalid;  // bodies 3 / 4 / 5 / 6
+      break;
+    default:
+      return invalid;
   }
-  if (variant != V_FMA || BM < 16 || BM > MAX_BM || BM % 16 ||
-      !valid_chunk(BN, bn, MAX_BN) || !valid_chunk(KC, bk, MAX_KC)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (BM < 16 || BM > MAX_BM || BM % 16 || !valid_chunk(BN, bn, MAX_BN) ||
+      !valid_chunk(KC, bk, MAX_KC)) {
+    return invalid;
   }
   const dim3 grid(static_cast<unsigned>(Nb * (bn / BN)), static_cast<unsigned>((M + BM - 1) / BM));
   if (int_acc)

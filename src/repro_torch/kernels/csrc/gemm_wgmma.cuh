@@ -1,15 +1,19 @@
-// Tensor-core bodies of gemm_packed.cu (K6) for bf16 / f16 packed tiles on
-// Hopper: whole packed tiles brought to shared memory by TMA, read by
-// wgmma (more than 16 rows) or by ldmatrix + mma.sync (decode). Only
-// gemm_packed.cu includes this header.
+// Tensor-core bodies for bf16 / f16 against packed B tiles on Hopper,
+// shared by gemm_packed.cu (K6: A packed too) and gemm_packed_fused_a.cu
+// (K1: A in its natural layout): boxes brought to shared memory by TMA,
+// read by wgmma (more than 16 rows) or by ldmatrix + mma.sync (decode).
 //
 // A packed stack is one 2-D row-major tensor: "row" A [Mb*Kb*bm, bk] (tile
 // (i, kk) is rows (i*Kb + kk)*bm onward), "col" A [Mb*Kb*bk, bm], "row" B
-// [Nb*Kb*bk, bn], "col" B [Nb*Kb*bn, bk]. A TMA box is 64 elements (128
-// bytes) of the contiguous axis by up to 64 rows, stored with the 128-byte
-// swizzle; boxes past the stack read as zeros. A tile whose contiguous axis
-// is k is "K-major" for wgmma, the other "MN-major": wgmma's transpose bits
-// take both, so no tile is transposed in software.
+// [Nb*Kb*bk, bn], "col" B [Nb*Kb*bn, bk]. Natural A is the 2-D tensor
+// [M, K] with its own row stride (lda): its boxes are K-major, and rows
+// past M and columns past K read as zeros, so ragged edges need no mask. A
+// TMA box is 64 elements (128 bytes) of the contiguous axis by up to 64
+// rows, stored with the 128-byte swizzle; boxes past the tensor read as
+// zeros. A tile whose contiguous axis is k is "K-major" for wgmma, the
+// other "MN-major": wgmma's transpose bits take both, so no tile is
+// transposed in software. Where A's boxes come from is the bodies' `ASrc`
+// template parameter (PackedA for K6, NaturalA for K1).
 //
 //  * wgmma_packed: a 128 x 128 output tile (2 x 2 packed 64 x 64 tiles) a
 //    block, a ring of WG_STAGES stages of one 64-deep k-box each (two A and
@@ -56,13 +60,14 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The 2-D view [rows, cols] of a packed stack, boxes of `box_rows` x 64.
+// The 2-D row-major view [rows, cols] of 16-bit elements, `row_elems`
+// elements from one row to the next (0: cols), boxes of `box_rows` x 64.
 bool make_tensor_map(CUtensorMap* map, const void* p, int dt, long long rows, long long cols,
-                     int box_rows) {
+                     int box_rows, long long row_elems = 0) {
   EncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols * 2)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>((row_elems ? row_elems : cols) * 2)};
   const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return enc(map, dt == DT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
@@ -130,6 +135,34 @@ __device__ __forceinline__ void box_of(bool mn_major, int t, int kbox, int t_mn,
   }
 }
 
+// Where the A boxes of a work item come from: box (c0, c1) of k-box `kbox`
+// of packed k-tile `kk` of A's m-tile `i` (`t_mn` rows).
+template <bool MN>
+struct PackedA {  // a packed stack: tile (i, kk) is tile i*Kb + kk of the view
+  static constexpr bool mn_major = MN;
+  static __device__ __forceinline__ void box(int i, int kk, int kbox, int Kb, int t_mn, int bk,
+                                             int& c0, int& c1) {
+    box_of(MN, i * Kb + kk, kbox, t_mn, bk, c0, c1);
+  }
+};
+
+struct NaturalA {  // row-major [M, K]: a box is t_mn rows by 64 k
+  static constexpr bool mn_major = false;
+  static __device__ __forceinline__ void box(int i, int kk, int kbox, int Kb, int t_mn, int bk,
+                                             int& c0, int& c1) {
+    c0 = kk * bk + kbox * BOX;
+    c1 = i * t_mn;
+  }
+};
+
+// The 2-D view of a packed B stack of Nb x Kb tiles: "row" tiles are
+// [bk][bn] (MN-major), "col" [bn][bk] (K-major).
+bool make_packed_b_map(CUtensorMap* map, const void* b, int dt, int b_col, int Nb, int Kb, int bk,
+                       int bn) {
+  return b_col ? make_tensor_map(map, b, dt, 1LL * Nb * Kb * bn, bk, BOX)
+               : make_tensor_map(map, b, dt, 1LL * Nb * Kb * bk, bn, BOX);
+}
+
 // k-boxes a work item walks: `ktiles` packed tiles of bk.
 __device__ __forceinline__ int ring_steps(int ktiles, int bk) { return ktiles * (bk / BOX); }
 
@@ -192,7 +225,7 @@ constexpr int WG_BOX_BYTES = BOX * BOX * 2;
 constexpr int WG_STAGE_BYTES = 4 * WG_BOX_BYTES;  // A tiles 2i, 2i+1; B tiles 2j, 2j+1
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;
 
-template <typename T, bool A_MN, bool B_MN>
+template <typename T, class ASrc, bool B_MN>
 __global__ void __launch_bounds__(WG_THREADS)
 wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
              int Kb, int bk, int tiles_m, int tiles_n, Epilogue ep) {
@@ -223,7 +256,7 @@ wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
           uint8_t* base = smem + stage * WG_STAGE_BYTES;
           for (int h = 0; h < 2; ++h) {
             int c0, c1;
-            box_of(A_MN, (i0 + h) * Kb + kk, kbox, 64, bk, c0, c1);
+            ASrc::box(i0 + h, kk, kbox, Kb, BOX, bk, c0, c1);
             tma_load(base + h * WG_BOX_BYTES, &ta, &full[stage], c0, c1);
             box_of(B_MN, (j0 + h) * Kb + kk, kbox, 64, bk, c0, c1);
             tma_load(base + (2 + h) * WG_BOX_BYTES, &tb, &full[stage], c0, c1);
@@ -255,11 +288,12 @@ wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < BOX / 16; ++ks) {
-          const uint64_t da = sw128_desc(base + wg * WG_BOX_BYTES + kstep_bytes(A_MN, ks));
+          const uint64_t da =
+              sw128_desc(base + wg * WG_BOX_BYTES + kstep_bytes(ASrc::mn_major, ks));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const uint64_t db = sw128_desc(base + (2 + h) * WG_BOX_BYTES + kstep_bytes(B_MN, ks));
-            wgmma_m64n64k16<T, A_MN ? 1 : 0, B_MN ? 1 : 0>(acc[h], da, db);
+            wgmma_m64n64k16<T, ASrc::mn_major ? 1 : 0, B_MN ? 1 : 0>(acc[h], da, db);
           }
         }
         wgmma_commit();
@@ -307,13 +341,14 @@ constexpr int TS_A_BYTES = 16 * BOX * 2, TS_B_BYTES = BOX * BOX * 2;
 constexpr int TS_STAGE_BYTES = TS_A_BYTES + TS_B_BYTES;
 constexpr int TS_SMEM = TS_STAGES * TS_STAGE_BYTES + 1024;
 
-// Decode: A "row" tiles of 16 rows (K-major); B "row" (MN-major) or "col".
-// Work item = (split, 64-column stripe j); the split covers packed tiles
-// [sp*kt_chunk, min(Kb, (sp+1)*kt_chunk)).
-template <typename T, bool B_MN>
+// Decode: A boxes of 16 rows (K-major: packed "row" tiles or natural A);
+// B "row" (MN-major) or "col". Work item = (split, 64-column stripe j); the
+// split covers packed tiles [sp*kt_chunk, min(Kb, (sp+1)*kt_chunk)).
+template <typename T, class ASrc, bool B_MN>
 __global__ void __launch_bounds__(TS_THREADS)
 mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int Kb,
            int bk, int tiles_n, int splits, int kt_chunk, float* ws, Epilogue ep) {
+  static_assert(!ASrc::mn_major, "decode A boxes are K-major");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[TS_STAGES];
   __shared__ float red[4][16][BOX + 4];
@@ -335,7 +370,7 @@ mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
       uint8_t* base = smem + slot * TS_STAGE_BYTES;
       int c0, c1;
       mbar_expect_tx(&full[slot], TS_STAGE_BYTES);
-      box_of(false, kk, kbox, 16, bk, c0, c1);
+      ASrc::box(0, kk, kbox, Kb, 16, bk, c0, c1);
       tma_load(base, &ta, &full[slot], c0, c1);
       box_of(B_MN, j * Kb + kk, kbox, 64, bk, c0, c1);
       tma_load(base + TS_A_BYTES, &tb, &full[slot], c0, c1);
@@ -393,6 +428,60 @@ mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
     }
     __syncthreads();
   }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// wgmma_packed over tiles_m x tiles_n output tiles of 128 x 128, one block
+// an SM at most. Each instantiation raises its shared-memory limit on its
+// first launch. Returns the CUDA error of the launch.
+template <typename T, class ASrc, bool B_MN>
+int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, int Kb, int bk, int tiles_m,
+                 int tiles_n, const Epilogue& ep, cudaStream_t s) {
+  static bool raised = false;
+  if (!raised) {
+    cudaFuncSetAttribute(wgmma_packed<T, ASrc, B_MN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         WG_SMEM);
+    raised = true;
+  }
+  const int grid = grid_for(static_cast<long long>(tiles_m) * tiles_n, sm_count());
+  wgmma_packed<T, ASrc, B_MN><<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, Kb, bk, tiles_m, tiles_n,
+                                                                ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mma_stream over tiles_n 64-column stripes x `splits` chunks of
+// `kt_chunk` packed k-tiles (partials to `ws` when splits > 1; the caller
+// reduces them). Returns the CUDA error of the launch.
+template <typename T, class ASrc, bool B_MN>
+int launch_mma_stream(const CUtensorMap& ta, const CUtensorMap& tb, int Kb, int bk, int tiles_n,
+                      int splits, int kt_chunk, float* ws, const Epilogue& ep, cudaStream_t s) {
+  static bool raised = false;
+  if (!raised) {
+    cudaFuncSetAttribute(mma_stream<T, ASrc, B_MN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         TS_SMEM);
+    raised = true;
+  }
+  const int grid = static_cast<int>(static_cast<long long>(tiles_n) * splits);
+  mma_stream<T, ASrc, B_MN><<<grid, TS_THREADS, TS_SMEM, s>>>(ta, tb, Kb, bk, tiles_n, splits,
+                                                              kt_chunk, ws, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether (splits, kt_chunk) cut Kb packed k-tiles into non-empty chunks
+// that cover it once, with a workspace when there is more than one.
+bool valid_tile_split(int Kb, int splits, int kt_chunk, const void* ws) {
+  return splits >= 1 && kt_chunk >= 1 && static_cast<long long>(splits) * kt_chunk >= Kb &&
+         static_cast<long long>(splits - 1) * kt_chunk < Kb && (splits == 1 || ws != nullptr);
 }
 
 }  // namespace

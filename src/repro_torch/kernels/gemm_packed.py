@@ -4,7 +4,8 @@ epilogue fused into the store:
   * ``gemm_packed_fused_a`` (K1) — natural-layout A against a packed B
     (float, or int8 / int4 tiles with scales, dequantized in the kernel).
     CUDA kernel ``csrc/gemm_packed_fused_a.cu``, plain torch version
-    :func:`gemm_packed_fused_a_plain`.
+    :func:`gemm_packed_fused_a_plain`; :func:`fused_a_body` picks its body
+    per call, and ``.variants`` counts the launches by body.
   * ``gemm_packed`` (K6) — BOTH operands packed tile-major (the paper's
     Tiling+Packing: ``pack_a`` + ``pack_b`` + this kernel). CUDA kernel
     ``csrc/gemm_packed.cu``, plain torch version :func:`gemm_packed_plain`.
@@ -38,6 +39,7 @@ _B_DTYPES = ("float32", "bfloat16", "float16", "int8", "int4")
 _OUT_DTYPES = ("float32", "bfloat16", "float16", "int32")
 _BM_CHOICES = (16, 32, 48, 64)
 _BN_CHOICES = (64, 48, 32, 16)
+TC_BOX = 64   # a TMA box's contiguous axis, elements (K1's and K6's bodies)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,   # a, dt, lda, M
@@ -47,12 +49,22 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,  # scales, mode, bias, c
     ctypes.c_longlong, ctypes.c_float, ctypes.c_float,                # ldc, alpha, beta
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,        # out, dt, N, act
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # BM, BN, KC, int_acc
-    ctypes.c_int, ctypes.c_void_p,                                    # variant, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # body, BM, BN, KC
+    ctypes.c_int,                                                     # int_acc
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,           # fma body, tile, splits, kchunk
+    ctypes.c_void_p, ctypes.c_void_p,                                 # ws, stream
 ]
 
-# Kernel variants of the CUDA source (enum Variant).
+# The quantized bodies' tile variants (mma_quant decode / prefill, fma_quant).
 FMA, MMA_DECODE, MMA_PREFILL = 0, 1, 2
+
+# K1's bodies by name (the ``.variants`` keys) and their codes in the CUDA
+# source (enum FusedBody; mma_quant is 1 or 2 by its tile variant, fma_*
+# one code with the FmaPlan choosing the body).
+FUSED_BODIES = ("tc_stream", "wgmma", "mma_general", "fma_stream",
+                "fma_tiled", "mma_quant", "fma_quant")
+_BODY_CODE = {"fma_quant": 0, "wgmma": 3, "tc_stream": 4, "mma_general": 5,
+              "fma_tiled": 6, "fma_stream": 6}
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,10 +118,12 @@ def _pick_bn(bn: int, blocks_per_col: int) -> int:
 
 
 def pick_variant(a_dtype: torch.dtype, fmt: TileFormat, m: int) -> int:
-    """Tensor cores (mma.sync) for bf16/f16 activations with B of the same
-    type or int8/int4 (exact in the activation type): the decode variant for
-    up to 16 rows, the prefill variant above. Everything else (f32 or int8
-    activations, f32 B) takes the scalar-FMA kernel."""
+    """The quantized bodies' tile variant: mma.sync for bf16/f16 activations
+    with B of the same type or int8/int4 (exact in the activation type),
+    decode tiles up to 16 rows and prefill tiles above; the scalar FMAs for
+    everything else (f32 or int8 activations, f32 B). It decides between
+    mma_quant and fma_quant where :func:`fused_a_body` routes a call to the
+    quantized bodies."""
     a_dt = dtype_name(a_dtype)
     if a_dt in ("bfloat16", "float16") and fmt.dtype in (a_dt, "int8", "int4"):
         if m <= 16 and fmt.bk % 64 == 0:
@@ -119,10 +133,47 @@ def pick_variant(a_dtype: torch.dtype, fmt: TileFormat, m: int) -> int:
     return FMA
 
 
+def tma_aligned(a: torch.Tensor, b_packed: torch.Tensor) -> bool:
+    """Whether natural A and the packed stack can be read through TMA
+    tensor maps: 16-byte aligned bases, A's row stride a multiple of 16
+    bytes and at least K (rows that do not overlap)."""
+    lda, item = a.stride(0), a.element_size()
+    return (a.data_ptr() % 16 == 0 and b_packed.data_ptr() % 16 == 0
+            and (lda * item) % 16 == 0 and lda >= a.shape[1])
+
+
+def fused_a_body(a_dtype: torch.dtype, fmt: TileFormat, m: int, *,
+                 scaled: bool, tma_ok: bool) -> str:
+    """K1's body for an [m, K] A of ``a_dtype`` against packed tiles of
+    ``fmt`` (``scaled``: the tiles carry scales; ``tma_ok``: what
+    :func:`tma_aligned` says of the operands):
+
+    * bf16 / f16 A against unscaled tiles of the same type: the TMA bodies
+      for bn 64 and bk a multiple of 64 on aligned operands, ``tc_stream``
+      up to 16 rows and ``wgmma`` above; ``mma_general`` (blocked_mma) for
+      any other geometry or alignment;
+    * f32 A against f32 tiles, int8 A against unscaled int8 tiles:
+      ``fma_stream`` up to 16 rows, ``fma_tiled`` above (CUDA cores);
+    * every other pair (int8 / int4 tiles with scales, int4 under int8 A,
+      mixed float types): the quantized bodies ``mma_quant`` / ``fma_quant``.
+    """
+    a_dt = dtype_name(a_dtype)
+    if not scaled and fmt.dtype == a_dt:
+        if a_dt in ("bfloat16", "float16"):
+            if tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0:
+                return "tc_stream" if m <= 16 else "wgmma"
+            return "mma_general"
+        if a_dt in ("float32", "int8"):
+            return "fma_stream" if m <= gt.STREAM_ROWS else "fma_tiled"
+    return "fma_quant" if pick_variant(a_dtype, fmt, m) == FMA else "mma_quant"
+
+
 def launch_args(a, b_packed, n, c, *, bm, alpha, beta, b_scales, out,
                 epilogue, bias, fmt, stream) -> tuple:
     """Check the operands against what the kernel takes and build the C
-    entry point's argument tuple (raises ``ValueError`` on anything else)."""
+    entry point's argument tuple (raises ``ValueError`` on anything else).
+    Returns ``(args, keep, body)``: ``keep`` holds converted copies and the
+    split-K workspace, which must outlive the launch."""
     m, k = a.shape
     nb, kb = b_packed.shape[:2]
     a_dt, b_dt = dtype_name(a.dtype), fmt.dtype
@@ -170,10 +221,26 @@ def launch_args(a, b_packed, n, c, *, bm, alpha, beta, b_scales, out,
         if tuple(c.shape) != (m, n):
             raise ValueError(f"c must be [{m}, {n}]; got {tuple(c.shape)}")
         c = (c.to(torch.int32) if int_acc else c).to(torch.float32).contiguous()
+    body = fused_a_body(a.dtype, fmt, m, scaled=b_scales is not None,
+                        tma_ok=tma_aligned(a, b_packed))
+    ws = None
+    if body == "tc_stream":
+        splits, chunk = tc_stream_split(kb, cdiv(n, fmt.bn))
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=a.device)
+        plan = (0, 0, splits, chunk, None if ws is None else ws.data_ptr())
+    elif body in ("fma_stream", "fma_tiled"):
+        plan, ws = gt.fma_args(m, k, n, acc_dtype_for(a.dtype), a.device,
+                               item=a.element_size(),
+                               b_kfast=fmt.layout == "col", align=fmt.bk)
+    else:
+        plan = (0, 0, 1, 0, None)
+    code = (pick_variant(a.dtype, fmt, m) if body == "mma_quant"
+            else _BODY_CODE[body])
     bn_chunk = _pick_bn(fmt.bn, cdiv(m, bm))
     kc = 32 if fmt.bk % 32 == 0 else 16
-    variant = pick_variant(a.dtype, fmt, m)
-    keep = (bias, c)  # converted copies must outlive the launch call
+    keep = (bias, c, ws)
     args = (a.data_ptr(), _DT[a_dt], a.stride(0), m, k,
             b_packed.data_ptr(), _DT[b_dt], int(fmt.layout == "col"), nb, kb,
             fmt.bk, fmt.bn,
@@ -183,8 +250,8 @@ def launch_args(a, b_packed, n, c, *, bm, alpha, beta, b_scales, out,
             float(alpha), float(beta if c is not None else 0.0),
             out.data_ptr(), _DT[dtype_name(out.dtype)], n,
             EPILOGUE_CODES[kernel_epilogue_name(epilogue)],
-            bm, bn_chunk, kc, int(int_acc), variant, stream)
-    return args, keep
+            code, bm, bn_chunk, kc, int(int_acc), *plan, stream)
+    return args, keep, body
 
 
 def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
@@ -202,7 +269,9 @@ def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
     tile or [Nb] per column for a quantized format; ``b_format`` the
     authoritative :class:`TileFormat` (required for int4 and col scales).
     On the CPU this is :func:`gemm_packed_fused_a_plain`; on the card it
-    launches the CUDA kernel (``bm`` is its m-block: 16, 32, 48 or 64).
+    launches the CUDA kernel on the body :func:`fused_a_body` picks
+    (``bm``, 16, 32, 48 or 64, is the reference's m-block and the quantized
+    fma body's; the other bodies choose their own tiles).
     """
     if a.device.type == "cpu":
         return gemm_packed_fused_a_plain(
@@ -219,19 +288,22 @@ def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
         return out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        args, keep = launch_args(a, b_packed, n, c, bm=bm, alpha=alpha,
-                                 beta=beta, b_scales=b_scales, out=out,
-                                 epilogue=epilogue, bias=bias, fmt=fmt,
-                                 stream=stream)
+        args, keep, body = launch_args(a, b_packed, n, c, bm=bm, alpha=alpha,
+                                       beta=beta, b_scales=b_scales, out=out,
+                                       epilogue=epilogue, bias=bias, fmt=fmt,
+                                       stream=stream)
         rc = _kernel()(*args)
         del keep
     if rc != 0:
-        raise RuntimeError(f"gemm_packed_fused_a launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gemm_packed_fused_a launch failed ({body}): "
+                           f"CUDA error {rc}")
     gemm_packed_fused_a.launches += 1
+    gemm_packed_fused_a.variants[body] += 1
     return out
 
 
 gemm_packed_fused_a.launches = 0
+gemm_packed_fused_a.variants = dict.fromkeys(FUSED_BODIES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +327,6 @@ _PACKED_ARGTYPES = [
 WGMMA, TC_STREAM = 3, 4
 PACKED_VARIANTS = ("wgmma", "tc_stream", "mma_general", "fma_tiled",
                    "fma_stream")
-TC_BOX = 64   # a TMA box's contiguous axis, elements
 
 
 def packed_variant(dtype: torch.dtype, m: int, bm: int, bk: int, bn: int,

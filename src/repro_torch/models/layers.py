@@ -171,7 +171,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_positions is None:
         q_positions = q_offset + torch.arange(sq, device=dev)[None]
     qpos_all = q_positions.expand(b, sq)
+    # K and V widened once a call, outside the chunk loop. The reference
+    # keeps them in their storage dtype and asks its einsums for f32
+    # results; torch's bf16 / f16 matmul returns its operands' dtype, so an
+    # f32 product of exact bf16 values needs f32 operands: the copies stay.
     kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
     outs = []
     for c0 in range(0, sq, chunk):
         qs = q[:, c0:c0 + chunk]
@@ -195,6 +200,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(logits, dim=-1)
         # The weights are rounded to V's dtype before the value product.
         out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),
-                           v.to(torch.float32))
+                           vf)
         outs.append(out.reshape(b, cs, h, d).to(q.dtype))
     return torch.cat(outs, dim=1)

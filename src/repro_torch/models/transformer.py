@@ -48,7 +48,11 @@ def _norm_params(cfg: ModelConfig, device) -> dict:
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random f32 parameters, N(0, 0.02) for every matrix, drawn from
-    ``generator`` on ``device`` (the generator must live there)."""
+    ``generator`` on ``device`` (the generator must live there). The tree
+    is the reference's ``init_params`` tree with each stacked [L, ...]
+    leaf split per layer: qk-norm scales (ones) under ``cfg.qk_norm`` and
+    zero attention / MLP biases under ``cfg.use_bias``, as the
+    reference's ``attn_params`` and ``mlp_params`` add them."""
     check_ported(cfg)
 
     def dense(k, n):
@@ -60,19 +64,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["head"] = {"table": torch.randn(
             (cfg.vocab_size, d), generator=generator, device=device) * INIT_STD}
+    def const(fill, n):
+        return torch.full((n,), fill, dtype=torch.float32, device=device)
+
     layers = []
     for _ in range(cfg.num_layers):
         a = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
              "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
+        if cfg.use_bias:
+            a.update(bq=const(0.0, cfg.q_dim), bk=const(0.0, cfg.kv_dim),
+                     bv=const(0.0, cfg.kv_dim), bo=const(0.0, d))
+        if cfg.qk_norm:
+            a.update(q_norm=const(1.0, cfg.head_dim),
+                     k_norm=const(1.0, cfg.head_dim))
         layer = {"norm1": _norm_params(cfg, device), "attn": a,
                  "norm2": _norm_params(cfg, device)}
         if cfg.is_moe:
             layer["moe"] = moe_mod.moe_params(cfg, generator, device)
-        elif cfg.mlp_type in ("swiglu", "geglu"):
-            layer["mlp"] = {"wg": dense(d, f), "wu": dense(d, f),
-                            "wo": dense(f, d)}
         else:
-            layer["mlp"] = {"wi": dense(d, f), "wo": dense(f, d)}
+            gated = cfg.mlp_type in ("swiglu", "geglu")
+            mlp = ({"wg": dense(d, f), "wu": dense(d, f), "wo": dense(f, d)}
+                   if gated else {"wi": dense(d, f), "wo": dense(f, d)})
+            if cfg.use_bias:
+                mlp.update(bi=const(0.0, f), bo=const(0.0, d))
+            layer["mlp"] = mlp
         layers.append(layer)
     params["layers"] = layers
     params["final_norm"] = _norm_params(cfg, device)
