@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K4, K6, K8
+    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K2, K4, K6, K8
     python3 chip_smoke.py --served-attention OTHER/layers.py   # served attention, A/B
 
 Phases (any failure exits non-zero and prints no result line):
@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
      per source, all at once, into ``build/kernels/``), check that K8's
      library issues no tensor-core instruction, K6's holds HGMMA (wgmma),
      and K1's CUDA-core functions issue none while its wgmma functions
-     issue HGMMA (per function: one library holds both), and hold each
+     issue HGMMA (per function: one library holds both), K2 / K3's
+     grouped_wgmma HGMMA, grouped_stream HMMA and grouped_fma none, and hold each
      kernel against its plain torch version on the card:
      - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16 (M=4 on
        tc_stream, M=512 on wgmma, timed with CUDA events and by
@@ -24,10 +25,16 @@ Phases (any failure exits non-zero and prints no result line):
      - gemm_grouped_packed_ragged (K2) and gemm_grouped_packed (K3, the
        same operands with every row live) at mixtral-8x22b's expert shapes
        (the gate/up pair K=6144 N=16384, the down projection K=16384
-       N=6144, 8 experts) at the decode envelope (C=8) and the prefill
-       envelope (C=160), plus S>1, int8/int4 tile/col, both layouts, bias,
-       every epilogue, f32 and int8 activations. Rows past the counts must
-       be exactly 0;
+       N=6144, 8 experts) at the decode envelope (C=8, on tc_stream) and
+       the prefill envelope (C=160, on wgmma), timed with CUDA events and
+       torch.profiler's kernel time beside torch.bmm's; plus S>1,
+       int8/int4 tile/col, both layouts, bias, every epilogue, f32 and
+       int8 activations on PR 12's bodies; then at the TMA bodies' edges
+       (k2_checks: C 1 / 8 / 16 / 17 / 160 / 300, counts 0, partial, C, > C and
+       negative, K 700, N 200 and 136, the pair with B != B2, every
+       epilogue with bias, split K and not, f16, a permuted A, a
+       misaligned A on mma_sync), each call held to the body it must take.
+       Rows past the counts must be exactly 0;
      - pack_a / pack_b / pack_b_grouped (K5) byte-equal to the plain
        packers (f32, bf16, int8, int4; row and col; tile and col scales;
        odd shapes; a transposed source); gemm_packed (K6), gemm_tiled (K7,
@@ -59,7 +66,8 @@ Phases (any failure exits non-zero and prints no result line):
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
      layers of f32 weights are 40 GB, plus 20 GB packed in bf16) — the
      same way: prefill logits against the plain versions, expert choices
-     compared, K1's launches by body as for olmo-1b.
+     compared, K1's launches by body as for olmo-1b, K2's on wgmma at
+     prefill and tc_stream at decode, nothing else.
   4. The paper's strategy comparison: square GEMMs of the paper's sizes
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
@@ -91,9 +99,12 @@ K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key) and shows that phase 6's check fails
 each at every shape it reaches and passes the kernel as built; then copies
 of K8 with the last split-K chunk dropped, of K6 with its TMA ring one
-k-step short, and of K1 with A's tensor map lda wide instead of K and with
-the last split dropped from tc_stream's reduction, which phase 1's K6 / K8
-and K1 edge checks must fail while passing the kernels as built.
+k-step short, of K1 with A's tensor map lda wide instead of K and with
+the last split dropped from tc_stream's reduction, and of K2 with a dead
+segment that stores nothing, the row at the count kept, the pair's up
+stream read from B's map and the last split dropped from grouped_reduce,
+which phase 1's K6 / K8, K1 and K2 / K3 edge checks must fail while
+passing the kernels as built.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -313,7 +324,8 @@ def k1_checks(torch, ks, quiet=False) -> tuple:
 
 
 def phase_kernels(torch, gp, ref, tf, pk):
-    """Kernel vs plain version on the card; returns the per-shape table."""
+    """Kernel vs plain version on the card; returns (the per-shape table,
+    the max abs error at the serving shapes, K1's quantized timings)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(0)
     fails = []
@@ -428,9 +440,60 @@ def phase_kernels(torch, gp, ref, tf, pk):
     edge_fails, edge_seen = k1_checks(torch, dict(pack=pk, gp=gp, tf=tf))
     log(f"  K1 edge checks, launches by body: {edge_seen}")
     fails += edge_fails
+    quant = k1_quant_times(torch, gp, ref, tf, gen)
     if fails:
         raise AssertionError(f"kernel disagrees with its plain version: {fails}")
-    return table, main_err
+    return table, main_err, quant
+
+
+def k1_quant_times(torch, gp, ref, tf, gen) -> dict:
+    """K1's quantized bodies (PR 11's mma_quant) at olmo-1b's decode shapes
+    (M=4), int8 tiles with tile scales and int4 tiles with col scales (bk
+    128, bn 64): device ms and events per shape, weighted into one decode
+    forward (113 calls), beside the byte bound of the narrow tiles and
+    their scales and the plain version. Each call must take mma_quant. No
+    single PyTorch call computes a GEMM against scaled int tiles."""
+    layers = 16  # olmo-1b
+    out = {}
+    for qd, gran in (("int8", "tile"), ("int4", "col")):
+        qf = tf.TileFormat(bk=128, bn=64, dtype=qd,
+                           scale=tf.ScaleSpec(granularity=gran))
+        rows = []
+        for (k, n), cnt in OLMO_SHAPES.items():
+            w = torch.randn((k, n), generator=gen, device=DEVICE) * 0.02
+            q, s = ref.pack_b_ref(w, qf)
+            nbytes = q.numel() * q.element_size() + s.numel() * 4
+            copies = max(1, min(16, math.ceil(128e6 / nbytes)))
+            packs = [(q, s)] + [ref.pack_b_ref(torch.randn(
+                (k, n), generator=gen, device=DEVICE) * 0.02, qf)
+                for _ in range(copies - 1)]
+            a = torch.randn((4, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+
+            def call(i):
+                qq, ss = packs[i % copies]
+                gp.gemm_packed_fused_a(a, qq, n, b_scales=ss, b_format=qf)
+            before = dict(gp.gemm_packed_fused_a.variants)
+            call(0)
+            ran = [v for v, c in gp.gemm_packed_fused_a.variants.items()
+                   if c != before[v]]
+            if ran != ["mma_quant"]:
+                raise AssertionError(f"K1 {qd}:{gran} M=4 K={k} N={n} took "
+                                     f"{ran}, not mma_quant")
+            t_b, by = bound_ms(4, k, n, 2, nbytes, 2, H100_BF16_FLOPS)
+            rows.append(dict(k=k, n=n, calls=cnt * layers if cnt else 1,
+                             ms=time_ms(call, 10), device_ms=device_ms(call, 10),
+                             plain_ms=time_ms(lambda i: gp.gemm_packed_fused_a_plain(
+                                 a, q, n, b_scales=s, b_format=qf), 2),
+                             bound_ms=t_b, bound_by=by))
+            del packs
+        fwd = {key: sum(r[key] * r["calls"] for r in rows)
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        out[f"{qd}:{gran}"] = dict(fwd, shapes=rows, body="mma_quant")
+        log(f"  K1 {qd}:{gran} tiles, one olmo-1b decode forward (113 calls, "
+            f"M=4): device {fwd['device_ms']:.4f} ms, events {fwd['ms']:.4f}, "
+            f"bound {fwd['bound_ms']:.4f} (bytes of the narrow tiles and "
+            f"scales), plain {fwd['plain_ms']:.4f}")
+    return out
 
 
 def route_counts(torch, gen, tokens, probs, cap):
@@ -460,10 +523,162 @@ def grouped_bound_ms(counts, e, c, k, n, b_bytes, pair):
                                        else "bytes")
 
 
+# K2 / K3 edge shapes: segment envelopes on both sides of the decode body's
+# 16 rows, inside the wgmma body's 256-row m-tile (one, three live 64-row
+# boxes) and across two m-tiles; K 700, whose last 64-deep box is partly
+# (bk 64) or wholly (bk 128) padding; N 200 and 136 (odd Nb).
+K2_EDGE_C = (1, 8, 16, 17, 160, 300)
+
+
+def k2_body(c):
+    """K2 / K3's body for bf16 / f16 A against aligned tiles of its type
+    (bn 64, bk a multiple of 64)."""
+    return "tc_stream" if c <= 16 else "wgmma"
+
+
+def k2_checks(torch, ks, quiet=False) -> tuple:
+    """K2 and K3 against their plain versions at the TMA bodies' edges,
+    each call also held to the body it must take. A is a view of a buffer
+    whose columns past K hold NaN (A's map must be K wide); its rows
+    between the count and C hold data (the kernel must not read them as
+    padding). Segment envelopes C 1 / 8 / 16 / 17 / 160 / 300, counts 0,
+    partial, C, > C and negative over E = 3, S = 2; K = 700 with bk 64 and
+    128, both layouts; the silu-gate pair with B != B2 and bias; every
+    epilogue with bias, split (C = 8: 24 stripes split K) and not; f16;
+    S = 2 with A permuted (sa_e < sa_s); one live segment with K split;
+    every segment dead; odd Nb; an unsplit pair with dead segments (E = 8,
+    N = 2048); a misaligned A on mma_sync. Before each kernel call a freed
+    NaN buffer of the output's size lies where the output is allocated, so
+    an element the kernel does not store shows; rows at or past the count
+    must be exactly 0. bf16 / f16 output 2e-2 / 1e-3 (f32 sums in other
+    orders, one rounding). Returns (failed tags, launches by body of each
+    wrapper over the checks)."""
+    gg, ref, tf = ks["gg"], ks["ref"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    bf16 = torch.bfloat16
+    k2, k3 = gg.gemm_grouped_packed_ragged, gg.gemm_grouped_packed
+    fails = []
+    seen = {f.__name__: dict.fromkeys(f.variants, 0) for f in (k2, k3)}
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * std
+
+    def a_view(e, s, c, k, dtype=bf16):
+        """[E, S, C, K] view, row stride a multiple of 8, NaN past K."""
+        buf = torch.full((e, s, c, -(-k // 8) * 8 + 8), math.nan, device=DEVICE)
+        buf[..., :k] = randn(e, s, c, k)
+        return buf.to(dtype)[..., :k]
+
+    def stacks(e, k, n, bk, layout, dtype=bf16, pair=True):
+        fmt = tf.TileFormat(bk=bk, bn=64, layout=layout,
+                            dtype=str(dtype).split(".")[-1])
+        bps = [ref.pack_b_grouped_ref(randn(e, k, n, std=0.05).to(dtype), fmt)
+               for _ in range(2 if pair else 1)]
+        return fmt, bps[0], (bps[1] if pair else None)
+
+    def check(tag, body, a, bp, n, counts=None, **kw):
+        fn = k3 if counts is None else k2
+        args = (a, bp, n) if counts is None else (a, bp, n, counts)
+        out_shape = tuple(a.shape[:-1]) + (n,)
+        poison = torch.full(out_shape, math.nan, device=DEVICE,
+                            dtype=kw.get("out_dtype") or a.dtype)
+        del poison
+        before = dict(fn.variants)
+        try:
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            seen[fn.__name__][v] += fn.variants[v] - before[v]
+        plain = (gg.gemm_grouped_packed_plain if counts is None
+                 else gg.gemm_grouped_packed_ragged_plain)
+        ok, err = close(got, plain(*args, **kw), 2e-2, 1e-3)
+        zeros = True
+        if counts is not None:
+            mask = ref.ragged_row_mask(a.shape[2], counts.clamp(0, a.shape[2]))
+            zeros = not bool(got[~mask].any())
+        ok = ok and zeros and ran == [body]
+        if not ok:
+            fails.append(tag)
+        if not ok or not quiet:
+            log(f"  check {tag} [{'+'.join(ran)}; want {body}]: max_abs_err="
+                f"{err:.3e}, zeros past counts {zeros} (rtol=2e-2, atol=1e-3) "
+                f"{'ok' if ok else 'FAIL'}")
+
+    def counts_of(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=DEVICE)
+
+    e, s, k, n = 3, 2, 700, 200
+    bias = randn(e, n)
+    packs = {(bk, lay): stacks(e, k, n, bk, lay)
+             for bk, lay in ((64, "row"), (128, "col"), (128, "row"))}
+    for c in K2_EDGE_C:
+        counts = counts_of([[0, c], [c // 2, 1], [c + 7, -2]])
+        a = a_view(e, s, c, k)
+        for (bk, lay), (fmt, bp, b2p) in packs.items():
+            check(f"K2 pair+bias C={c} K={k} N={n} bk {bk} {lay}", k2_body(c),
+                  a, bp, n, counts, b2_packed=b2p, b_format=fmt,
+                  epilogue="silu_gate", bias=bias)
+        fmt, bp, b2p = packs[(64, "row")]
+        check(f"K3 pair M={c} K={k} N={n}", k2_body(c), a_view(e, 1, c, k)[:, 0],
+              bp, n, b2_packed=b2p, b_format=fmt, epilogue="silu_gate")
+    fmt, bp, _ = packs[(128, "row")]
+    for c in (8, 160):
+        counts = counts_of([[0, c], [c // 2, 1], [c + 7, -2]])
+        for epi in EPIS:
+            check(f"K2 {epi}+bias C={c} K={k} N={n}", k2_body(c),
+                  a_view(e, s, c, k), bp, n, counts, b_format=fmt,
+                  epilogue=epi, bias=bias)
+        dead = counts_of([[0, 0]] * e)
+        check(f"K2 pair every segment dead C={c}", k2_body(c),
+              a_view(e, s, c, k), bp, n, dead, b2_packed=packs[(128, "row")][2],
+              b_format=fmt, epilogue="silu_gate")
+        fmt_h, bp_h, b2p_h = stacks(e, k, n, 64, "col", torch.float16)
+        check(f"K2 f16 pair+bias C={c}", k2_body(c),
+              a_view(e, s, c, k, torch.float16), bp_h, n, counts,
+              b2_packed=b2p_h, b_format=fmt_h, epilogue="silu_gate", bias=bias)
+        # A permuted: [S, E, C, K] storage read as [E, S, C, K].
+        kp = 768
+        fmt_p, bp_p, b2p_p = stacks(e, kp, n, 128, "row")
+        a_p = randn(s, e, c, kp).to(bf16).permute(1, 0, 2, 3)
+        check(f"K2 pair S=2 permuted A (sa_e {a_p.stride(0)} < sa_s "
+              f"{a_p.stride(1)}) C={c}", k2_body(c), a_p, bp_p, n, counts,
+              b2_packed=b2p_p, b_format=fmt_p, epilogue="silu_gate")
+        fmt_o, bp_o, _ = stacks(e, k, 136, 64, "row", pair=False)
+        check(f"K2 gelu+bias N=136 (odd Nb) C={c}", k2_body(c),
+              a_view(e, s, c, k), bp_o, 136, counts, b_format=fmt_o,
+              epilogue="gelu", bias=randn(e, 136))
+        a_m = randn(e, s, c, 320).to(bf16)[..., 5:305]
+        fmt_m, bp_m, b2p_m = stacks(e, 300, n, 128, "row")
+        check(f"K2 pair A offset 5 (misaligned) C={c}", "mma_sync", a_m, bp_m,
+              n, counts, b2_packed=b2p_m, b_format=fmt_m, epilogue="silu_gate")
+    for bk, lay in ((64, "row"), (128, "col")):
+        fmt1, bp1, b2p1 = stacks(2, k, n, bk, lay)
+        check(f"K2 pair one live segment, K split, bk {bk} {lay}", "tc_stream",
+              a_view(2, 1, 8, k), bp1, n, counts_of([[5], [0]]),
+              b2_packed=b2p1, b_format=fmt1, epilogue="silu_gate")
+    fmt8, bp8, b2p8 = stacks(8, 2048, 2048, 128, "row")
+    counts8 = counts_of([[2, 0], [8, 1], [0, 0], [3, 5], [8, 8], [0, 1],
+                         [4, 0], [1, 2]])
+    check("K2 pair unsplit E=8 S=2 K=2048 N=2048, dead segments", "tc_stream",
+          a_view(8, 2, 8, 2048), bp8, 2048, counts8, b2_packed=b2p8,
+          b_format=fmt8, epilogue="silu_gate", bias=randn(8, 2048))
+    check("K2 unsplit E=8 S=2 C=16 K=2048 N=2048, dead segments", "tc_stream",
+          a_view(8, 2, 16, 2048), bp8, 2048, counts8 * 2, b_format=fmt8)
+    return fails, seen
+
+
 def phase_grouped(torch, gg, ref, tf):
     """K2 and K3 against their plain versions on the card, and their times
-    at mixtral-8x22b's expert shapes; returns (timing rows, max abs error
-    at the main shapes)."""
+    (CUDA events and device time) at mixtral-8x22b's expert shapes, each
+    held to the body it must take (tc_stream at the decode envelope, wgmma
+    at prefill); then k2_checks at the TMA bodies' edges and PR 12's
+    bodies at the quantized and f32 / int8 formats. Returns (timing rows,
+    max abs error at the main shapes)."""
     import torch.nn.functional as F
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -474,9 +689,12 @@ def phase_grouped(torch, gg, ref, tf):
     def randn(*shape, std=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def check(tag, a, bp, n, counts, rtol, atol, **kw):
-        """K2 on [E, S, C, K] and K3 on the same A as [E, S*C, K]."""
+    def check(tag, a, bp, n, counts, rtol, atol, body=None, **kw):
+        """K2 on [E, S, C, K] and K3 on the same A as [E, S*C, K]; with
+        ``body``, each must launch that body."""
         e, s, c, k = a.shape
+        before = {f.__name__: dict(f.variants) for f in (
+            gg.gemm_grouped_packed_ragged, gg.gemm_grouped_packed)}
         got = gg.gemm_grouped_packed_ragged(a, bp, n, counts, **kw)
         torch.cuda.synchronize()
         want = gg.gemm_grouped_packed_ragged_plain(a, bp, n, counts, **kw)
@@ -488,9 +706,14 @@ def phase_grouped(torch, gg, ref, tf):
         want3 = gg.gemm_grouped_packed_plain(a.reshape(e, s * c, k), bp, n,
                                              **kw)
         ok3, err3 = close(got3, want3, rtol, atol)
-        good = ok and zeros and ok3
+        ran = {f.__name__: [v for v, n_ in f.variants.items()
+                            if n_ != before[f.__name__][v]]
+               for f in (gg.gemm_grouped_packed_ragged, gg.gemm_grouped_packed)}
+        good = ok and zeros and ok3 and (
+            body is None or all(r == [body] for r in ran.values()))
         log(f"  check {tag}: K2 max_abs_err={err:.3e} zeros past counts "
-            f"{zeros}, K3 max_abs_err={err3:.3e} (rtol={rtol}, atol={atol}) "
+            f"{zeros}, K3 max_abs_err={err3:.3e} (rtol={rtol}, atol={atol}); "
+            f"bodies {ran}{f' (want {body})' if body else ''} "
             f"{'ok' if good else 'FAIL'}")
         if not good:
             fails.append(tag)
@@ -523,9 +746,10 @@ def phase_grouped(torch, gg, ref, tf):
             rows_live = ref.ragged_row_mask(c, counts)[..., None]
             a = torch.where(rows_live, a, torch.zeros((), dtype=a.dtype,
                                                       device=dev))
+            body = k2_body(c)
             main_err = max(main_err, check(
                 f"mixtral {name} {env} E=8 C={c} K={k} N={n}", a, packed[0],
-                n, counts, 2e-2, 1e-3, **kw))
+                n, counts, 2e-2, 1e-3, body=body, **kw))
             a3 = a.reshape(MIX_E, c, k)
 
             def lib(i):
@@ -534,31 +758,39 @@ def phase_grouped(torch, gg, ref, tf):
                     out = F.silu(out) * torch.bmm(a3, w_nat[1])
                 return out
             reps = 5 if env == "decode" else 3
+
+            def k2_call(i):
+                gg.gemm_grouped_packed_ragged(a, packed[0], n, counts, **kw)
+
+            def k3_call(i):
+                gg.gemm_grouped_packed(a3, packed[0], n, **kw)
             t = dict(
-                k2=time_ms(lambda i: gg.gemm_grouped_packed_ragged(
-                    a, packed[0], n, counts, **kw), reps),
+                k2=time_ms(k2_call, reps), k2_device=device_ms(k2_call, reps),
                 k2_plain=time_ms(lambda i: gg.gemm_grouped_packed_ragged_plain(
                     a, packed[0], n, counts, **kw), 2),
-                k3=time_ms(lambda i: gg.gemm_grouped_packed(
-                    a3, packed[0], n, **kw), reps),
+                k3=time_ms(k3_call, reps), k3_device=device_ms(k3_call, reps),
                 k3_plain=time_ms(lambda i: gg.gemm_grouped_packed_plain(
                     a3, packed[0], n, **kw), 2),
-                library=time_ms(lib, reps))
+                library=time_ms(lib, reps), library_device=device_ms(lib, reps))
             b2, by2 = grouped_bound_ms(counts_h, MIX_E, c, k, n, b_bytes, pair)
             b3, by3 = grouped_bound_ms(None, MIX_E, c, k, n, b_bytes, pair)
-            variant = gg.pick_variant(a.dtype, fmt, c)
             rows.append(dict(contraction=name, envelope=env, e=MIX_E, s=1,
                              c=c, k=k, n=n, counts=counts_h.tolist(),
-                             variant=variant, k2_ms=t["k2"],
+                             variant=body, k2_ms=t["k2"],
+                             k2_device_ms=t["k2_device"],
                              k2_plain_ms=t["k2_plain"], k2_bound_ms=b2,
                              k2_bound_by=by2, k3_ms=t["k3"],
+                             k3_device_ms=t["k3_device"],
                              k3_plain_ms=t["k3_plain"], k3_bound_ms=b3,
-                             k3_bound_by=by3, library_ms=t["library"]))
-            log(f"  time {name} {env} C={c} (variant {variant}): K2 "
-                f"{t['k2']:.4f} ms (bound {b2:.4f}, {by2}; plain "
-                f"{t['k2_plain']:.4f}), K3 {t['k3']:.4f} ms (bound {b3:.4f}, "
-                f"{by3}; plain {t['k3_plain']:.4f}), torch.bmm"
-                f"{' x2 + silu*mul' if pair else ''} {t['library']:.4f} ms")
+                             k3_bound_by=by3, library_ms=t["library"],
+                             library_device_ms=t["library_device"]))
+            log(f"  time {name} {env} C={c} ({body}): K2 {t['k2']:.4f} ms "
+                f"(device {t['k2_device']:.4f}; bound {b2:.4f}, {by2}; plain "
+                f"{t['k2_plain']:.4f}), K3 {t['k3']:.4f} ms (device "
+                f"{t['k3_device']:.4f}; bound {b3:.4f}, {by3}; plain "
+                f"{t['k3_plain']:.4f}), torch.bmm"
+                f"{' x2 + silu*mul' if pair else ''} {t['library']:.4f} ms "
+                f"(device {t['library_device']:.4f})")
         del w_nat, packed
 
     # -- formats, layouts, S > 1, bias, every epilogue, f32 / int8 A -------
@@ -609,6 +841,9 @@ def phase_grouped(torch, gg, ref, tf):
           96, torch.tensor([[24, 3], [0, 30], [11, 24]], dtype=torch.int32,
                            device=dev), 0.0, 0.0, b_format=fi,
           out_dtype=torch.int32)
+    edge_fails, edge_seen = k2_checks(torch, dict(gg=gg, ref=ref, tf=tf))
+    log(f"  K2 / K3 edge checks, launches by body: {edge_seen}")
+    fails += edge_fails
     if fails:
         raise AssertionError(f"grouped kernel disagrees with its plain "
                              f"version: {fails}")
@@ -1082,6 +1317,27 @@ def check_k1_sass(path) -> str:
                              f"{sorted(set().union(*wg.values())) if wg else []}")
     return (f"{len(core)} CUDA-core functions without HMMA/HGMMA/IMMA, "
             f"{len(wg)} wgmma functions with HGMMA, of {len(funcs)}")
+
+
+def check_grouped_sass(path) -> str:
+    """K2 / K3's library, per function: HGMMA in every grouped_wgmma, HMMA
+    in every grouped_stream (mma.sync over the TMA ring), no tensor-core
+    op in grouped_fma (f32 in full f32, int8 on i32) or grouped_reduce."""
+    funcs = sass_by_function(path)
+    want = {"grouped_wgmma": "HGMMA", "grouped_stream": "HMMA"}
+    found = {tag: [ops for n, ops in funcs.items() if tag in n] for tag in
+             (*want, "grouped_fma", "grouped_reduce")}
+    bad = [tag for tag, op in want.items()
+           if not found[tag] or not all(op in ops for ops in found[tag])]
+    bad += [tag for tag in ("grouped_fma", "grouped_reduce")
+            if not found[tag] or any(found[tag])]
+    if bad:
+        raise AssertionError(f"{path.name}: functions failing their SASS "
+                             f"check {bad}: " + ", ".join(
+                                 f"{tag} {[sorted(o) for o in ops]}"
+                                 for tag, ops in found.items()))
+    return ", ".join(f"{len(ops)} {tag} ({want.get(tag, 'no tensor-core op')})"
+                     for tag, ops in found.items()) + f", of {len(funcs)}"
 
 
 def check_no_tensor_cores(path) -> str:
@@ -1610,7 +1866,7 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = counters.read()
-    bodies = k1_bodies(counters)
+    bodies = launches_by_body(counters)
     # Prefill: the 7 projections a layer at 4 x 128 rows on wgmma, the LM
     # head at the last positions (4 rows) on tc_stream; decode: tc_stream.
     want_bodies = dict(tc_stream=1 + per_forward * STEPS,
@@ -1689,7 +1945,7 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         launches = counters.read()
-        bodies = k1_bodies(counters)
+        bodies = launches_by_body(counters)
     finally:
         ctr.LOWERINGS.update(real)
     want_bodies = dict(wgmma=7 * layers)   # the prefill's 4 x 128 rows
@@ -1733,11 +1989,10 @@ def check_tokens(tokens, cfg):
     log(f"  tokens[0][:8] = {tokens[0][:8].tolist()}")
 
 
-def k1_bodies(counters) -> dict:
-    """K1's launches by body since the counters were set to 0 (bodies with
-    at least one)."""
-    return {v: c for v, c in counters.variants()["gemm_packed_fused_a"].items()
-            if c}
+def launches_by_body(counters, name="gemm_packed_fused_a") -> dict:
+    """A wrapper's launches by body (K1's by default) since the counters
+    were set to 0 (bodies with at least one)."""
+    return {v: c for v, c in counters.variants()[name].items() if c}
 
 
 # K1's CUDA kernels in a profile, by a piece of their names: tc_stream and
@@ -1745,6 +2000,10 @@ def k1_bodies(counters) -> dict:
 # quantized bodies fused_a_*, and the split reduction after tc_stream.
 K1_KERNEL_TAGS = {"K1 tc_stream": "mma_stream", "K1 wgmma": "wgmma_packed",
                   "K1 quantized": "fused_a", "splitk_reduce": "splitk_reduce"}
+# K2's: all of them ("grouped_"), then by body (the split reduction after
+# tc_stream apart).
+K2_KERNEL_TAGS = {"K2": "grouped_", "K2 tc_stream": "grouped_stream",
+                  "K2 reduce": "grouped_reduce", "K2 wgmma": "grouped_wgmma"}
 
 
 class plain_kernels:
@@ -1827,17 +2086,25 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = counters.read()
-    bodies = k1_bodies(counters)
+    bodies = launches_by_body(counters)
     want_bodies = dict(tc_stream=1 + (4 * cfg.num_layers + 1) * STEPS,
                        wgmma=4 * cfg.num_layers)
+    # K2: the prefill's segments (C = 160) on wgmma, every decode step's
+    # (C = 8) on tc_stream; nothing on PR 12's bodies.
+    bodies_k2 = launches_by_body(counters, "gemm_grouped_packed_ragged")
+    want_bodies_k2 = dict(tc_stream=2 * cfg.num_layers * STEPS,
+                          wgmma=2 * cfg.num_layers)
     log(f"  generate 4x128 + {STEPS} steps: {t_gen * 1e3:.1f} ms; launches "
         f"{launches} (want K1 {want_k1}, K2 {want_k2}, K3 0: the model always "
-        f"passes counts); K1 by body {bodies} (want {want_bodies})")
+        f"passes counts); K1 by body {bodies} (want {want_bodies}); K2 by "
+        f"body {bodies_k2} (want {want_bodies_k2})")
     if launches != counters.only(gemm_packed_fused_a=want_k1,
                                  gemm_grouped_packed_ragged=want_k2):
         raise AssertionError(f"launch counts {launches}")
     if bodies != want_bodies:
         raise AssertionError(f"K1 launches by body {bodies}")
+    if bodies_k2 != want_bodies_k2:
+        raise AssertionError(f"K2 launches by body {bodies_k2}")
     check_tokens(tokens, cfg)
 
     # -- logits against the plain versions on the card ---------------------
@@ -1906,11 +2173,11 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     del runs
 
     timings = serve_timings(torch, engine, prompt, STEPS,
-                            {**K1_KERNEL_TAGS, "K2": "grouped_"})
+                            {**K1_KERNEL_TAGS, **K2_KERNEL_TAGS})
     timings.update(rel_fro_pinned=rel_p, rel_fro_free=rel_f,
                    expert_choice_flips_free=flips_free,
                    expert_choices=n_choices, first_generate_ms=t_gen * 1e3,
-                   k1_launches_by_body=bodies,
+                   k1_launches_by_body=bodies, k2_launches_by_body=bodies_k2,
                    prefill_counts=counts, prefill_dropped=dropped)
     del engine
     torch.cuda.empty_cache()
@@ -2198,6 +2465,21 @@ GEMM_FAULTS = [
      "gemm_packed_fused_a.cu",
      [("return reduce_splits(wsf, splits, ep, s);",
        "return reduce_splits(wsf, splits - 1, ep, s);")]),
+    ("K2: a dead segment stores nothing (tc_stream)", "gemm_grouped_packed",
+     "gemm_grouped_packed.cu",
+     [("if (splits == 1) p.store_zeros(g, 0, j * BOX, 16, BOX, TS_THREADS);",
+       "if (splits == 0) p.store_zeros(g, 0, j * BOX, 16, BOX, TS_THREADS);")]),
+    ("K2: the row at the count kept (r <= count in the epilogue)",
+     "gemm_grouped_packed", "gemm_grouped_packed.cu",
+     [("    if (r < count) {\n      if (scale_mode == 2) v *= scales[",
+       "    if (r <= count) {\n      if (scale_mode == 2) v *= scales[")]),
+    ("K2: the pair's up stream read from B's map", "gemm_grouped_packed",
+     "gemm_grouped_packed.cu",
+     [("return stream ? &tb2 : &tb;", "return stream ? &tb : &tb;")]),
+    ("K2: last split dropped from grouped_reduce", "gemm_grouped_packed",
+     "gemm_grouped_packed.cu",
+     [("for (int sp = 0; sp < splits; ++sp)",
+       "for (int sp = 0; sp < splits - 1; ++sp)")]),
 ]
 
 
@@ -2205,15 +2487,18 @@ def planted_gemm(torch, build, ks) -> tuple:
     """Phase 1's GEMM edge checks against the kernels as built and a copy
     of each with a fault of ``GEMM_FAULTS``: the kernels as built must
     pass, each fault must fail. Returns (results, wrong)."""
-    gp, gv = ks["gp"], ks["gv"]
+    gp, gv, gg = ks["gp"], ks["gv"], ks["gg"]
     # kernel -> (entry point, argtypes, wrapper module, its loader's name)
     entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES, gv, "_kernel"),
              "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES, gp,
                              "_packed_kernel"),
              "gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES, gp,
+                                     "_kernel"),
+             "gemm_grouped_packed": ("gemm_grouped_packed_launch", gg._ARGTYPES, gg,
                                      "_kernel")}
     judge = {"gemm_vsx_like": k6_k8_checks, "gemm_packed": k6_k8_checks,
-             "gemm_packed_fused_a": k1_checks}
+             "gemm_packed_fused_a": k1_checks, "gemm_grouped_packed": k2_checks}
+    checks_name = {k6_k8_checks: "K6 / K8", k1_checks: "K1", k2_checks: "K2 / K3"}
     t0 = time.perf_counter()
     jobs = []
     for i, (name, kernel, target, edits) in enumerate(GEMM_FAULTS):
@@ -2234,7 +2519,8 @@ def planted_gemm(torch, build, ks) -> tuple:
             jobs.append((name, kernel, subprocess.Popen(
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
-    runs = [("as built", kernel, None) for kernel in ("gemm_packed_fused_a", "gemm_packed")]
+    runs = [("as built", kernel, None) for kernel in ("gemm_packed_fused_a", "gemm_packed",
+                                                      "gemm_grouped_packed")]
     for name, kernel, proc, lib, log_path in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"fault '{name}' did not build:\n"
@@ -2242,7 +2528,7 @@ def planted_gemm(torch, build, ks) -> tuple:
         fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
         fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
         runs.append((name, kernel, fn))
-    log(f"  built {len(jobs)} faulty copies of K1 / K6 / K8 in "
+    log(f"  built {len(jobs)} faulty copies of K1 / K2 / K6 / K8 in "
         f"{time.perf_counter() - t0:.1f} s")
     as_built = {k: getattr(mod, attr) for k, (_, _, mod, attr) in entry.items()}
     results, wrong = [], []
@@ -2255,7 +2541,7 @@ def planted_gemm(torch, build, ks) -> tuple:
             setattr(mod, attr, as_built[kernel])
             expect = "pass" if fn is None else "fail"
             ok = not fails
-            checks = "K1" if judge[kernel] is k1_checks else "K6 / K8"
+            checks = checks_name[judge[kernel]]
             results.append(dict(kernel=name, checks=checks, expect=expect,
                                 passed=ok, failed_checks=len(fails)))
             if ok != (expect == "pass"):
@@ -2271,7 +2557,7 @@ def planted_gemm(torch, build, ks) -> tuple:
 
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
-    check catches a wrong K4 and phase 1's a wrong K1, K6 or K8. Builds K4
+    check catches a wrong K4 and phase 1's a wrong K1, K2, K6 or K8. Builds K4
     and one copy of its source for each fault of ``K4_FAULTS`` (under
     ``build/kernels/planted/``, all at once), then runs the kernel as built
     and each faulty copy through the wrapper at A1-A6 and judges each output
@@ -2363,7 +2649,8 @@ class Counters:
         return {name: fn.launches for name, fn in self.fns.items()}
 
     def variants(self) -> dict:
-        """Launches by body of the wrappers that count them (K6, K8)."""
+        """Launches by body of the wrappers that count them (K1, K2, K3,
+        K6, K8)."""
         return {name: dict(fn.variants) for name, fn in self.fns.items()
                 if hasattr(fn, "variants")}
 
@@ -2444,10 +2731,11 @@ def main(argv) -> int:
         return served_attention_ab(torch, cfgs, shapes, argv[1])
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
-            "judged by phase 6's check at A1-A6; K1 / K6 / K8 as built and "
-            "with each fault of GEMM_FAULTS, judged by phase 1's edge checks")
+            "judged by phase 6's check at A1-A6; K1 / K2 / K6 / K8 as built "
+            "and with each fault of GEMM_FAULTS, judged by phase 1's edge "
+            "checks")
         return planted_faults(torch, build, fa, cfgs, shapes,
-                              dict(pack=pk, gp=gp, gv=gv, tf=tf))
+                              dict(pack=pk, gp=gp, gv=gv, gg=gg, ref=ref, tf=tf))
     counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
                          gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
                          pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
@@ -2468,7 +2756,9 @@ def main(argv) -> int:
     log(f"  gemm_packed SASS: {check_wgmma(paths['gemm_packed'])}")
     log(f"  gemm_packed_fused_a SASS: "
         f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
-    table, main_err = phase_kernels(torch, gp, ref, tf, pk)
+    log(f"  gemm_grouped_packed SASS: "
+        f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
+    table, main_err, k1_quant = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
         torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
@@ -2596,6 +2886,9 @@ def main(argv) -> int:
                     else "operations"),
           library_ms=agg["library_ms"], device_ms=agg["device_ms"],
           library_device_ms=agg["library_device_ms"], prefill_512=k1_prefill,
+          quantized_decode=dict(
+              k1_quant, library="none: no single PyTorch call computes a GEMM "
+                                "against scaled int8 / int4 tiles"),
           launches_by_body={
               "olmo-1b packed": serve_t["k1_launches_by_body"],
               "mixtral-8x22b packed": mix_t["k1_launches_by_body"],
@@ -2607,13 +2900,21 @@ def main(argv) -> int:
           "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
           max_abs_err=grouped_err, ms=gsum("k2_ms"), plain_ms=gsum("k2_plain_ms"),
           bound_ms=gsum("k2_bound_ms"), bound_by=gby("k2_bound_by"),
-          library_ms=gsum("library_ms"), library=library, work=grouped_work,
-          shapes=grouped_rows, serve=mix_t, card=card)
+          library_ms=gsum("library_ms"), device_ms=gsum("k2_device_ms"),
+          library_device_ms=gsum("library_device_ms"), library=library,
+          launches_by_body={
+              "mixtral-8x22b packed": mix_t["k2_launches_by_body"],
+              "strategy sweep": {v: c for v, c in sweep_variants[
+                  "gemm_grouped_packed_ragged"].items() if c}},
+          work=grouped_work, shapes=grouped_rows, serve=mix_t, card=card)
     entry("gemm_grouped_packed", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:112", ["gemm_grouped_packed"],
           max_abs_err=grouped_err, ms=gsum("k3_ms"), plain_ms=gsum("k3_plain_ms"),
           bound_ms=gsum("k3_bound_ms"), bound_by=gby("k3_bound_by"),
-          library_ms=gsum("library_ms"), library=library,
+          library_ms=gsum("library_ms"), device_ms=gsum("k3_device_ms"),
+          library_device_ms=gsum("library_device_ms"), library=library,
+          launches_by_body={"strategy sweep": {v: c for v, c in sweep_variants[
+              "gemm_grouped_packed"].items() if c}},
           work=grouped_work + "; every row live (no counts)", card=card)
     entry("pack", "pack.cu", "src/repro/kernels/pack.py:43",
           ["pack_a", "pack_b"], max_abs_err=layered_err["pack_b"],

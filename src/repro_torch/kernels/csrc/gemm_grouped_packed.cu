@@ -24,32 +24,41 @@
 // [E, Nb, Kb] multiply each K step's partial sum, col scales [E, Nb] once
 // at store.
 //
-// One block per (m-block, column chunk, segment), with the K loop inside
-// the block. The block reads its segment's count from device memory first:
-// a block whose rows all lie at or past the count stores zeros and loads no
-// A, B or scale tile — dead capacity costs a store, not a weight stream.
-// m-blocks are the fastest grid axis, so the m-blocks of one column chunk
-// run together and re-read its B tiles from L2, not from device memory.
-//
 // What bounds it on an H100: at decode (a few live rows per expert) the
 // live experts' weight stream over 3.35 TB/s; at prefill (C in the
-// hundreds) the tensor-core multiply-adds. Two kernels share the epilogue:
-//  * grouped_mma (bf16 / f16 activations, B of the same type or int8/int4):
-//    mma.sync m16n8k16 with f32 accumulators, B slices staged k-contiguous
-//    per column for ldmatrix, int tiles widened exactly on the way, and the
-//    next slice prefetched into registers while the tensor cores work, as
-//    in gemm_packed_fused_a.cu. Decode blocks (C <= 16) are 16 x 16 with
-//    four warps splitting each slice's k-steps; prefill blocks 32 x 64 with
-//    four warps of 16 x 32 (32 rows keep the pair's two accumulators and
-//    prefetch registers clear of spills).
-//  * grouped_fma (f32 A in full f32 without TF32; int8 A with i32
-//    accumulators): shared-memory tiles and scalar FMAs.
+// hundreds) the tensor-core multiply-adds. Every body reads its segment's
+// count from device memory at block (or tile) start, so the host never
+// waits for the counts: work whose rows all lie at or past the count loads
+// nothing and stores zeros. The wrapper picks a body per call
+// (gemm_grouped.py grouped_body) and counts its launches by name:
+//  * tc_stream / wgmma (bf16 / f16 A against unscaled tiles of its type,
+//    bn 64, bk a multiple of 64, A, B and B2 TMA-aligned): gemm_wgmma.cuh's
+//    ring, boxes and wgmma wrappers, with A's boxes from a 4-D tensor map
+//    over A [E, S, C, K] (its own strides; rows past C and columns past K
+//    read as zeros, never the next segment's) and B's (and B2's) from the
+//    2-D view of the stack, tile (e, j, kk) = view tile (e*Nb + j)*Kb + kk.
+//    Decode (C <= 16): grouped_stream, one block per (segment, split,
+//    64-column stripe), B's boxes (the pair: a B and a B2 box a stage
+//    against one A box) streamed once through a ring of GS_STAGES, Kb split
+//    on whole packed tiles when E*S*Nb stripes leave SMs idle, the partials
+//    reduced in split order by grouped_reduce before the one epilogue.
+//    Above: grouped_wgmma, persistent blocks over (segment, 128-row m-tile,
+//    column tile) with one producer warp and two consumer warpgroups on
+//    m64n64k16 wgmma; the pair keeps two accumulator sets (B and B2 of
+//    one 64-column tile) over one A box; a consumer warpgroup whose 64
+//    rows all lie at or past the count loads and multiplies nothing.
+//  * mma_sync (grouped_mma, PR 12's tensor-core body: bf16 / f16 A against
+//    float tiles of other geometries or alignments, or against int8 / int4
+//    tiles): mma.sync m16n8k16 with f32 accumulators, B slices staged
+//    k-contiguous per column for ldmatrix, int tiles widened exactly on the
+//    way. Decode blocks (C <= 16) are 16 x 16 with four warps splitting
+//    each slice's k-steps; prefill blocks 32 x 64.
+//  * fma (grouped_fma: f32 A in full f32 without TF32; int8 A with i32
+//    accumulators; mixed float types): shared-memory tiles and scalar FMAs.
 // The TPU kernel's sublane rule (decode-shaped segments to a masked
 // fallback) does not apply: every segment runs here.
-//
-// Not yet: TMA, wgmma, split-K for the deep-K decode shapes.
 
-#include "gemm_common.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -417,7 +426,7 @@ grouped_mma(Grouped p) {
 }
 
 template <typename T, int NB>
-void launch_mma(int variant, const Grouped& p, int E, cudaStream_t s) {
+void launch_grouped_mma(int variant, const Grouped& p, int E, cudaStream_t s) {
   const unsigned segs = static_cast<unsigned>(E * p.S);
   if (variant == V_MMA_DECODE) {  // 16 x 16 blocks, four warps split k
     const dim3 grid(static_cast<unsigned>((p.C + 15) / 16),
@@ -436,17 +445,18 @@ void launch_mma(int variant, const Grouped& p, int E, cudaStream_t s) {
   }
 }
 
+// mma_sync and fma (variants 0 / 1 / 2).
 template <int NB>
-int launch(const Grouped& p, int E, int a_dt, int BM, int BN, int KC, int int_acc,
-           int variant, cudaStream_t s) {
+int launch_blocks(const Grouped& p, int E, int a_dt, int BM, int BN, int KC, int int_acc,
+                  int variant, cudaStream_t s) {
   if (variant == V_MMA_DECODE || variant == V_MMA_PREFILL) {
     const bool half_a = (a_dt == DT_BF16 || a_dt == DT_F16);
     const bool b_ok = (p.b_dt == a_dt || p.b_dt == DT_I8 || p.b_dt == DT_I4);
     const bool shape_ok = (variant == V_MMA_DECODE) ? (p.bk % 64 == 0)
                                                     : (p.bk % 32 == 0 && p.bn % 64 == 0);
     if (!half_a || !b_ok || !shape_ok || int_acc) return static_cast<int>(cudaErrorInvalidValue);
-    if (a_dt == DT_BF16) launch_mma<__nv_bfloat16, NB>(variant, p, E, s);
-    else launch_mma<__half, NB>(variant, p, E, s);
+    if (a_dt == DT_BF16) launch_grouped_mma<__nv_bfloat16, NB>(variant, p, E, s);
+    else launch_grouped_mma<__half, NB>(variant, p, E, s);
     return static_cast<int>(cudaGetLastError());
   }
   if (variant != V_FMA || BM < 16 || BM > MAX_BM || BM % 16 ||
@@ -462,23 +472,486 @@ int launch(const Grouped& p, int E, int a_dt, int BM, int BN, int KC, int int_ac
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// tc_stream and wgmma: TMA rings over A's 4-D map and B's 2-D view
+// ---------------------------------------------------------------------------
+
+enum GroupedBody { G_WGMMA = 3, G_TC_STREAM = 4 };
+constexpr int GS_STAGES = 4;
+
+// Where A's dims sit in its tensor map: dim 0 is k, dims 1-3 are C, S and
+// E in increasing order of stride (a permuted A keeps its own strides).
+struct AMap {
+  int pos_c, pos_s, pos_e;
+};
+
+// A [E, S, C, K] of 16-bit elements with element strides (sa_e, sa_s, lda)
+// as a 4-D map, K wide: columns past K and rows past C read as zeros, so a
+// box never reaches into the next segment. Boxes are 64 k by `box_rows`
+// rows of one segment.
+bool make_grouped_a_map(CUtensorMap* map, AMap* am, const void* a, int dt, int E, int S, int C,
+                        int K, long long sa_e, long long sa_s, long long lda, int box_rows) {
+  EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  const long long stride[3] = {lda, sa_s, sa_e};
+  const int extent[3] = {C, S, E}, box[3] = {box_rows, 1, 1};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i) {
+    for (int j = i; j > 0 && stride[order[j - 1]] > stride[order[j]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(K), 0, 0, 0}, strides[3];
+  cuuint32_t boxes[4] = {BOX, 0, 0, 0};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  int pos[3];
+  for (int q = 0; q < 3; ++q) {
+    dims[q + 1] = static_cast<cuuint64_t>(extent[order[q]]);
+    strides[q] = static_cast<cuuint64_t>(stride[order[q]] * 2);
+    boxes[q + 1] = static_cast<cuuint32_t>(box[order[q]]);
+    pos[order[q]] = q + 1;
+  }
+  *am = AMap{pos[0], pos[1], pos[2]};
+  return enc(map, dt == DT_BF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+             4, const_cast<void*>(a), dims, strides, boxes, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The A box of rows [r, r + box_rows) and k [k, k + 64) of segment (e, s).
+__device__ __forceinline__ void tma_load_a(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           const AMap& am, int k, int r, int s, int e) {
+  auto at = [&](int d) { return am.pos_c == d ? r : (am.pos_s == d ? s : e); };
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k), "r"(at(1)), "r"(at(2)),
+      "r"(at(3))
+      : "memory");
+}
+
+// Stream 0's boxes come from B's map, stream 1's (the pair's up
+// projection) from B2's.
+__device__ __forceinline__ const CUtensorMap* stream_map(const CUtensorMap& tb,
+                                                         const CUtensorMap& tb2, int stream) {
+  return stream ? &tb2 : &tb;
+}
+
+// grouped_stream's ring: an A box and NB B boxes a stage.
+template <int NB>
+struct StreamRing {
+  static constexpr int STAGE = TS_A_BYTES + NB * TS_B_BYTES;
+  static constexpr int SMEM = GS_STAGES * STAGE + 1024;
+};
+
+// Decode (C <= 16): block = (segment g, split sp, 64-column stripe j); the
+// split covers packed k-tiles [sp*kt_chunk, min(Kb, (sp+1)*kt_chunk)). Its
+// four warps take the four k16 steps of each 64-deep box (mma.sync
+// m16n8k16), summed in warp order at the end. With one split the block
+// stores through the epilogue; with more it writes its partial sums of
+// rows < count to ws [splits, NB, E*S*C, N] for grouped_reduce.
+template <typename T, bool B_MN, int NB>
+__global__ void __launch_bounds__(TS_THREADS)
+grouped_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tb2, Grouped p, AMap am, int splits,
+               int kt_chunk, float* ws, long long total) {
+  constexpr int STAGE = StreamRing<NB>::STAGE;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[GS_STAGES];
+  __shared__ float red[4][16][BOX + 4];
+  const int j = blockIdx.x % p.Nb, sp = (blockIdx.x / p.Nb) % splits;
+  const int g = blockIdx.x / p.Nb / splits, e = g / p.S;
+  const int count = p.live_rows(g);
+  if (count == 0) {  // a dead segment loads nothing; its zeros are stored once
+    if (splits == 1) p.store_zeros(g, 0, j * BOX, 16, BOX, TS_THREADS);
+    return;
+  }
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nbox = p.bk / BOX;
+  if (tid == 0) {
+    for (int s = 0; s < GS_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int kt0 = sp * kt_chunk, kt1 = min(p.Kb, kt0 + kt_chunk);
+  const int steps = ring_steps(kt1 - kt0, p.bk);
+  auto issue = [&](int st) {  // one thread: k-box st into its slot
+    const int slot = st % GS_STAGES, kk = kt0 + st / nbox, kbox = st % nbox;
+    uint8_t* base = smem + slot * STAGE;
+    mbar_expect_tx(&full[slot], STAGE);
+    tma_load_a(base, &ta, &full[slot], am, kk * p.bk + kbox * BOX, 0, g % p.S, e);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      int c0, c1;
+      box_of(B_MN, (e * p.Nb + j) * p.Kb + kk, kbox, BOX, p.bk, c0, c1);
+      tma_load(base + TS_A_BYTES + b * TS_B_BYTES, stream_map(tb, tb2, b), &full[slot], c0, c1);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < steps && st < GS_STAGES; ++st) issue(st);
+  }
+  float acc[NB][8][4];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[b][t][x] = 0.0f;
+  for (int st = 0; st < steps; ++st) {
+    const int slot = st % GS_STAGES;
+    mbar_wait(&full[slot], (st / GS_STAGES) & 1);
+    const uint8_t* a_box = smem + slot * STAGE;
+    unsigned af[4];
+    ldmatrix_x4(af, sw128(a_box, lane % 16, warp * 2 + lane / 16));  // k16 step `warp`
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint8_t* b_box = a_box + TS_A_BYTES + b * TS_B_BYTES;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // n8 tiles 2q, 2q + 1
+        unsigned bf[4];
+        const int mat = lane / 8;
+        if (B_MN) {
+          ldmatrix_x4_trans(bf, sw128(b_box, warp * 16 + (mat % 2) * 8 + lane % 8, 2 * q + mat / 2));
+        } else {
+          ldmatrix_x4(bf, sw128(b_box, q * 16 + (mat / 2) * 8 + lane % 8, warp * 2 + mat % 2));
+        }
+        Half16<T>::mma(acc[b][2 * q], af, bf[0], bf[1]);
+        Half16<T>::mma(acc[b][2 * q + 1], af, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0 && st + GS_STAGES < steps) issue(st + GS_STAGES);
+  }
+  // The four warps' k-steps summed in order, one stream at a time.
+  constexpr int PER_T = 16 * BOX / TS_THREADS;
+  float v[NB][PER_T];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int r = lane / 4, c = t * 8 + (lane % 4) * 2;
+      red[warp][r][c] = acc[b][t][0];
+      red[warp][r][c + 1] = acc[b][t][1];
+      red[warp][r + 8][c] = acc[b][t][2];
+      red[warp][r + 8][c + 1] = acc[b][t][3];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PER_T; ++i) {
+      const int r = (tid + i * TS_THREADS) / BOX, c = (tid + i * TS_THREADS) % BOX;
+      v[b][i] = red[0][r][c] + red[1][r][c] + red[2][r][c] + red[3][r][c];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < PER_T; ++i) {
+    const int r = (tid + i * TS_THREADS) / BOX, gn = j * BOX + (tid + i * TS_THREADS) % BOX;
+    if (splits == 1) {
+      p.store(g, e, count, r, gn, j, v[0][i], v[NB - 1][i]);
+    } else if (r < count && gn < p.N) {
+      const long long at = (static_cast<long long>(g) * p.C + r) * p.N + gn;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) ws[(static_cast<long long>(sp) * NB + b) * total + at] = v[b][i];
+    }
+  }
+}
+
+// The split partials of grouped_stream added in split order, then the
+// epilogue; rows at or past the count are stored as 0 without reading the
+// workspace (their blocks never wrote it).
+template <int NB>
+__global__ void grouped_reduce(const float* ws, int splits, long long total, Grouped p) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = i / p.N;
+    const int gn = static_cast<int>(i % p.N), g = static_cast<int>(row / p.C);
+    const int r = static_cast<int>(row % p.C), count = p.live_rows(g);
+    float v[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) v[b] = 0.0f;
+    if (r < count) {
+      for (int sp = 0; sp < splits; ++sp)
+#pragma unroll
+        for (int b = 0; b < NB; ++b) v[b] += ws[(static_cast<long long>(sp) * NB + b) * total + i];
+    }
+    p.store(g, g / p.S, count, r, gn, gn / p.bn, v[0], v[NB - 1]);
+  }
+}
+
+// C > 16: persistent blocks over tiles (segment g, column tile tn, m-tile
+// tm), m-tiles fastest so that the m-tiles of one column tile run together
+// on B's boxes in L2. A tile is GW_BOXES A boxes of 64 rows (256 rows:
+// mixtral's 160-row prefill segments take one tile, so each B box is read
+// once a segment) by two B boxes: B tiles 2tn and 2tn + 1 (128 columns),
+// or for the pair B and B2 tile tn (64 columns, two accumulator sets).
+// Consumer warpgroup wg multiplies A boxes 2wg and 2wg + 1. A box whose 64
+// rows all lie at or past the count is neither loaded nor multiplied; a
+// warpgroup with no live box only keeps the ring in step, and a tile with
+// no live row loads nothing.
+constexpr int GW_BOXES = 4;
+constexpr int GW_STAGE_BYTES = (GW_BOXES + 2) * WG_BOX_BYTES;
+constexpr int GW_SMEM = WG_STAGES * GW_STAGE_BYTES + 1024;
+
+// One 64-deep stage of a consumer warpgroup: its NA A boxes (from `a`,
+// 64 rows each) against the two B boxes (from `b`), m64n64k16 wgmma.
+template <typename T, bool B_MN, int NA>
+__device__ __forceinline__ void wgmma_boxes(float (&acc)[2][2][32], const uint8_t* a,
+                                            const uint8_t* b) {
+#pragma unroll
+  for (int ks = 0; ks < BOX / 16; ++ks) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const uint64_t da = sw128_desc(a + i * WG_BOX_BYTES + kstep_bytes(false, ks));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint64_t db = sw128_desc(b + h * WG_BOX_BYTES + kstep_bytes(B_MN, ks));
+        wgmma_m64n64k16<T, 0, B_MN ? 1 : 0>(acc[i][h], da, db);
+      }
+    }
+  }
+}
+
+template <typename T, bool B_MN, int NB>
+__global__ void __launch_bounds__(WG_THREADS)
+grouped_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+              const __grid_constant__ CUtensorMap tb2, Grouped p, AMap am, int tiles_m,
+              int tiles_n, int tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[WG_STAGES], empty[WG_STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int steps = ring_steps(p.Kb, p.bk), nbox = p.bk / BOX;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tile -> (g, tm, tn); returns the live A boxes of the tile (0-4).
+  auto live_boxes = [&](int tile, int& g, int& tm, int& tn) {
+    tm = tile % tiles_m;
+    tn = (tile / tiles_m) % tiles_n;
+    g = tile / tiles_m / tiles_n;
+    const int rest = p.live_rows(g) - tm * GW_BOXES * BOX;
+    return rest <= 0 ? 0 : min(GW_BOXES, (rest + BOX - 1) / BOX);
+  };
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int g, tm, tn;
+        const int live = live_boxes(tile, g, tm, tn);
+        const int e = g / p.S, s = g % p.S;
+        for (int st = 0; st < (live ? steps : 0); ++st) {
+          const int kk = st / nbox, kbox = st - kk * nbox;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], (live + 2) * WG_BOX_BYTES);
+          uint8_t* base = smem + stage * GW_STAGE_BYTES;
+          for (int i = 0; i < live; ++i) {
+            tma_load_a(base + i * WG_BOX_BYTES, &ta, &full[stage], am, kk * p.bk + kbox * BOX,
+                       (tm * GW_BOXES + i) * BOX, s, e);
+          }
+          for (int h = 0; h < 2; ++h) {
+            int c0, c1;
+            const int jt = NB == 2 ? tn : 2 * tn + h;
+            box_of(B_MN, (e * p.Nb + jt) * p.Kb + kk, kbox, BOX, p.bk, c0, c1);
+            tma_load(base + (GW_BOXES + h) * WG_BOX_BYTES, stream_map(tb, tb2, NB == 2 ? h : 0),
+                     &full[stage], c0, c1);
+          }
+          if (++stage == WG_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: A boxes 2wg, 2wg + 1 against both B boxes
+    const int wg = warp / 4, wl = warp % 4;
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int g, tm, tn;
+      const int live = live_boxes(tile, g, tm, tn);
+      const int mine = max(0, min(2, live - 2 * wg));  // live boxes of this warpgroup
+      float acc[2][2][32];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 32; ++x) acc[i][h][x] = 0.0f;
+      // One wgmma group stays in flight: a stage is released once the
+      // group after it has been issued and its own group has completed. A
+      // warpgroup with no live box releases each stage as it arrives.
+      int held = -1;
+      for (int st = 0; st < (live ? steps : 0); ++st) {
+        mbar_wait(&full[stage], phase);
+        if (mine > 0) {
+          const uint8_t* base = smem + stage * GW_STAGE_BYTES;
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          wgmma_fence();
+          if (mine == 2) {
+            wgmma_boxes<T, B_MN, 2>(acc, base + 2 * wg * WG_BOX_BYTES,
+                                    base + GW_BOXES * WG_BOX_BYTES);
+          } else {
+            wgmma_boxes<T, B_MN, 1>(acc, base + 2 * wg * WG_BOX_BYTES,
+                                    base + GW_BOXES * WG_BOX_BYTES);
+          }
+          wgmma_commit();
+          wgmma_wait1();
+          fence_acc(acc[0]);
+          fence_acc(acc[1]);
+          if (held >= 0 && tid % 128 == 0) mbar_arrive(&empty[held]);
+          held = stage;
+        } else if (tid % 128 == 0) {
+          mbar_arrive(&empty[stage]);
+        }
+        if (++stage == WG_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (mine > 0) {
+        wgmma_wait0();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        if (held >= 0 && tid % 128 == 0) mbar_arrive(&empty[held]);
+      }
+      // Accumulator fragments: n8 block x / 4, rows wl*16 + lane/4 (+8 for
+      // the odd pair), columns 2*(lane%4) (+1). Rows at or past the count
+      // store 0 (a dead box's zero accumulators included).
+      const int e = g / p.S, count = p.live_rows(g);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r0 = (tm * GW_BOXES + 2 * wg + i) * BOX + wl * 16 + lane / 4;
+#pragma unroll
+        for (int h = 0; h < 3 - NB; ++h)
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int r = r0 + ((x % 4) / 2) * 8, c = (x / 4) * 8 + (lane % 4) * 2 + (x % 2);
+            if (NB == 2) {
+              p.store(g, e, count, r, tn * BOX + c, tn, acc[i][0][x], acc[i][1][x]);
+            } else {
+              p.store(g, e, count, r, (2 * tn + h) * BOX + c, 2 * tn + h, acc[i][h][x], 0.0f);
+            }
+          }
+      }
+    }
+  }
+}
+
+template <typename T, bool B_MN, int NB>
+int launch_grouped_tma(int body, const CUtensorMap& ta, const CUtensorMap& tb,
+                       const CUtensorMap& tb2, const Grouped& p, const AMap& am, int G,
+                       int splits, int kt_chunk, float* ws, cudaStream_t s) {
+  if (body == G_WGMMA) {
+    static bool raised = false;
+    if (!raised) {
+      cudaFuncSetAttribute(grouped_wgmma<T, B_MN, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           GW_SMEM);
+      raised = true;
+    }
+    const int cols = NB == 2 ? BOX : 2 * BOX;  // output columns a tile
+    const int tiles_m = (p.C + GW_BOXES * BOX - 1) / (GW_BOXES * BOX);
+    const int tiles_n = (p.N + cols - 1) / cols;
+    const long long tiles = static_cast<long long>(G) * tiles_m * tiles_n;
+    if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    grouped_wgmma<T, B_MN, NB><<<grid_for(tiles, sm_count()), WG_THREADS, GW_SMEM, s>>>(
+        ta, tb, tb2, p, am, tiles_m, tiles_n, static_cast<int>(tiles));
+    return static_cast<int>(cudaGetLastError());
+  }
+  static bool raised = false;
+  if (!raised) {
+    cudaFuncSetAttribute(grouped_stream<T, B_MN, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         StreamRing<NB>::SMEM);
+    raised = true;
+  }
+  const long long blocks = static_cast<long long>(G) * splits * p.Nb;
+  const long long total = static_cast<long long>(G) * p.C * p.N;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  grouped_stream<T, B_MN, NB><<<static_cast<int>(blocks), TS_THREADS, StreamRing<NB>::SMEM,
+                                s>>>(ta, tb, tb2, p, am, splits, kt_chunk, ws, total);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || splits == 1) return err;
+  const long long rblocks = (total + 255) / 256;
+  grouped_reduce<NB><<<static_cast<int>(rblocks < 4096 ? rblocks : 4096), 256, 0, s>>>(
+      ws, splits, total, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_tma_typed(int body, int b_col, int nb_streams, const CUtensorMap& ta,
+                     const CUtensorMap& tb, const CUtensorMap& tb2, const Grouped& p,
+                     const AMap& am, int G, int splits, int kt_chunk, float* ws, cudaStream_t s) {
+  // "row" tiles [bk][bn] are MN-major, "col" tiles [bn][bk] K-major.
+  if (b_col) {
+    return nb_streams == 2
+        ? launch_grouped_tma<T, false, 2>(body, ta, tb, tb2, p, am, G, splits, kt_chunk, ws, s)
+        : launch_grouped_tma<T, false, 1>(body, ta, tb, tb2, p, am, G, splits, kt_chunk, ws, s);
+  }
+  return nb_streams == 2
+      ? launch_grouped_tma<T, true, 2>(body, ta, tb, tb2, p, am, G, splits, kt_chunk, ws, s)
+      : launch_grouped_tma<T, true, 1>(body, ta, tb, tb2, p, am, G, splits, kt_chunk, ws, s);
+}
+
+// tc_stream (C <= 16) and wgmma: cudaErrorInvalidValue for what they do
+// not take (the wrapper's grouped_body routes everything else elsewhere).
+int launch_tma(int body, const Grouped& p, int E, int a_dt, int int_acc, int splits,
+               int kt_chunk, void* ws, cudaStream_t s) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool float_pair = p.scale_mode == 0 && !int_acc && p.b_dt == a_dt &&
+                          (a_dt == DT_BF16 || a_dt == DT_F16);
+  if (!float_pair || p.bn != BOX || p.bk % BOX != 0 || !aligned16(p.A) || !aligned16(p.B) ||
+      (p.B2 != nullptr && !aligned16(p.B2)) || p.lda % 8 != 0 || p.sa_s % 8 != 0 ||
+      p.sa_e % 8 != 0 || p.lda < p.K || p.sa_s <= 0 || p.sa_e <= 0 ||
+      (body == G_TC_STREAM && (p.C > 16 || !valid_tile_split(p.Kb, splits, kt_chunk, ws)))) {
+    return invalid;
+  }
+  CUtensorMap ta, tb, tb2;
+  AMap am;
+  const int G = E * p.S;
+  if (!make_grouped_a_map(&ta, &am, p.A, a_dt, E, p.S, p.C, p.K, p.sa_e, p.sa_s, p.lda,
+                          body == G_WGMMA ? BOX : 16) ||
+      !make_packed_b_map(&tb, p.B, a_dt, p.col_layout, E * p.Nb, p.Kb, p.bk, p.bn) ||
+      !make_packed_b_map(&tb2, p.B2 != nullptr ? p.B2 : p.B, a_dt, p.col_layout, E * p.Nb, p.Kb,
+                         p.bk, p.bn)) {
+    return invalid;
+  }
+  float* wsf = static_cast<float*>(ws);
+  const int nb_streams = p.B2 != nullptr ? 2 : 1;
+  return a_dt == DT_BF16
+      ? launch_tma_typed<__nv_bfloat16>(body, p.col_layout, nb_streams, ta, tb, tb2, p, am, G,
+                                        splits, kt_chunk, wsf, s)
+      : launch_tma_typed<__half>(body, p.col_layout, nb_streams, ta, tb, tb2, p, am, G, splits,
+                                 kt_chunk, wsf, s);
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). A is [E, S, C, K] with element
 // strides sa_e, sa_s, lda and unit column stride; counts is [E * S] int32
 // or null (K3: every row live); b2 / scales2 the silu-gate partner (or
-// null). `variant` picks the kernel (0 fma, 1 mma decode, 2 mma prefill;
-// the caller checks eligibility, see gemm_grouped.py); BM / BN / KC are the
-// fma kernel's block shape. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a geometry the kernel does not take. `stream`
-// is the caller's cudaStream_t.
+// null). `variant` picks the body (0 fma, 1 / 2 mma_sync decode / prefill,
+// 3 wgmma, 4 tc_stream; the caller checks eligibility, see gemm_grouped.py
+// grouped_body); BM / BN / KC are the fma body's block shape; tc_stream
+// cuts Kb into `splits` chunks of `kchunk` packed k-tiles, its partials in
+// `ws` (f32 [splits, streams, E*S*C, N]) when splits > 1. Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for what
+// the body does not take. `stream` is the caller's cudaStream_t.
 extern "C" int gemm_grouped_packed_launch(
     const void* a, int a_dt, long long sa_e, long long sa_s, long long lda,
     int E, int S, int C, int K, const void* counts,
     const void* b, const void* b2, int b_dt, int col_layout, int Nb, int Kb, int bk, int bn,
     const void* scales, const void* scales2, int scale_mode, const void* bias,
     void* out, int out_dt, int N, int act, int BM, int BN, int KC, int int_acc,
-    int variant, void* stream) {
+    int variant, int splits, int kchunk, void* ws, void* stream) {
   if (E <= 0 || S <= 0 || C <= 0 || N <= 0 || Nb <= 0 || Kb <= 0 || bk % 16 || bn % 16 ||
       static_cast<long long>(E) * S > 65535 ||
       (scale_mode != 0 && (scales == nullptr || (b2 != nullptr && scales2 == nullptr)))) {
@@ -493,6 +966,9 @@ extern "C" int gemm_grouped_packed_launch(
                   static_cast<const float*>(scales2), scale_mode,
                   static_cast<const float*>(bias), act, out, out_dt, N};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (b2 != nullptr) ? launch<2>(p, E, a_dt, BM, BN, KC, int_acc, variant, s)
-                         : launch<1>(p, E, a_dt, BM, BN, KC, int_acc, variant, s);
+  if (variant == G_WGMMA || variant == G_TC_STREAM) {
+    return launch_tma(variant, p, E, a_dt, int_acc, splits, kchunk, ws, s);
+  }
+  return (b2 != nullptr) ? launch_blocks<2>(p, E, a_dt, BM, BN, KC, int_acc, variant, s)
+                         : launch_blocks<1>(p, E, a_dt, BM, BN, KC, int_acc, variant, s);
 }

@@ -341,8 +341,6 @@ enum FusedBody {
   F_FMA = 6
 };
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // tc_stream (M <= 16) and wgmma: natural A and the packed B stack through
 // 2-D tensor maps; cudaErrorInvalidValue for what they do not take.
 template <typename T>

@@ -2,6 +2,8 @@
 // shared by gemm_packed.cu (K6: A packed too) and gemm_packed_fused_a.cu
 // (K1: A in its natural layout): boxes brought to shared memory by TMA,
 // read by wgmma (more than 16 rows) or by ldmatrix + mma.sync (decode).
+// gemm_grouped_packed.cu (K2 / K3) builds its grouped bodies from the same
+// tensor maps, ring primitives and wgmma wrappers.
 //
 // A packed stack is one 2-D row-major tensor: "row" A [Mb*Kb*bm, bk] (tile
 // (i, kk) is rows (i*Kb + kk)*bm onward), "col" A [Mb*Kb*bk, bm], "row" B
@@ -75,6 +77,9 @@ bool make_tensor_map(CUtensorMap* map, const void* p, int dt, long long rows, lo
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// TMA takes 16-byte aligned global addresses.
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

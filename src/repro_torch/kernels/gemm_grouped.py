@@ -14,7 +14,9 @@ Both take ``epilogue="silu_gate"`` with a partner stack ``b2_packed``: the
 MoE gate/up pair ``silu(A @ Bg) * (A @ Bu)`` with two accumulators over one
 read of A. The plain torch versions sit beside them
 (:func:`gemm_grouped_packed_ragged_plain`, :func:`gemm_grouped_packed_plain`),
-built on the grouped oracles of ``kernels.ref``.
+built on the grouped oracles of ``kernels.ref``. :func:`grouped_body`
+picks the kernel's body per call, and each wrapper's ``.variants`` counts
+its launches by body.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback.
@@ -34,8 +36,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import (EPILOGUE_CODES, acc_dtype_for, cdiv,
                                         kernel_epilogue_name)
 from repro_torch.kernels.gemm_packed import (_A_DTYPES, _B_DTYPES, _BM_CHOICES,
-                                             _DT, _OUT_DTYPES, _pick_bn,
-                                             pick_variant)
+                                             _DT, _OUT_DTYPES, FMA, TC_BOX,
+                                             _pick_bn, pick_variant,
+                                             tc_stream_split)
 from repro_torch.kernels.ref import grouped_fused_acc_ref, ragged_row_mask
 
 MAX_SEGMENTS = 65535  # the kernel's segment grid axis (gridDim.z)
@@ -49,8 +52,15 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,      # scales, scales2, mode, bias
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,            # out, dt, N, act
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,               # BM, BN, KC, int_acc
-    ctypes.c_int, ctypes.c_void_p,                                        # variant, stream
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,            # body, splits, kchunk, ws
+    ctypes.c_void_p,                                                      # stream
 ]
+
+# The bodies by name (the ``.variants`` keys): the TMA bodies (codes 4 and
+# 3 of the CUDA source), PR 12's mma.sync body (1 decode, 2 prefill tiles,
+# by pick_variant) and its scalar-FMA body (0).
+GROUPED_BODIES = ("tc_stream", "wgmma", "mma_sync", "fma")
+_BODY_CODE = {"fma": 0, "wgmma": 3, "tc_stream": 4}
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,11 +138,60 @@ def _check_scales(scales, fmt, e, nb, kb, name):
                          f"{tuple(scales.shape)} {scales.dtype}")
 
 
+def a_strides(a: torch.Tensor) -> tuple:
+    """A's element strides (sa_e, sa_s, lda) as the kernel takes them. A dim
+    of extent 1 is never stepped, so its stride is replaced by the span of
+    the dims inside it (K rounded up to 8 for the rows): torch leaves such
+    strides free, and the TMA bodies need each one a multiple of 16 bytes."""
+    e, s, c, k = a.shape
+    lda = a.stride(2) if c > 1 else cdiv(k, 8) * 8
+    sa_s = a.stride(1) if s > 1 else lda * c
+    sa_e = a.stride(0) if e > 1 else sa_s * s
+    return sa_e, sa_s, lda
+
+
+def grouped_tma_aligned(a: torch.Tensor, b_packed: torch.Tensor,
+                        b2_packed: Optional[torch.Tensor] = None) -> bool:
+    """Whether A [E, S, C, K] and the packed stacks can be read through TMA
+    tensor maps: 16-byte aligned bases, each of A's strides (:func:`a_strides`)
+    a positive multiple of 16 bytes, and rows that do not overlap (lda >= K).
+    The strides may come in any order (a permuted A)."""
+    item, strides = a.element_size(), a_strides(a)
+    bases = [a, b_packed] + ([b2_packed] if b2_packed is not None else [])
+    return (all(t.data_ptr() % 16 == 0 for t in bases)
+            and all(st > 0 and (st * item) % 16 == 0 for st in strides)
+            and strides[2] >= a.shape[3])
+
+
+def grouped_body(a_dtype: torch.dtype, fmt: TileFormat, c: int, *,
+                 scaled: bool, tma_ok: bool) -> str:
+    """K2 / K3's body for A of ``a_dtype`` in segments of ``c`` rows (the
+    envelope C; the counts stay on the device) against packed tiles of
+    ``fmt`` (``scaled``: the tiles carry scales; ``tma_ok``: what
+    :func:`grouped_tma_aligned` says of the operands):
+
+    * bf16 / f16 A against unscaled tiles of the same type with bn 64 and
+      bk a multiple of 64, on aligned operands: ``tc_stream`` up to 16
+      rows, ``wgmma`` above;
+    * every other pair keeps PR 12's bodies as :func:`pick_variant` picks
+      them: ``mma_sync`` (bf16 / f16 A against float tiles of other
+      geometries or alignments, or int8 / int4 tiles) and ``fma`` (f32 A,
+      int8 A with i32 accumulators, mixed float types).
+    """
+    a_dt = dtype_name(a_dtype)
+    if (a_dt in ("bfloat16", "float16") and not scaled and fmt.dtype == a_dt
+            and tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0):
+        return "tc_stream" if c <= 16 else "wgmma"
+    return "fma" if pick_variant(a_dtype, fmt, c) == FMA else "mma_sync"
+
+
 def launch_args(a, b_packed, n, counts, *, b2_packed, bm, b_scales,
                 b2_scales, out, epilogue, bias, fmt, stream) -> tuple:
     """Check the operands against what the kernel takes and build the C
     entry point's argument tuple (raises ``ValueError`` on anything else).
-    ``a`` is [E, S, C, K]; ``counts`` [E, S] int32 or None (every row)."""
+    ``a`` is [E, S, C, K]; ``counts`` [E, S] int32 or None (every row).
+    Returns ``(args, keep, body)``: ``keep`` holds the converted bias and
+    tc_stream's split-K workspace, which must outlive the launch."""
     if a.dim() != 4:
         raise ValueError(f"A must be [E, S, C, K]; got {tuple(a.shape)}")
     e, s, c, k = a.shape
@@ -173,6 +232,9 @@ def launch_args(a, b_packed, n, counts, *, b2_packed, bm, b_scales,
         raise ValueError("int8 A takes unscaled int8/int4 B only")
     if dtype_name(out.dtype) not in _OUT_DTYPES:
         raise ValueError(f"kernel stores {_OUT_DTYPES}; got {out.dtype}")
+    if not out.is_contiguous() or tuple(out.shape) != (e, s, c, n):
+        raise ValueError(f"out must be a contiguous [{e}, {s}, {c}, {n}]; got "
+                         f"{tuple(out.shape)}")
     scale_mode = 0
     if b_scales is not None:
         scale_mode = 2 if fmt.col_scaled else 1
@@ -184,7 +246,7 @@ def launch_args(a, b_packed, n, counts, *, b2_packed, bm, b_scales,
                 or not counts.is_contiguous()):
             raise ValueError(f"counts must be contiguous int32 [E, S]={e, s}; "
                              f"got {tuple(counts.shape)} {counts.dtype}")
-    for t in (b_packed, b2_packed, b_scales, b2_scales, bias, counts):
+    for t in (b_packed, b2_packed, b_scales, b2_scales, bias, counts, out):
         if t is not None and t.device != a.device:
             raise ValueError(f"operands on {t.device} and {a.device}")
     if bias is not None:
@@ -192,45 +254,60 @@ def launch_args(a, b_packed, n, counts, *, b2_packed, bm, b_scales,
             raise ValueError(f"bias must be [{e}, {n}]; got {tuple(bias.shape)}")
         bias = (bias.to(torch.int32) if int_acc else bias).to(torch.float32)
         bias = bias.contiguous()
+    body = grouped_body(a.dtype, fmt, c, scaled=b_scales is not None,
+                        tma_ok=grouped_tma_aligned(a, b_packed, b2_packed))
+    ws, splits, chunk = None, 1, 0
+    if body == "tc_stream":
+        # The split depends on shapes only: the counts stay on the device.
+        splits, chunk = tc_stream_split(kb, e * s * nb)
+        if splits > 1:
+            ws = torch.empty((splits, 2 if has_gate else 1, e * s * c, n),
+                             dtype=torch.float32, device=a.device)
+    code = (pick_variant(a.dtype, fmt, c) if body == "mma_sync"
+            else _BODY_CODE[body])
     bn_chunk = _pick_bn(fmt.bn, e * s * cdiv(c, bm))
     kc = 32 if fmt.bk % 32 == 0 else 16
-    # K1's rule on a segment's envelope C (the counts stay on the device):
-    # 16-row decode blocks up to 16 rows, 32-row prefill blocks above.
-    variant = pick_variant(a.dtype, fmt, c)
     act = EPILOGUE_CODES["silu" if has_gate else kernel_epilogue_name(epilogue)]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    args = (a.data_ptr(), _DT[a_dt], a.stride(0), a.stride(1), a.stride(2),
-            e, s, c, k, ptr(counts),
+    args = (a.data_ptr(), _DT[a_dt], *a_strides(a), e, s, c, k, ptr(counts),
             b_packed.data_ptr(), ptr(b2_packed), _DT[b_dt],
             int(fmt.layout == "col"), nb, kb, fmt.bk, fmt.bn,
             ptr(b_scales), ptr(b2_scales if has_gate else None), scale_mode,
             ptr(bias), out.data_ptr(), _DT[dtype_name(out.dtype)], n, act,
-            bm, bn_chunk, kc, int(int_acc), variant, stream)
-    return args, bias  # the converted bias must outlive the launch call
+            bm, bn_chunk, kc, int(int_acc), code, splits, chunk, ptr(ws),
+            stream)
+    return args, (bias, ws), body
 
 
-def _launch(name, a4, b_packed, n, counts, *, b2_packed, bm, b_scales,
-            b2_scales, out_dtype, epilogue, bias, fmt) -> torch.Tensor:
-    """Allocate [E, S, C, n] and launch the kernel on it (CUDA tensors)."""
-    if a4.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu; got {a4.device}")
+def _launch(fn, a4, b_packed, n, counts, *, out_dtype, stream,
+            **kw) -> torch.Tensor:
+    """Allocate [E, S, C, n], launch the kernel on it on ``stream`` and
+    count the launch on the wrapper ``fn`` by body. The output is
+    ``torch.empty``: the kernel stores every element, zeros included."""
     e, s, c, _ = a4.shape
     out = torch.empty((e, s, c, n), dtype=out_dtype, device=a4.device)
+    args, keep, body = launch_args(a4, b_packed, n, counts, out=out,
+                                   stream=stream, **kw)
+    rc = _kernel()(*args)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed ({body}): CUDA "
+                           f"error {rc}")
+    fn.launches += 1
+    fn.variants[body] += 1
+    return out
+
+
+def _on_card(fn, a4, b_packed, n, counts, **kw) -> torch.Tensor:
+    """The CUDA path of a wrapper: the kernel on ``a4``'s card and stream."""
+    if a4.device.type != "cuda":
+        raise ValueError(f"{fn.__name__} runs on cuda or cpu; got {a4.device}")
     with torch.cuda.device(a4.device):
         stream = torch.cuda.current_stream(a4.device).cuda_stream
-        args, keep = launch_args(a4, b_packed, n, counts, b2_packed=b2_packed,
-                                 bm=bm, b_scales=b_scales,
-                                 b2_scales=b2_scales, out=out,
-                                 epilogue=epilogue, bias=bias, fmt=fmt,
-                                 stream=stream)
-        rc = _kernel()(*args)
-        del keep
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    return out
+        return _launch(fn, a4, b_packed, n, counts, stream=stream, **kw)
 
 
 def gemm_grouped_packed_ragged(a: torch.Tensor, b_packed: torch.Tensor, n: int,
@@ -251,7 +328,8 @@ def gemm_grouped_packed_ragged(a: torch.Tensor, b_packed: torch.Tensor, n: int,
     or [E, Nb] per column; ``bias`` [E, n]; ``epilogue`` a kernel epilogue
     name, or ``"silu_gate"`` with ``b2_packed`` (and ``b2_scales``). On the
     CPU this is :func:`gemm_grouped_packed_ragged_plain`; on the card it
-    launches the CUDA kernel (``bm`` is the scalar-FMA kernel's m-block).
+    launches the CUDA kernel on the body :func:`grouped_body` picks (``bm``
+    is the fma body's m-block; the other bodies choose their own tiles).
     """
     kw = dict(b2_packed=b2_packed, bm=bm, b_scales=b_scales,
               b2_scales=b2_scales, epilogue=epilogue, bias=bias)
@@ -261,10 +339,8 @@ def gemm_grouped_packed_ragged(a: torch.Tensor, b_packed: torch.Tensor, n: int,
             b_format=b_format, **kw)
     fmt, _ = _resolve(b_packed, layout_b, b_scales, b2_packed, b2_scales,
                       epilogue, b_format)
-    out = _launch("gemm_grouped_packed_ragged", a, b_packed, n, counts,
-                  out_dtype=out_dtype or a.dtype, fmt=fmt, **kw)
-    gemm_grouped_packed_ragged.launches += 1
-    return out
+    return _on_card(gemm_grouped_packed_ragged, a, b_packed, n, counts,
+                    out_dtype=out_dtype or a.dtype, fmt=fmt, **kw)
 
 
 def gemm_grouped_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int, *,
@@ -278,7 +354,8 @@ def gemm_grouped_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int, *,
     """K3: ``out[e] = epi(A[e] @ deq(B[e]) + bias[e])`` for A [E, M, K],
     every row live; operands as in :func:`gemm_grouped_packed_ragged`. On
     the CPU this is :func:`gemm_grouped_packed_plain`; on the card the
-    grouped kernel with no counts."""
+    grouped kernel with no counts, on the body :func:`grouped_body` picks
+    for C = M."""
     kw = dict(b2_packed=b2_packed, bm=bm, b_scales=b_scales,
               b2_scales=b2_scales, epilogue=epilogue, bias=bias)
     if a.device.type == "cpu":
@@ -287,11 +364,10 @@ def gemm_grouped_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int, *,
             b_format=b_format, **kw)
     fmt, _ = _resolve(b_packed, layout_b, b_scales, b2_packed, b2_scales,
                       epilogue, b_format)
-    out = _launch("gemm_grouped_packed", a[:, None], b_packed, n, None,
-                  out_dtype=out_dtype or a.dtype, fmt=fmt, **kw)
-    gemm_grouped_packed.launches += 1
-    return out[:, 0]
+    return _on_card(gemm_grouped_packed, a[:, None], b_packed, n, None,
+                    out_dtype=out_dtype or a.dtype, fmt=fmt, **kw)[:, 0]
 
 
-gemm_grouped_packed_ragged.launches = 0
-gemm_grouped_packed.launches = 0
+for _fn in (gemm_grouped_packed_ragged, gemm_grouped_packed):
+    _fn.launches = 0
+    _fn.variants = dict.fromkeys(GROUPED_BODIES, 0)
