@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K2, K4, K6, K8
+    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K2, K4, K6-K8
     python3 chip_smoke.py --served-attention OTHER/layers.py   # served attention, A/B
 
 Phases (any failure exits non-zero and prints no result line):
@@ -10,8 +10,9 @@ Phases (any failure exits non-zero and prints no result line):
      library issues no tensor-core instruction, K6's holds HGMMA (wgmma),
      and K1's CUDA-core functions issue none while its wgmma functions
      issue HGMMA (per function: one library holds both), K2 / K3's
-     grouped_wgmma HGMMA, grouped_stream HMMA and grouped_fma none, and hold each
-     kernel against its plain torch version on the card:
+     grouped_wgmma HGMMA, grouped_stream HMMA and grouped_fma none, K7's
+     wgmma_packed HGMMA, mma_stream HMMA and CUDA-core bodies none, and
+     hold each kernel against its plain torch version on the card:
      - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16 (M=4 on
        tc_stream, M=512 on wgmma, timed with CUDA events and by
        torch.profiler's kernel time beside torch.matmul's), plus f32, int8
@@ -44,10 +45,16 @@ Phases (any failure exits non-zero and prints no result line):
        again at their bodies' edges (M 1 ... 512, N and K off every block,
        K = 8192 at decode so that K splits, A offset by 5 elements, B as
        table.t(), the planner's packed tiles in every layout pair and tiles
-       it does not emit), with their launches counted by body; at
-       olmo-1b's shapes K6 must take V_TC_STREAM (M=4) / V_WGMMA (M=512)
-       and K8 fma_stream / fma_tiled; K8 timed beside torch.matmul in bf16
-       and in f32 with TF32 off (CUDA cores);
+       it does not emit), with their launches counted by body; K7 at its
+       TMA bodies' edges (k7_checks: A and B as views whose columns past K
+       / N hold NaN, B row-major and as table.t(), M 1 ... 512, K 700 /
+       2048 / 8192, N 200 / 8192 / 50304, every epilogue split and not,
+       f16, one block, a misaligned A on mma_general, f32 / int8 on the
+       CUDA-core bodies), each call held to the body tiled_body names; at
+       olmo-1b's shapes K7 and K6 must take tc_stream (M=4) / wgmma
+       (M=512) and K8 fma_stream / fma_tiled; K8 timed beside torch.matmul
+       in bf16 and in f32 with TF32 off (CUDA cores); K7 at bf16 4096 as
+       tiling (wgmma) and intrinsic (one block) beside torch.matmul;
      - flash_attention (K4) in f32, bf16 and f16 at the reference test's
        cases, Sq > Skv (rows that see no key exactly 0), a window without
        causal, D = 128 and 256, GQA decode, strided q / k / v views;
@@ -72,15 +79,16 @@ Phases (any failure exits non-zero and prints no result line):
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
      and ``auto`` (naive and pluto up to 512, intrinsic up to 2048), each
-     output against the f32 product (from 256 up, tiling_packing must take
-     K6's V_WGMMA in bf16, tiling_packing_fused K1's wgmma, vsx K8's
-     fma_tiled; at f32 K1 runs on fma_tiled / fma_stream at every size);
+     output against the f32 product (from 256 up, tiling must take K7's
+     wgmma in bf16, tiling_packing K6's V_WGMMA, tiling_packing_fused K1's
+     wgmma, vsx K8's fma_tiled; at f32 K1 runs on fma_tiled / fma_stream
+     at every size; intrinsic takes K7's tc_stream / wgmma as one block);
      then the grouped lowerings on raw
      expert stacks (a bf16 silu-gate pair, E=8, with and without counts).
   5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
      default ``Engine(model, params)``: prefill logits against phase 2's,
      and the lowering of every contraction recorded (K1 at prefill on
-     wgmma only).
+     wgmma only, every K7 launch on tc_stream).
   6. Long-context attention through ``repro_torch.kernels.ops.attention``
      (K4) in bf16 at full head width, lengths from ``configs.shapes``:
      olmo-1b (16 heads x 128) at its served prefill and decode (A1, A2),
@@ -103,8 +111,10 @@ k-step short, of K1 with A's tensor map lda wide instead of K and with
 the last split dropped from tc_stream's reduction, and of K2 with a dead
 segment that stores nothing, the row at the count kept, the pair's up
 stream read from B's map and the last split dropped from grouped_reduce,
-which phase 1's K6 / K8, K1 and K2 / K3 edge checks must fail while
-passing the kernels as built.
+and of K7 with B's maps as wide as their row strides, the k-box count
+floored and the last split dropped from tc_stream's reduction, which
+phase 1's K6 / K8, K1, K2 / K3 and K7 edge checks must fail while passing
+the kernels as built.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -965,6 +975,137 @@ def k6_k8_checks(torch, ks, quiet=False) -> tuple:
     return fails, seen
 
 
+# K7 edge shapes: rows on both sides of 16 (tc_stream / wgmma) and of a
+# 64 / 128-row tile, K with a part-padding last box (700) and K = 8192 at
+# decode (split K), N with a ragged last stripe (200).
+K7_EDGE_M = (1, 4, 16, 17, 64, 512)
+K7_EDGE_K = (700, 2048, 8192)
+
+
+def k7_body(m):
+    """K7's body for bf16 / f16 operands that TMA can read."""
+    return "tc_stream" if m <= 16 else "wgmma"
+
+
+def k7_checks(torch, ks, quiet=False) -> tuple:
+    """K7 against its plain version at its TMA bodies' edges, each call also
+    held to the body it must take, which must be the one ``tiled_body``
+    names: A as a view whose columns past K hold NaN (A's map must be K
+    wide); B row-major as a column slice whose columns past N hold NaN, and
+    B as ``table.t()`` of an [N, K] slice whose columns past K hold NaN
+    (the transposed view's map must be K wide); M 1 ... 512, K 700 / 2048 /
+    8192 at N = 200; N 8192 and the LM head's 50304 at M 4 and 512; every
+    epilogue with c, alpha, beta and bias at M=4 split (N = 2048) and
+    unsplit (N = 17000) and at M=512; an A offset by 5 elements on
+    mma_general; f16; a bf16 product stored as f32; one block
+    (``single_block``) at M 4 and 512; f32 / int8 on the CUDA-core bodies.
+    Before each call a freed NaN buffer of the output's size lies where
+    the output is allocated, so an element the kernel does not store
+    shows. bf16 / f16 output 2e-2 / 1e-3 (f32 sums in other orders, one
+    rounding), f32 output 1e-4, int8 exact. Returns (failed tags, launches
+    by body over the checks)."""
+    gt = ks["gt"]
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    fn = gt.gemm_tiled
+    fails, seen = [], dict.fromkeys(fn.variants, 0)
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * std
+
+    def padded(rows, cols, dtype=bf16, std=1.0):
+        """[rows, cols] view of a buffer whose columns past ``cols`` hold
+        NaN (row stride a multiple of 8)."""
+        buf = torch.full((rows, -(-cols // 8) * 8 + 8), math.nan, device=DEVICE)
+        buf[:, :cols] = randn(rows, cols, std=std)
+        return buf.to(dtype)[:, :cols]
+
+    def weights(k, n, dtype=bf16):
+        return {"row-major, NaN past N": padded(k, n, dtype, 0.05),
+                "table.t(), NaN past K": padded(n, k, dtype, 0.05).t()}
+
+    def check(tag, want, a, b, rtol=2e-2, atol=1e-3, **kw):
+        named = gt.tiled_body(a.dtype, a.shape[0], gt.tiled_tma_aligned(a, b))
+        out_dtype = kw.get("out_dtype") or (kw["c"].dtype if "c" in kw else a.dtype)
+        poison = torch.full((a.shape[0], b.shape[1]), math.nan if
+                            out_dtype.is_floating_point else -2 ** 31,
+                            device=DEVICE, dtype=out_dtype)
+        del poison
+        before = dict(fn.variants)
+        try:
+            got = fn(a, b, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            seen[v] += fn.variants[v] - before[v]
+        ok, err = close(got, gt.gemm_tiled_plain(a, b, **kw), rtol, atol)
+        ok = ok and ran == [want] == [named]
+        if not ok:
+            fails.append(tag)
+        if not ok or not quiet:
+            log(f"  check {tag} [{'+'.join(ran)}; want {want}, tiled_body "
+                f"{named}]: max_abs_err={err:.3e} (rtol={rtol}, atol={atol}) "
+                f"{'ok' if ok else 'FAIL'}")
+
+    n = EDGE_N
+    for k in K7_EDGE_K:
+        bs = weights(k, n)
+        for m in K7_EDGE_M:
+            a = padded(m, k)
+            for lay, b in bs.items():
+                check(f"K7 bf16 NaN-padded A M={m} K={k} N={n} B {lay}", k7_body(m),
+                      a, b)
+    for nn in (8192, 50304):
+        bs = weights(2048, nn)
+        for m in (4, 512):
+            a = padded(m, 2048)
+            for lay, b in bs.items():
+                check(f"K7 bf16 M={m} K=2048 N={nn} B {lay}", k7_body(m), a, b)
+        del bs
+    # Every epilogue once after the split sum (M=4, N=2048: K split in 11),
+    # unsplit (M=4, N=17000: 266 stripes) and on wgmma (M=512).
+    for m, k, nn in ((4, 2048, 2048), (4, 700, 17000), (512, 2048, 2048)):
+        bs = list(weights(k, nn).items())
+        a, c, bias = padded(m, k), randn(m, nn), randn(nn)
+        for i, epi in enumerate(EPIS):
+            lay, b = bs[i % 2]
+            check(f"K7 bf16 M={m} K={k} N={nn} B {lay} {epi}+bias, c, alpha, beta",
+                  k7_body(m), a, b, c=c, alpha=1.5, beta=0.5, bias=bias, epilogue=epi)
+    w = padded(300, n, std=0.05)
+    for m in (4, 37):
+        check(f"K7 bf16 A offset 5 (misaligned) M={m}", "mma_general",
+              randn(m, 320).to(bf16)[:, 5:305], w, epilogue="gelu")
+    for m in (4, 512):
+        for lay, b in weights(700, n, f16).items():
+            check(f"K7 f16 M={m} K=700 N={n} B {lay}", k7_body(m),
+                  padded(m, 700, f16), b)
+        for lay, b in weights(2048, n).items():
+            check(f"K7 bf16 -> f32 M={m} K=2048 N={n} B {lay}", k7_body(m),
+                  padded(m, 2048), b, 1e-4, 1e-4, out_dtype=f32)
+    # One block walks every item: 32 stripes at M=4, 8 tiles at M=512.
+    for m, k, nn in ((4, 2048, 2048), (512, 700, 200)):
+        for lay, b in weights(k, nn).items():
+            check(f"K7 bf16 one block M={m} K={k} N={nn} B {lay} c, alpha, beta",
+                  k7_body(m), padded(m, k), b, single_block=True, c=randn(m, nn),
+                  alpha=0.5, beta=2.0)
+    for m in (4, 512):
+        body = "fma_stream" if m <= 16 else "fma_tiled"
+        check(f"K7 f32 M={m} K=700 N={n} B table.t() silu", body,
+              padded(m, 700, f32), padded(n, 700, f32, 0.05).t(), 1e-4, 1e-4,
+              epilogue="silu")
+        ai = torch.randint(-100, 100, (m, 750), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        wi = torch.randint(-100, 100, (750, n), generator=gen, device=DEVICE,
+                           dtype=torch.int8)
+        check(f"K7 int8 M={m} K=750 N={n} -> int32 (exact)", body, ai, wi, 0.0,
+              0.0, out_dtype=torch.int32)
+    return fails, seen
+
+
 def phase_layered(torch, ks, tf):
     """K5 (pack), K6 (gemm_packed), K7 (gemm_tiled) and K8 (matmul_vsx_like
     and its packed variant) against their plain versions on the card, then
@@ -1128,6 +1269,9 @@ def phase_layered(torch, ks, tf):
     edge_fails, edge_seen = k6_k8_checks(torch, ks)
     log(f"  K6 / K8 edge checks, launches by body: {edge_seen}")
     fails += edge_fails
+    edge_fails, edge_seen = k7_checks(torch, ks)
+    log(f"  K7 edge checks, launches by body: {edge_seen}")
+    fails += edge_fails
     if fails:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{fails}")
@@ -1137,7 +1281,8 @@ def phase_layered(torch, ks, tf):
                           "matmul_vsx_like": 0.0,
                           "matmul_vsx_like_packed": 0.0}
     fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
-    tracked = (gp.gemm_packed, gv.matmul_vsx_like, gv.matmul_vsx_like_packed)
+    tracked = (gt.gemm_tiled, gp.gemm_packed, gv.matmul_vsx_like,
+               gv.matmul_vsx_like_packed)
     for (k, n) in OLMO_SHAPES:
         head = (k, n) == (2048, 50304)
         copies = max(1, min(16, math.ceil(128e6 / (k * n * 2))))
@@ -1181,11 +1326,11 @@ def phase_layered(torch, ks, tf):
                     f"matmul_vsx_like_packed bf16 M={m} K={k} N={n} -> f32",
                     gv.matmul_vsx_like_packed, gv.matmul_vsx_like_packed_plain,
                     (a, bps[0], n), dict(out_dtype=torch.float32), 1e-4, 1e-4))
-            # The new bodies must have run: V_TC_STREAM / V_WGMMA for K6,
+            # The new bodies must have run: tc_stream / wgmma for K7 and K6,
             # fma_stream / fma_tiled for K8.
             ran = {f.__name__: [v for v, c in f.variants.items()
                                 if c != before[f.__name__][v]] for f in tracked}
-            want = {"gemm_packed": ["tc_stream" if m <= 16 else "wgmma"],
+            want = {"gemm_tiled": [k7_body(m)], "gemm_packed": [k7_body(m)],
                     "matmul_vsx_like": ["fma_stream" if m <= 16 else "fma_tiled"]}
             want["matmul_vsx_like_packed"] = want["matmul_vsx_like"]
             verdict(f"bodies at M={m} K={k} N={n}", ran == want,
@@ -1237,6 +1382,7 @@ def phase_layered(torch, ks, tf):
                        f"{lib_f32_dev:.4f})" if vsx else "")
                     + f", bound {t_b:.4f} ms ({by})")
         del ws, ws32, bps
+    rows += k7_square_times(torch, gt)
     # pack_b_grouped at one mixtral-8x22b expert stack (gate, E=8).
     wst = randn(MIX_E, MIX_D, MIX_F, std=0.02, dtype=bf16)
     main_err["pack_b_grouped"] = check_pack(
@@ -1257,6 +1403,47 @@ def phase_layered(torch, ks, tf):
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{fails}")
     return rows, main_err
+
+
+K7_SQUARE = 4096   # the sweep's largest size (SWEEP_SIZES)
+
+
+def k7_square_times(torch, gt) -> list:
+    """K7 at the sweep's largest bf16 size (4096 cubed, row-major operands)
+    as ``tiling`` (the whole card, wgmma) and ``intrinsic`` (one block, so
+    one of 132 SMs), each checked against the f32 product (1e-2 of max|C|,
+    as phase 4) and timed beside its bound and torch.matmul. Returns the
+    timing rows."""
+    gen = torch.Generator(device=DEVICE).manual_seed(19)
+    size = K7_SQUARE
+    a, b = (torch.randn((size, size), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    want = torch.matmul(a.float(), b.float())
+    t_b, by = gemm_bound_ms(size, size, size, 2 * size * size, 2 * size * size, 2,
+                            H100_BF16_FLOPS)
+    lib = time_ms(lambda i: torch.matmul(a, b), 10)
+    lib_dev = device_ms(lambda i: torch.matmul(a, b), 10)
+    rows = []
+    for strategy, one, reps in (("tiling", False, 10), ("intrinsic", True, 2)):
+        before = dict(gt.gemm_tiled.variants)
+        got = gt.gemm_tiled(a, b, single_block=one)
+        torch.cuda.synchronize()
+        ran = [v for v, c in gt.gemm_tiled.variants.items() if c != before[v]]
+        err = float((got.float() - want).abs().max() / want.abs().max())
+        if err > 1e-2 or ran != ["wgmma"]:
+            raise AssertionError(f"K7 {strategy} bf16 {size}: rel err {err:.2e}, "
+                                 f"bodies {ran} (want wgmma)")
+        t_k = time_ms(lambda i: gt.gemm_tiled(a, b, single_block=one), reps)
+        t_dev = device_ms(lambda i: gt.gemm_tiled(a, b, single_block=one), reps)
+        rows.append(dict(kernel="gemm_tiled", strategy=strategy, m=size, k=size,
+                         n=size, variant=ran[0], rel_err=err, ms=t_k, device_ms=t_dev,
+                         bound_ms=t_b, bound_by=by, library_ms=lib,
+                         library_device_ms=lib_dev))
+        log(f"  time gemm_tiled {strategy} bf16 {size}^3 ({ran[0]}"
+            f"{', one block' if one else ''}): kernel {t_k:.4f} ms (device "
+            f"{t_dev:.4f}), torch.matmul {lib:.4f} ms (device {lib_dev:.4f}), "
+            f"bound {t_b:.4f} ms ({by}); rel err {err:.2e}")
+    return rows
 
 
 TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA")
@@ -1319,18 +1506,17 @@ def check_k1_sass(path) -> str:
             f"{len(wg)} wgmma functions with HGMMA, of {len(funcs)}")
 
 
-def check_grouped_sass(path) -> str:
-    """K2 / K3's library, per function: HGMMA in every grouped_wgmma, HMMA
-    in every grouped_stream (mma.sync over the TMA ring), no tensor-core
-    op in grouped_fma (f32 in full f32, int8 on i32) or grouped_reduce."""
+def check_sass_functions(path, want, core) -> str:
+    """A library's SASS per function: every function whose name holds a tag
+    of ``want`` issues that tag's opcode, every one whose name holds a tag
+    of ``core`` issues no tensor-core op, and each tag names at least one
+    function."""
     funcs = sass_by_function(path)
-    want = {"grouped_wgmma": "HGMMA", "grouped_stream": "HMMA"}
     found = {tag: [ops for n, ops in funcs.items() if tag in n] for tag in
-             (*want, "grouped_fma", "grouped_reduce")}
+             (*want, *core)}
     bad = [tag for tag, op in want.items()
            if not found[tag] or not all(op in ops for ops in found[tag])]
-    bad += [tag for tag in ("grouped_fma", "grouped_reduce")
-            if not found[tag] or any(found[tag])]
+    bad += [tag for tag in core if not found[tag] or any(found[tag])]
     if bad:
         raise AssertionError(f"{path.name}: functions failing their SASS "
                              f"check {bad}: " + ", ".join(
@@ -1338,6 +1524,23 @@ def check_grouped_sass(path) -> str:
                                  for tag, ops in found.items()))
     return ", ".join(f"{len(ops)} {tag} ({want.get(tag, 'no tensor-core op')})"
                      for tag, ops in found.items()) + f", of {len(funcs)}"
+
+
+def check_grouped_sass(path) -> str:
+    """K2 / K3's library, per function: HGMMA in every grouped_wgmma, HMMA
+    in every grouped_stream (mma.sync over the TMA ring), no tensor-core
+    op in grouped_fma (f32 in full f32, int8 on i32) or grouped_reduce."""
+    return check_sass_functions(path, {"grouped_wgmma": "HGMMA", "grouped_stream": "HMMA"},
+                                ("grouped_fma", "grouped_reduce"))
+
+
+def check_k7_sass(path) -> str:
+    """K7's library, per function: HGMMA in every wgmma_packed (its wgmma
+    body), HMMA in every mma_stream (tc_stream: mma.sync over the TMA ring),
+    no tensor-core op in its CUDA-core bodies (f32 in full f32, int8 on i32)
+    or the split reduction."""
+    return check_sass_functions(path, {"wgmma_packed": "HGMMA", "mma_stream": "HMMA"},
+                                ("fma_tiled", "fma_stream", "splitk_reduce"))
 
 
 def check_no_tensor_cores(path) -> str:
@@ -1557,6 +1760,22 @@ STRATEGY_LAUNCHES = {
     "vsx": {"matmul_vsx_like": 1}}
 
 
+# Positions of the split count and the grid cap in K7's argument tuple
+# (gemm_tiled.py _ARGTYPES).
+K7_SPLITS_ARG, K7_MAX_BLOCKS_ARG = 21, 24
+
+
+def one_block(a, b) -> tuple:
+    """(grid cap, splits) that K7's launch_args give an intrinsic call."""
+    import torch
+    from repro_torch.kernels import gemm_tiled as gt
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+    args, _, _ = gt.launch_args(a, b, None, alpha=1.0, beta=0.0, out=out,
+                                epilogue="none", bias=None, single_block=True,
+                                stream=None)
+    return args[K7_MAX_BLOCKS_ARG], args[K7_SPLITS_ARG]
+
+
 def phase_sweep(torch, counters, gemm, strategy, ref):
     """The paper's comparison on the card: square GEMMs at the paper's
     sizes, f32 and bf16, through ``gemm.matmul(..., strategy=s)`` for every
@@ -1621,16 +1840,23 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     log(f"  sweep launches {launches} (want {expect})")
     if launches != expect:
         raise AssertionError(f"sweep launch counts {launches} != {expect}")
-    # From 256 up, tiling_packing takes V_WGMMA (bf16) / fma_tiled (f32),
-    # tiling_packing_fused (K1) wgmma / fma_tiled, and vsx fma_tiled; at f32
-    # K1 runs on the CUDA-core bodies at every size.
+    # From 256 up, tiling (K7) and tiling_packing (K6) take wgmma (bf16) /
+    # fma_tiled (f32), tiling_packing_fused (K1) wgmma / fma_tiled, and vsx
+    # fma_tiled; at f32 K1 runs on the CUDA-core bodies at every size;
+    # intrinsic (K7 as one block) takes a TMA body at every bf16 size.
     log(f"  sweep launches by body {variants}")
     wrong = []
     for (dt, size, s, a, b), ran in zip(cases, bodies):
         eff = s if s != "auto" else gemm.resolve_strategy(
             size, size, size, dt, on_card=True)
         bf = dt == torch.bfloat16
-        body = {"tiling_packing": ["gemm_packed:wgmma" if bf
+        if eff == "intrinsic" and bf:
+            one = one_block(a, b)
+            if ran != [f"gemm_tiled:{k7_body(size)}"] or one != (1, 1):
+                wrong.append((str(dt), size, s, ran, f"gemm_tiled:{k7_body(size)}, "
+                              f"(grid, splits) {one} (want (1, 1))"))
+        body = {"tiling": ["gemm_tiled:wgmma" if bf else "gemm_tiled:fma_tiled"],
+                "tiling_packing": ["gemm_packed:wgmma" if bf
                                    else "gemm_packed:fma_tiled"],
                 "tiling_packing_fused": ["gemm_packed_fused_a:wgmma" if bf
                                          else "gemm_packed_fused_a:fma_tiled"],
@@ -1643,6 +1869,7 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     if wrong:
         raise AssertionError(f"sweep cases did not take the new bodies: "
                              f"{wrong}")
+    log("  intrinsic bf16: one block, unsplit, on tc_stream (16) / wgmma (32 up)")
 
     # -- checks against the f32 product --------------------------------------
     # Error relative to the output's scale (max |C|): f32 outputs 1e-4
@@ -1946,17 +2173,22 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         t_gen = time.perf_counter() - t0
         launches = counters.read()
         bodies = launches_by_body(counters)
+        k7_bodies = launches_by_body(counters, "gemm_tiled")
     finally:
         ctr.LOWERINGS.update(real)
     want_bodies = dict(wgmma=7 * layers)   # the prefill's 4 x 128 rows
+    # Every K7 launch (decode, and the prefill's last-position LM head) has
+    # 4 rows of aligned bf16 operands: tc_stream.
+    want_k7 = dict(tc_stream=want["gemm_tiled"])
     log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} "
         f"ms; launches {launches} (want {want}); lowerings {picks}; K1 by "
-        f"body {bodies} (want {want_bodies})")
+        f"body {bodies} (want {want_bodies}); K7 by body {k7_bodies} (want "
+        f"{want_k7})")
     if launches != want or picks.get("torch_matmul", 0) != 0:
         raise AssertionError(f"raw-weight launch counts {launches}, "
                              f"lowerings {picks}")
-    if bodies != want_bodies:
-        raise AssertionError(f"K1 launches by body {bodies}")
+    if bodies != want_bodies or k7_bodies != want_k7:
+        raise AssertionError(f"K1 launches by body {bodies}, K7 {k7_bodies}")
     check_tokens(tokens, cfg)
 
     logits_raw, _ = engine.prefill_request(prompt[0])
@@ -1972,11 +2204,10 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         f"5e-2), max_abs_err={max_err:.3e}, same argmax {same_tok}/1")
     if rel > 5e-2 or same_tok != 1:
         raise AssertionError("raw-weight logits disagree with the packed run")
-    timings = serve_timings(torch, engine, prompt, STEPS,
-                            {"K7": "blocked_mma", "K5": "pack_tiles",
-                             **K1_KERNEL_TAGS})
+    timings = serve_timings(torch, engine, prompt, STEPS, K7_KERNEL_TAGS)
     timings.update(rel_fro_vs_packed=rel, first_generate_ms=t_gen * 1e3,
-                   lowerings=picks, k1_launches_by_body=bodies)
+                   lowerings=picks, k1_launches_by_body=bodies,
+                   k7_launches_by_body=k7_bodies)
     del engine
     return launches, timings
 
@@ -2000,6 +2231,13 @@ def launches_by_body(counters, name="gemm_packed_fused_a") -> dict:
 # quantized bodies fused_a_*, and the split reduction after tc_stream.
 K1_KERNEL_TAGS = {"K1 tc_stream": "mma_stream", "K1 wgmma": "wgmma_packed",
                   "K1 quantized": "fused_a", "splitk_reduce": "splitk_reduce"}
+# K7's at raw decode, where no K1 runs: its TMA bodies are the only ones
+# instantiated on natural B ("NaturalB"), all on tc_stream there
+# ("mma_stream", K1's too where K1 runs), with their split reduction
+# ("splitk_reduce"); blocked_mma is mma_general, pack_tiles K5.
+K7_KERNEL_TAGS = {"K7": "NaturalB", "mma_stream": "mma_stream",
+                  "splitk_reduce": "splitk_reduce", "K7 mma_general": "blocked_mma",
+                  "K5": "pack_tiles"}
 # K2's: all of them ("grouped_"), then by body (the split reduction after
 # tc_stream apart).
 K2_KERNEL_TAGS = {"K2": "grouped_", "K2 tc_stream": "grouped_stream",
@@ -2480,6 +2718,20 @@ GEMM_FAULTS = [
      "gemm_grouped_packed.cu",
      [("for (int sp = 0; sp < splits; ++sp)",
        "for (int sp = 0; sp < splits - 1; ++sp)")]),
+    # Both of B's maps as wide as their row strides: past N for a row-major
+    # B (columns that are never stored), past K for table.t(), where the
+    # NaN past K meets A's zeros.
+    ("K7: B's maps row-stride wide, not N / K", "gemm_tiled", "gemm_tiled.cu",
+     [("make_tensor_map(&tb, b, dt, K, N, BOX, sbk)",
+       "make_tensor_map(&tb, b, dt, K, sbk, BOX, sbk)"),
+      ("make_tensor_map(&tb, b, dt, N, K, BOX, sbn)",
+       "make_tensor_map(&tb, b, dt, N, sbn, BOX, sbn)")]),
+    ("K7: the k-box count floored (K / 64)", "gemm_tiled", "gemm_tiled.cu",
+     [("const int Kb = (K + BOX - 1) / BOX;", "const int Kb = K / BOX;")]),
+    ("K7: last split dropped from tc_stream's reduction", "gemm_tiled",
+     "gemm_tiled.cu",
+     [("return reduce_splits(wsf, splits, ep, s);",
+       "return reduce_splits(wsf, splits - 1, ep, s);")]),
 ]
 
 
@@ -2487,7 +2739,7 @@ def planted_gemm(torch, build, ks) -> tuple:
     """Phase 1's GEMM edge checks against the kernels as built and a copy
     of each with a fault of ``GEMM_FAULTS``: the kernels as built must
     pass, each fault must fail. Returns (results, wrong)."""
-    gp, gv, gg = ks["gp"], ks["gv"], ks["gg"]
+    gp, gv, gg, gt = ks["gp"], ks["gv"], ks["gg"], ks["gt"]
     # kernel -> (entry point, argtypes, wrapper module, its loader's name)
     entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES, gv, "_kernel"),
              "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES, gp,
@@ -2495,10 +2747,13 @@ def planted_gemm(torch, build, ks) -> tuple:
              "gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES, gp,
                                      "_kernel"),
              "gemm_grouped_packed": ("gemm_grouped_packed_launch", gg._ARGTYPES, gg,
-                                     "_kernel")}
+                                     "_kernel"),
+             "gemm_tiled": ("gemm_tiled_launch", gt._ARGTYPES, gt, "_kernel")}
     judge = {"gemm_vsx_like": k6_k8_checks, "gemm_packed": k6_k8_checks,
-             "gemm_packed_fused_a": k1_checks, "gemm_grouped_packed": k2_checks}
-    checks_name = {k6_k8_checks: "K6 / K8", k1_checks: "K1", k2_checks: "K2 / K3"}
+             "gemm_packed_fused_a": k1_checks, "gemm_grouped_packed": k2_checks,
+             "gemm_tiled": k7_checks}
+    checks_name = {k6_k8_checks: "K6 / K8", k1_checks: "K1", k2_checks: "K2 / K3",
+                   k7_checks: "K7"}
     t0 = time.perf_counter()
     jobs = []
     for i, (name, kernel, target, edits) in enumerate(GEMM_FAULTS):
@@ -2520,7 +2775,7 @@ def planted_gemm(torch, build, ks) -> tuple:
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
     runs = [("as built", kernel, None) for kernel in ("gemm_packed_fused_a", "gemm_packed",
-                                                      "gemm_grouped_packed")]
+                                                      "gemm_grouped_packed", "gemm_tiled")]
     for name, kernel, proc, lib, log_path in jobs:
         if proc.wait() != 0:
             raise RuntimeError(f"fault '{name}' did not build:\n"
@@ -2528,7 +2783,7 @@ def planted_gemm(torch, build, ks) -> tuple:
         fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
         fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
         runs.append((name, kernel, fn))
-    log(f"  built {len(jobs)} faulty copies of K1 / K2 / K6 / K8 in "
+    log(f"  built {len(jobs)} faulty copies of K1 / K2 / K6 / K7 / K8 in "
         f"{time.perf_counter() - t0:.1f} s")
     as_built = {k: getattr(mod, attr) for k, (_, _, mod, attr) in entry.items()}
     results, wrong = [], []
@@ -2557,11 +2812,12 @@ def planted_gemm(torch, build, ks) -> tuple:
 
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
-    check catches a wrong K4 and phase 1's a wrong K1, K2, K6 or K8. Builds K4
+    check catches a wrong K4 and phase 1's a wrong K1, K2, K6, K7 or K8.
+    Builds K4
     and one copy of its source for each fault of ``K4_FAULTS`` (under
     ``build/kernels/planted/``, all at once), then runs the kernel as built
     and each faulty copy through the wrapper at A1-A6 and judges each output
-    as phase 6 does; then the same for K1 / K6 / K8 (planted_gemm). Exits 0
+    as phase 6 does; then the same for K1 / K2 / K6-K8 (planted_gemm). Exits 0
     when the kernels as built pass everywhere and each fault fails at every
     shape it reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
@@ -2650,7 +2906,7 @@ class Counters:
 
     def variants(self) -> dict:
         """Launches by body of the wrappers that count them (K1, K2, K3,
-        K6, K8)."""
+        K6, K7, K8)."""
         return {name: dict(fn.variants) for name, fn in self.fns.items()
                 if hasattr(fn, "variants")}
 
@@ -2731,11 +2987,12 @@ def main(argv) -> int:
         return served_attention_ab(torch, cfgs, shapes, argv[1])
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
-            "judged by phase 6's check at A1-A6; K1 / K2 / K6 / K8 as built "
+            "judged by phase 6's check at A1-A6; K1 / K2 / K6-K8 as built "
             "and with each fault of GEMM_FAULTS, judged by phase 1's edge "
             "checks")
         return planted_faults(torch, build, fa, cfgs, shapes,
-                              dict(pack=pk, gp=gp, gv=gv, gg=gg, ref=ref, tf=tf))
+                              dict(pack=pk, gp=gp, gv=gv, gg=gg, gt=gt, ref=ref,
+                                   tf=tf))
     counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
                          gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
                          pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
@@ -2758,6 +3015,7 @@ def main(argv) -> int:
         f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
     log(f"  gemm_grouped_packed SASS: "
         f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
+    log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
     table, main_err, k1_quant = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
@@ -2938,6 +3196,12 @@ def main(argv) -> int:
           ["gemm_tiled"], max_abs_err=layered_err["gemm_tiled"],
           **layered_entry("gemm_tiled", 4, count, decode_work +
                           ", the LM head as table.t()"),
+          launches_by_body={
+              "strategy sweep": {v: c for v, c in
+                                 sweep_variants["gemm_tiled"].items() if c},
+              "olmo-1b raw": raw_t["k7_launches_by_body"]},
+          square_4096=[r for r in layered_rows if r["kernel"] == "gemm_tiled"
+                       and r.get("strategy")],
           serve=raw_t, sweep=sweep_rows)
     entry("matmul_vsx_like", "gemm_vsx_like.cu",
           "src/repro/kernels/gemm_vsx_like.py:73", ["matmul_vsx_like"],

@@ -56,15 +56,19 @@ int launch_tc(int variant, const void* a, int a_col, int bm, const void* b, int 
     if (!ta_ok) return static_cast<int>(cudaErrorInvalidValue);
     const int tiles_m = (Mb + 1) / 2, tiles_n = (Nb + 1) / 2;
     if (a_col && !b_col) {
-      return launch_wgmma<T, PackedA<true>, true>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+      return launch_wgmma<T, PackedA<true>, PackedB<true>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep,
+                                                           s);
     }
     if (a_col) {
-      return launch_wgmma<T, PackedA<true>, false>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+      return launch_wgmma<T, PackedA<true>, PackedB<false>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep,
+                                                            s);
     }
     if (!b_col) {
-      return launch_wgmma<T, PackedA<false>, true>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+      return launch_wgmma<T, PackedA<false>, PackedB<true>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep,
+                                                            s);
     }
-    return launch_wgmma<T, PackedA<false>, false>(ta, tb, Kb, bk, tiles_m, tiles_n, ep, s);
+    return launch_wgmma<T, PackedA<false>, PackedB<false>>(ta, tb, Kb, bk, tiles_m, tiles_n, ep,
+                                                           s);
   }
   // V_TC_STREAM
   if (!tb_ok || bm != 16 || a_col || M > 16 || !valid_tile_split(Kb, splits, kt_chunk, ws) ||
@@ -72,10 +76,11 @@ int launch_tc(int variant, const void* a, int a_col, int bm, const void* b, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* wsf = static_cast<float*>(ws);
-  const int err = b_col ? launch_mma_stream<T, PackedA<false>, false>(ta, tb, Kb, bk, Nb, splits,
-                                                                      kt_chunk, wsf, ep, s)
-                        : launch_mma_stream<T, PackedA<false>, true>(ta, tb, Kb, bk, Nb, splits,
-                                                                     kt_chunk, wsf, ep, s);
+  const int err =
+      b_col ? launch_mma_stream<T, PackedA<false>, PackedB<false>>(ta, tb, Kb, bk, Nb, splits,
+                                                                   kt_chunk, wsf, ep, s)
+            : launch_mma_stream<T, PackedA<false>, PackedB<true>>(ta, tb, Kb, bk, Nb, splits,
+                                                                  kt_chunk, wsf, ep, s);
   if (err != 0 || splits == 1) return err;
   return reduce_splits(wsf, splits, ep, s);
 }

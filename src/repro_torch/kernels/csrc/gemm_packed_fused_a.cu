@@ -359,17 +359,20 @@ int launch_tma(int body, const void* a, long long lda, int M, int K, const void*
   const int tiles_n = (N + BOX - 1) / BOX;
   if (body == F_WGMMA) {
     const int tiles_m = ((M + BOX - 1) / BOX + 1) / 2, tiles_n2 = (tiles_n + 1) / 2;
-    return b_col ? launch_wgmma<T, NaturalA, false>(ta, tb, Kb, bk, tiles_m, tiles_n2, ep, s)
-                 : launch_wgmma<T, NaturalA, true>(ta, tb, Kb, bk, tiles_m, tiles_n2, ep, s);
+    return b_col ? launch_wgmma<T, NaturalA, PackedB<false>>(ta, tb, Kb, bk, tiles_m, tiles_n2,
+                                                             ep, s)
+                 : launch_wgmma<T, NaturalA, PackedB<true>>(ta, tb, Kb, bk, tiles_m, tiles_n2,
+                                                            ep, s);
   }
   if (M > 16 || !valid_tile_split(Kb, splits, kt_chunk, ws)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float* wsf = static_cast<float*>(ws);
-  const int err = b_col ? launch_mma_stream<T, NaturalA, false>(ta, tb, Kb, bk, tiles_n, splits,
-                                                                kt_chunk, wsf, ep, s)
-                        : launch_mma_stream<T, NaturalA, true>(ta, tb, Kb, bk, tiles_n, splits,
-                                                               kt_chunk, wsf, ep, s);
+  const int err =
+      b_col ? launch_mma_stream<T, NaturalA, PackedB<false>>(ta, tb, Kb, bk, tiles_n, splits,
+                                                             kt_chunk, wsf, ep, s)
+            : launch_mma_stream<T, NaturalA, PackedB<true>>(ta, tb, Kb, bk, tiles_n, splits,
+                                                            kt_chunk, wsf, ep, s);
   if (err != 0 || splits == 1) return err;
   return reduce_splits(wsf, splits, ep, s);
 }

@@ -1,7 +1,8 @@
-// Tensor-core bodies for bf16 / f16 against packed B tiles on Hopper,
-// shared by gemm_packed.cu (K6: A packed too) and gemm_packed_fused_a.cu
-// (K1: A in its natural layout): boxes brought to shared memory by TMA,
-// read by wgmma (more than 16 rows) or by ldmatrix + mma.sync (decode).
+// Tensor-core bodies for bf16 / f16 on Hopper, shared by gemm_packed.cu
+// (K6: A and B packed), gemm_packed_fused_a.cu (K1: natural A, packed B)
+// and gemm_tiled.cu (K7: natural A and natural B): boxes brought to shared
+// memory by TMA, read by wgmma (more than 16 rows) or by ldmatrix +
+// mma.sync (decode).
 // gemm_grouped_packed.cu (K2 / K3) builds its grouped bodies from the same
 // tensor maps, ring primitives and wgmma wrappers.
 //
@@ -14,8 +15,12 @@
 // rows, stored with the 128-byte swizzle; boxes past the tensor read as
 // zeros. A tile whose contiguous axis is k is "K-major" for wgmma, the
 // other "MN-major": wgmma's transpose bits take both, so no tile is
-// transposed in software. Where A's boxes come from is the bodies' `ASrc`
-// template parameter (PackedA for K6, NaturalA for K1).
+// transposed in software. Where A's and B's boxes come from are the
+// bodies' `ASrc` and `BSrc` template parameters: PackedA / PackedB for K6,
+// NaturalA / PackedB for K1, NaturalA / NaturalB for K7. Natural B is a
+// 2-D map over the raw [K, N] weight (N wide, MN-major boxes) or, for a
+// transposed view such as the LM head's table.t(), over the [N, K] matrix
+// it views (K wide, K-major boxes); its "bk" is one 64-deep box.
 //
 //  * wgmma_packed: a 128 x 128 output tile (2 x 2 packed 64 x 64 tiles) a
 //    block, a ring of WG_STAGES stages of one 64-deep k-box each (two A and
@@ -23,11 +28,13 @@
 //    warpgroups each running m64n64k16 wgmma on its A tile against both B
 //    tiles, one wgmma group in flight; full / empty mbarriers between them. Blocks walk the output tiles
 //    (tile += gridDim.x), so the next tile's loads overlap this one's
-//    stores.
+//    stores; a grid of one block walks them all.
 //  * mma_stream: decode (bm = 16). A block streams the B tiles of one
 //    64-column stripe over a chunk of Kb (split-K, partials reduced by
 //    splitk_reduce in a fixed order) through a ring of TS_STAGES boxes; its
 //    four warps take the four k16 steps of a box with mma.sync m16n8k16.
+//    Blocks walk the (split, stripe) items, the ring's positions carried
+//    from one item to the next.
 
 #pragma once
 
@@ -160,6 +167,28 @@ struct NaturalA {  // row-major [M, K]: a box is t_mn rows by 64 k
   }
 };
 
+// Where the B boxes of a work item come from: box (c0, c1) of k-box `kbox`
+// of k-tile `kk` (bk deep) of B's 64-column stripe `j`.
+template <bool MN>
+struct PackedB {  // a packed stack: tile (j, kk) is tile j*Kb + kk of the view
+  static constexpr bool mn_major = MN;
+  static __device__ __forceinline__ void box(int j, int kk, int kbox, int Kb, int bk, int& c0,
+                                             int& c1) {
+    box_of(MN, j * Kb + kk, kbox, BOX, bk, c0, c1);
+  }
+};
+
+template <bool MN>
+struct NaturalB {  // MN: the map is B [K, N] itself; else the [N, K] matrix B views
+  static constexpr bool mn_major = MN;
+  static __device__ __forceinline__ void box(int j, int kk, int kbox, int Kb, int bk, int& c0,
+                                             int& c1) {
+    const int k0 = kk * bk + kbox * BOX, n0 = j * BOX;
+    c0 = MN ? n0 : k0;
+    c1 = MN ? k0 : n0;
+  }
+};
+
 // The 2-D view of a packed B stack of Nb x Kb tiles: "row" tiles are
 // [bk][bn] (MN-major), "col" [bn][bk] (K-major).
 bool make_packed_b_map(CUtensorMap* map, const void* b, int dt, int b_col, int Nb, int Kb, int bk,
@@ -230,7 +259,7 @@ constexpr int WG_BOX_BYTES = BOX * BOX * 2;
 constexpr int WG_STAGE_BYTES = 4 * WG_BOX_BYTES;  // A tiles 2i, 2i+1; B tiles 2j, 2j+1
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;
 
-template <typename T, class ASrc, bool B_MN>
+template <typename T, class ASrc, class BSrc>
 __global__ void __launch_bounds__(WG_THREADS)
 wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
              int Kb, int bk, int tiles_m, int tiles_n, Epilogue ep) {
@@ -263,7 +292,7 @@ wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
             int c0, c1;
             ASrc::box(i0 + h, kk, kbox, Kb, BOX, bk, c0, c1);
             tma_load(base + h * WG_BOX_BYTES, &ta, &full[stage], c0, c1);
-            box_of(B_MN, (j0 + h) * Kb + kk, kbox, 64, bk, c0, c1);
+            BSrc::box(j0 + h, kk, kbox, Kb, bk, c0, c1);
             tma_load(base + (2 + h) * WG_BOX_BYTES, &tb, &full[stage], c0, c1);
           }
           if (++stage == WG_STAGES) {
@@ -297,8 +326,9 @@ wgmma_packed(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUt
               sw128_desc(base + wg * WG_BOX_BYTES + kstep_bytes(ASrc::mn_major, ks));
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const uint64_t db = sw128_desc(base + (2 + h) * WG_BOX_BYTES + kstep_bytes(B_MN, ks));
-            wgmma_m64n64k16<T, ASrc::mn_major ? 1 : 0, B_MN ? 1 : 0>(acc[h], da, db);
+            const uint64_t db =
+                sw128_desc(base + (2 + h) * WG_BOX_BYTES + kstep_bytes(BSrc::mn_major, ks));
+            wgmma_m64n64k16<T, ASrc::mn_major ? 1 : 0, BSrc::mn_major ? 1 : 0>(acc[h], da, db);
           }
         }
         wgmma_commit();
@@ -347,9 +377,9 @@ constexpr int TS_STAGE_BYTES = TS_A_BYTES + TS_B_BYTES;
 constexpr int TS_SMEM = TS_STAGES * TS_STAGE_BYTES + 1024;
 
 // Decode: A boxes of 16 rows (K-major: packed "row" tiles or natural A);
-// B "row" (MN-major) or "col". Work item = (split, 64-column stripe j); the
-// split covers packed tiles [sp*kt_chunk, min(Kb, (sp+1)*kt_chunk)).
-template <typename T, class ASrc, bool B_MN>
+// B boxes MN-major or K-major. Work item = (split, 64-column stripe j); the
+// split covers k-tiles [sp*kt_chunk, min(Kb, (sp+1)*kt_chunk)).
+template <typename T, class ASrc, class BSrc>
 __global__ void __launch_bounds__(TS_THREADS)
 mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb, int Kb,
            int bk, int tiles_n, int splits, int kt_chunk, float* ws, Epilogue ep) {
@@ -377,7 +407,7 @@ mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
       mbar_expect_tx(&full[slot], TS_STAGE_BYTES);
       ASrc::box(0, kk, kbox, Kb, 16, bk, c0, c1);
       tma_load(base, &ta, &full[slot], c0, c1);
-      box_of(B_MN, j * Kb + kk, kbox, 64, bk, c0, c1);
+      BSrc::box(j, kk, kbox, Kb, bk, c0, c1);
       tma_load(base + TS_A_BYTES, &tb, &full[slot], c0, c1);
       ++issued;
     };
@@ -401,7 +431,7 @@ mma_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUten
       for (int p = 0; p < 4; ++p) {  // n8 tiles 2p, 2p + 1
         unsigned bf[4];
         const int mat = lane / 8;
-        if (B_MN) {
+        if (BSrc::mn_major) {
           const int row = ks * 16 + (mat % 2) * 8 + lane % 8;
           ldmatrix_x4_trans(bf, sw128(b_box, row, 2 * p + mat / 2));
         } else {
@@ -447,42 +477,46 @@ int sm_count() {
 }
 
 // wgmma_packed over tiles_m x tiles_n output tiles of 128 x 128, one block
-// an SM at most. Each instantiation raises its shared-memory limit on its
-// first launch. Returns the CUDA error of the launch.
-template <typename T, class ASrc, bool B_MN>
+// an SM at most, and at most `max_blocks` (1: one block walks every tile).
+// Each instantiation raises its shared-memory limit on its first launch.
+// Returns the CUDA error of the launch.
+template <typename T, class ASrc, class BSrc>
 int launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb, int Kb, int bk, int tiles_m,
-                 int tiles_n, const Epilogue& ep, cudaStream_t s) {
+                 int tiles_n, const Epilogue& ep, cudaStream_t s, int max_blocks = 0x7fffffff) {
   static bool raised = false;
   if (!raised) {
-    cudaFuncSetAttribute(wgmma_packed<T, ASrc, B_MN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(wgmma_packed<T, ASrc, BSrc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          WG_SMEM);
     raised = true;
   }
-  const int grid = grid_for(static_cast<long long>(tiles_m) * tiles_n, sm_count());
-  wgmma_packed<T, ASrc, B_MN><<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, Kb, bk, tiles_m, tiles_n,
+  const int grid = grid_for(static_cast<long long>(tiles_m) * tiles_n,
+                            max_blocks < sm_count() ? max_blocks : sm_count());
+  wgmma_packed<T, ASrc, BSrc><<<grid, WG_THREADS, WG_SMEM, s>>>(ta, tb, Kb, bk, tiles_m, tiles_n,
                                                                 ep);
   return static_cast<int>(cudaGetLastError());
 }
 
 // mma_stream over tiles_n 64-column stripes x `splits` chunks of
-// `kt_chunk` packed k-tiles (partials to `ws` when splits > 1; the caller
-// reduces them). Returns the CUDA error of the launch.
-template <typename T, class ASrc, bool B_MN>
+// `kt_chunk` k-tiles (partials to `ws` when splits > 1; the caller reduces
+// them), one block an item, at most `max_blocks` (1: one block walks every
+// item). Returns the CUDA error of the launch.
+template <typename T, class ASrc, class BSrc>
 int launch_mma_stream(const CUtensorMap& ta, const CUtensorMap& tb, int Kb, int bk, int tiles_n,
-                      int splits, int kt_chunk, float* ws, const Epilogue& ep, cudaStream_t s) {
+                      int splits, int kt_chunk, float* ws, const Epilogue& ep, cudaStream_t s,
+                      int max_blocks = 0x7fffffff) {
   static bool raised = false;
   if (!raised) {
-    cudaFuncSetAttribute(mma_stream<T, ASrc, B_MN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(mma_stream<T, ASrc, BSrc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          TS_SMEM);
     raised = true;
   }
-  const int grid = static_cast<int>(static_cast<long long>(tiles_n) * splits);
-  mma_stream<T, ASrc, B_MN><<<grid, TS_THREADS, TS_SMEM, s>>>(ta, tb, Kb, bk, tiles_n, splits,
+  const int grid = grid_for(static_cast<long long>(tiles_n) * splits, max_blocks);
+  mma_stream<T, ASrc, BSrc><<<grid, TS_THREADS, TS_SMEM, s>>>(ta, tb, Kb, bk, tiles_n, splits,
                                                               kt_chunk, ws, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Whether (splits, kt_chunk) cut Kb packed k-tiles into non-empty chunks
+// Whether (splits, kt_chunk) cut Kb k-tiles into non-empty chunks
 // that cover it once, with a workspace when there is more than one.
 bool valid_tile_split(int Kb, int splits, int kt_chunk, const void* ws) {
   return splits >= 1 && kt_chunk >= 1 && static_cast<long long>(splits) * kt_chunk >= Kb &&

@@ -28,6 +28,8 @@ from repro_torch.kernels import gemm_tiled as gt
 from repro_torch.kernels.common import (EPILOGUE_CODES, KERNEL_EPILOGUES,
                                         acc_dtype_for, cdiv, finalize,
                                         kernel_epilogue_name, plain_acc)
+from repro_torch.kernels.gemm_tiled import (TC_BOX, TC_STREAM, WGMMA,
+                                            tc_stream_split)
 from repro_torch.kernels.ref import (fused_packed_acc_ref, unpack_a_ref,
                                      unpack_b_ref)
 
@@ -39,7 +41,6 @@ _B_DTYPES = ("float32", "bfloat16", "float16", "int8", "int4")
 _OUT_DTYPES = ("float32", "bfloat16", "float16", "int32")
 _BM_CHOICES = (16, 32, 48, 64)
 _BN_CHOICES = (64, 48, 32, 16)
-TC_BOX = 64   # a TMA box's contiguous axis, elements (K1's and K6's bodies)
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,   # a, dt, lda, M
@@ -322,9 +323,8 @@ _PACKED_ARGTYPES = [
 ]
 
 # K6's bodies (variant codes of csrc/gemm_packed.cu, by name): the TMA
-# bodies of gemm_wgmma.cuh, blocked_mma for any other bf16 / f16 geometry,
-# and the CUDA-core bodies for f32 / int8.
-WGMMA, TC_STREAM = 3, 4
+# bodies of gemm_wgmma.cuh (WGMMA, TC_STREAM), blocked_mma for any other
+# bf16 / f16 geometry, and the CUDA-core bodies for f32 / int8.
 PACKED_VARIANTS = ("wgmma", "tc_stream", "mma_general", "fma_tiled",
                    "fma_stream")
 
@@ -345,15 +345,6 @@ def packed_variant(dtype: torch.dtype, m: int, bm: int, bk: int, bn: int,
         if bm == 16 and layout_a == "row" and m <= 16:
             return TC_STREAM
     return gt.pick_variant(dtype, m)
-
-
-def tc_stream_split(kb: int, nb: int) -> tuple:
-    """(splits, kt_chunk) of V_TC_STREAM: Kb cut into chunks of whole
-    packed tiles so that nb 64-column stripes give at least two blocks an
-    SM (as far as Kb allows); every split non-empty."""
-    want = cdiv(2 * gt.H100_SMS, nb)
-    chunk = max(1, kb // want)
-    return cdiv(kb, chunk), chunk
 
 
 def variant_name(variant: int, fma_body: int) -> str:
