@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
      and K1's CUDA-core functions issue none while its wgmma functions
      issue HGMMA (per function: one library holds both), K2 / K3's
      grouped_wgmma HGMMA, grouped_stream HMMA and grouped_fma none, K7's
-     wgmma_packed HGMMA, mma_stream HMMA and CUDA-core bodies none, and
+     wgmma_packed HGMMA, mma_stream HMMA and CUDA-core bodies none, K4's
+     flash_wgmma_kernel HGMMA, flash_stream_kernel and flash_mma_kernel
+     HMMA and flash_f32_kernel none, and
      hold each kernel against its plain torch version on the card:
      - gemm_packed_fused_a (K1) at olmo-1b's serving shapes in bf16 (M=4 on
        tc_stream, M=512 on wgmma, timed with CUDA events and by
@@ -57,7 +59,13 @@ Phases (any failure exits non-zero and prints no result line):
        tiling (wgmma) and intrinsic (one block) beside torch.matmul;
      - flash_attention (K4) in f32, bf16 and f16 at the reference test's
        cases, Sq > Skv (rows that see no key exactly 0), a window without
-       causal, D = 128 and 256, GQA decode, strided q / k / v views;
+       causal, D = 128 and 256, GQA decode, strided q / k / v views; then
+       in bf16 and f16 at its bodies' edges (ATTN_EDGE_CASES: Sq * group
+       at 1 ... 18 rows around the stream body's limit, Sq off the row
+       tile, Skv off the key tile, Sq < Skv, window edges on and off a
+       tile edge, D 64 / 128 / 256), fused-qkv views at prefill and
+       decode, heads stored outside the sequence and a misaligned q, each
+       call held to the body attention_body names;
      - every ``repro_torch.kernels.ops`` wrapper once at a small odd shape
        against the plain composition of what it launches, with its
        launches counted (packed_matmul = 2 K5 + 1 K6, and so on).
@@ -94,18 +102,22 @@ Phases (any failure exits non-zero and prints no result line):
      olmo-1b (16 heads x 128) at its served prefill and decode (A1, A2),
      prefill_32k (A3, batch 1 of 32) and decode_32k (A4, batch 128);
      mixtral-8x22b (48 / 8 heads x 128, window 4096) at prefill_32k (A5)
-     and decode_32k (A6). One counted call a shape (exactly one K4 launch),
+     and decode_32k (A6). One counted call a shape (exactly one K4 launch,
+     on wgmma at A1 / A3 / A5 and stream at A2 / A4 / A6),
      checked against the plain version (each element within 2e-2 of |want|
      + its row's RMS, at most |want| + 1e-2, the norm within 1e-2, and a uniform-weight probe that
-     catches one key too many or too few), timed beside its bound, the
+     catches one key too many or too few), timed (CUDA events, and
+     torch.profiler's mean kernel time a launch) beside its bound, the
      plain version and F.scaled_dot_product_attention (the yardstick only).
      Then served attention alone: ``models.layers.chunked_attention`` (what
      the served models run) at olmo-1b's served prefill and decode and one
      prefill_32k sequence, timed.
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
-the window edge shifted by one key) and shows that phase 6's check fails
-each at every shape it reaches and passes the kernel as built; then copies
+the window edge shifted by one key, the diagonal tile taken as interior,
+the wgmma ring one KV tile short, warp 0's partial dropped from the stream
+body's combine) and shows that phase 6's check fails each at every shape
+it reaches and passes the kernel as built; then copies
 of K8 with the last split-K chunk dropped, of K6 with its TMA ring one
 k-step short, of K1 with A's tensor map lda wide instead of K and with
 the last split dropped from tc_stream's reduction, and of K2 with a dead
@@ -114,7 +126,7 @@ stream read from B's map and the last split dropped from grouped_reduce,
 and of K7 with B's maps as wide as their row strides, the k-box count
 floored and the last split dropped from tc_stream's reduction, which
 phase 1's K6 / K8, K1, K2 / K3 and K7 edge checks must fail while passing
-the kernels as built.
+the kernels as built. Every copy's nvcc starts at once.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -206,6 +218,33 @@ def device_ms(fn, reps: int) -> float:
         t = getattr(ev, "self_device_time_total", None)
         total += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
     return total / reps / 1e3
+
+
+def launch_ms(fn, reps: int) -> tuple:
+    """Device time of ``fn(i)`` for a call that launches each of its
+    kernels once: the mean duration of each kernel's launches that
+    torch.profiler recorded, summed over the kernels. Late in this
+    script's process the profiler can lose kernel records (2 of 5 at each
+    long phase-6 shape on an H100), which ``device_ms`` would count as
+    idle; a mean over the records it kept is not biased by that. Returns
+    (ms, the fewest records of any kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+    total, kept = 0.0, reps
+    for ev in prof.key_averages():
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") or not ev.count:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        total += t / ev.count
+        kept = min(kept, ev.count)
+    return total / 1e3, kept
 
 
 def bound_ms(m, k, n, a_item, b_bytes, out_item, peak_flops):
@@ -1543,6 +1582,17 @@ def check_k7_sass(path) -> str:
                                 ("fma_tiled", "fma_stream", "splitk_reduce"))
 
 
+def check_k4_sass(path) -> str:
+    """K4's library, per function: HGMMA in every flash_wgmma_kernel (the
+    wgmma body), HMMA in every flash_stream_kernel (stream: mma.sync over
+    the TMA ring) and flash_mma_kernel (mma_general), no tensor-core op in
+    flash_f32_kernel (f32 in full f32)."""
+    return check_sass_functions(path, {"flash_wgmma_kernel": "HGMMA",
+                                       "flash_stream_kernel": "HMMA",
+                                       "flash_mma_kernel": "HMMA"},
+                                ("flash_f32_kernel",))
+
+
 def check_no_tensor_cores(path) -> str:
     """The SASS of the built K8 library holds no tensor-core instruction
     (HMMA / HGMMA / IMMA); returns what was checked."""
@@ -1615,44 +1665,95 @@ def attention_close(got, want, rtol, atol, max_norm):
     return not failed, float(err.max()), norm, "+".join(failed)
 
 
+# K4 at its bodies' edges, (B, Sq, Skv, H, Hkv, D, causal, window), in bf16
+# and f16: Sq * group at 1, 6, 12, 16, 17 and 18 rows around the stream
+# body's limit (mixtral's 48 / 8 heads and H = Hkv); prefill with Sq off
+# the 128-row tile; Skv off the key tile; Sq < Skv at prefill width, causal
+# and windowed; windows whose lower edge falls on a tile edge, one key off
+# it either way, and without causal; D 64 / 128 on wgmma, 256 on
+# mma_general; many query heads of one KV head at prefill.
+ATTN_EDGE_CASES = [
+    (2, 1, 300, 48, 8, 128, True, None), (2, 2, 300, 48, 8, 128, True, None),
+    (1, 3, 300, 48, 8, 128, True, 100), (2, 1, 200, 4, 4, 128, True, None),
+    (1, 6, 200, 4, 4, 128, True, None), (1, 12, 200, 4, 4, 64, True, 50),
+    (1, 16, 200, 4, 4, 128, True, None), (1, 17, 200, 4, 4, 128, True, None),
+    (1, 18, 200, 2, 2, 64, False, None), (1, 8, 150, 8, 4, 128, True, None),
+    (1, 9, 150, 8, 4, 128, True, None), (1, 300, 300, 4, 2, 128, True, None),
+    (2, 200, 200, 2, 1, 64, True, None), (1, 256, 333, 4, 4, 128, True, None),
+    (1, 100, 1000, 4, 4, 128, True, None), (1, 100, 1000, 4, 4, 128, True, 200),
+    (1, 512, 512, 2, 2, 128, True, 128), (1, 512, 512, 2, 2, 128, True, 129),
+    (1, 512, 512, 2, 2, 128, True, 127), (1, 256, 256, 2, 1, 64, False, 128),
+    (2, 1, 1024, 8, 8, 128, True, 64), (2, 1, 1024, 8, 8, 128, True, 65),
+    (1, 130, 130, 2, 2, 256, True, None), (1, 1000, 1000, 12, 2, 128, True, None),
+    (1, 700, 700, 6, 1, 64, False, None)]
+
+
 def phase_attention_checks(torch, fa):
     """K4 against its plain version on the card at ``ATTN_CASES`` in f32,
-    bf16 and f16, and once on strided views of a fused qkv tensor. Rows that
-    see no key must be exactly 0; an empty output counts no launch. Returns
-    the max abs error by dtype."""
+    bf16 and f16, at ``ATTN_EDGE_CASES`` in bf16 and f16, on strided views
+    of a fused qkv tensor (prefill and decode, D 64 and 128), on q / k / v
+    whose heads are stored outside the sequence (a transposed [B, H, S, D])
+    and on a q offset by one element. Every call must take the body
+    ``attention_body`` names (read from ``flash_attention.variants``).
+    Rows that see no key must be exactly 0; an empty output counts no
+    launch. Returns the max abs error by dtype."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     fails, errs = [], {}
 
-    def randn(*shape, dtype):
+    def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
     def check(tag, q, k, v, causal, window, dtype):
         rtol, atol, max_norm = ATTN_TOL[dtype]
+        body = fa.attention_body(q, k, v, causal, window)
+        before = dict(fa.flash_attention.variants)
         got = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        ran = [b for b, c in fa.flash_attention.variants.items() if c != before[b]]
         want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
         ok, err, norm, _ = attention_close(got, want, rtol, atol, max_norm)
         dead = q.shape[1] - k.shape[1] if causal else 0
         zero = dead <= 0 or bool((got[:, :dead] == 0).all())
-        ok = ok and zero and got.dtype == q.dtype and bool(torch.isfinite(got).all())
+        ok = (ok and zero and got.dtype == q.dtype and ran == [body]
+              and bool(torch.isfinite(got).all()))
         errs[dtype] = max(errs.get(dtype, 0.0), err)
-        log(f"  check flash_attention {tag}: max_abs_err={err:.3e}, norm "
+        log(f"  check flash_attention {tag} ({'/'.join(ran)}, want {body}): "
+            f"max_abs_err={err:.3e}, norm "
             f"{norm:.2e} (rtol={rtol}, atol={atol} or less, norm <= {max_norm})"
             f"{'; unseen rows 0' if dead > 0 else ''} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fails.append(tag)
 
-    for name in ATTN_TOL:
+    def case(name, b, sq, skv, h, hkv, d, causal, window):
         dt = getattr(torch, name)
-        for b, sq, skv, h, hkv, d, causal, window in ATTN_CASES:
-            check(f"{name} B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
-                  f"causal={causal} window={window}",
-                  randn(b, sq, h, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt),
-                  randn(b, skv, hkv, d, dtype=dt), causal, window, name)
-    qkv = randn(2, 77, 3, 4, 64, dtype=torch.bfloat16)   # [B, S, (q k v), H, D]
+        check(f"{name} B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
+              f"causal={causal} window={window}",
+              randn(b, sq, h, d, dtype=dt), randn(b, skv, hkv, d, dtype=dt),
+              randn(b, skv, hkv, d, dtype=dt), causal, window, name)
+
+    for name in ATTN_TOL:
+        for shape in ATTN_CASES:
+            case(name, *shape)
+    for name in ("bfloat16", "float16"):
+        for shape in ATTN_EDGE_CASES:
+            case(name, *shape)
+    qkv = randn(2, 77, 3, 4, 64)   # [B, S, (q k v), H, D]
     check("bfloat16 strided views of a fused qkv", qkv[:, :, 0], qkv[:, :, 1],
           qkv[:, :, 2], True, None, "bfloat16")
+    for s_len, d in ((77, 128), (1, 64), (1, 128)):
+        qkv = randn(2, s_len, 3, 8, d)
+        check(f"bfloat16 strided views of a fused qkv, S={s_len} D={d}",
+              qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], True, None, "bfloat16")
+    for sq, h in ((40, 8), (2, 8)):   # [B, H, S, D] storage read as [B, S, H, D]
+        q = randn(1, h, sq, 128).transpose(1, 2)
+        kv = randn(2, 2, 60, 128)
+        check(f"bfloat16 heads outside the sequence, Sq={sq} H={h}/2", q,
+              kv[0:1].transpose(1, 2), kv[1:2].transpose(1, 2), True, None,
+              "bfloat16")
+    buf = randn(1 + 2 * 64 * 4 * 128)
+    check("bfloat16 q offset by one element", buf[1:].view(2, 64, 4, 128),
+          randn(2, 64, 4, 128), randn(2, 64, 4, 128), True, None, "bfloat16")
     before = fa.flash_attention.launches
     empty = torch.empty((0, 4, 2, 16), device=DEVICE)
     fa.flash_attention(empty, empty, empty)
@@ -2554,8 +2655,9 @@ def sdpa_yardstick(torch, ref, q, k, v, window, reps):
     where Sq == Skv and there is no window, else an explicit boolean mask of
     the right-aligned positions. Tries the flash, cuDNN, memory-efficient
     and math backends in turn (math only where its f32 scores fit) and
-    times the first that takes the call. Returns (ms, backend, output,
-    what the others said)."""
+    times the first that takes the call, by CUDA events and by
+    torch.profiler's kernel time (``launch_ms``). Returns (ms, device ms,
+    backend, output, what the others said)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     b, sq, h, _ = q.shape
@@ -2581,19 +2683,29 @@ def sdpa_yardstick(torch, ref, q, k, v, window, reps):
                         qt, kt, vt, enable_gqa=True, **kw)
                 out = call(0).transpose(1, 2)
                 torch.cuda.synchronize()
-                return time_ms(call, reps), backend.name, out, refused
+                return (time_ms(call, reps), launch_ms(call, reps)[0],
+                        backend.name, out, refused)
         except RuntimeError as exc:
             refused.append(f"{backend.name}: {str(exc).splitlines()[0][:120]}")
-    return None, None, None, refused
+    return None, None, None, None, refused
+
+
+# The body each phase-6 shape must take: the TMA + wgmma prefill body, the
+# TMA-ring decode body.
+ATTN_SHAPE_BODY = {"A1": "wgmma", "A2": "stream", "A3": "wgmma",
+                   "A4": "stream", "A5": "wgmma", "A6": "stream"}
 
 
 def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
     """Long-context attention through ``ops.attention`` at full head width
     (bf16): one counted call a shape (counts set to 0 just before it, read
-    just after: exactly one K4 launch), checked against the plain version
-    by ``attention_verdict`` (rows that see no key excepted: none here),
-    then timed beside its bound, the plain version and SDPA. Returns
-    (launches, rows, max abs err)."""
+    just after: exactly one K4 launch, on the body of ``ATTN_SHAPE_BODY``,
+    which must be the one ``attention_body`` names), checked against the
+    plain version by ``attention_verdict`` (rows that see no key excepted:
+    none here), then timed beside its bound, the plain version and SDPA,
+    K4 and SDPA both by CUDA events and by torch.profiler's kernel time
+    (``launch_ms``: K4 is one launch a call). Returns (launches, rows, max
+    abs err)."""
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     total = {name: 0 for name in counters.fns}
     rows, max_err, fails = [], 0.0, []
@@ -2609,6 +2721,13 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
         launches = counters.read()
         if launches != counters.only(flash_attention=1):
             raise AssertionError(f"{tag}: ops.attention launched {launches}")
+        bodies = {v: c for v, c in fa.flash_attention.variants.items() if c}
+        body = ATTN_SHAPE_BODY[tag]
+        if (bodies != {body: 1}
+                or fa.attention_body(q, k, v, True, window) != body):
+            raise AssertionError(f"{tag}: K4 ran {bodies}, route "
+                                 f"{fa.attention_body(q, k, v, True, window)}"
+                                 f", must be {body}")
         for name, c in launches.items():
             total[name] += c
         want, want_probe = attention_wants(torch, fa, q, k, v, window)
@@ -2626,19 +2745,22 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
         copies = max(1, min(16, math.ceil(128e6 / set_bytes)))
         sets = [(q, k, v)] + [make() for _ in range(copies - 1)]
         reps = 20 if t_b < 0.1 else 5
-        t_k = time_ms(lambda i: ops.attention(*sets[i % copies], causal=True,
-                                              window=window), reps)
+        def kernel(i):
+            return ops.attention(*sets[i % copies], causal=True, window=window)
+        t_k, (t_dev, kept) = time_ms(kernel, reps), launch_ms(kernel, reps)
         t_p = time_ms(lambda i: fa.flash_attention_plain(
             *sets[i % copies], causal=True, window=window), 1 if t_b > 1 else 3)
         del sets
-        t_l, backend, lib_out, refused = sdpa_yardstick(torch, ref, q, k, v,
-                                                        window, reps)
+        t_l, t_l_dev, backend, lib_out, refused = sdpa_yardstick(
+            torch, ref, q, k, v, window, reps)
         lib_err = (None if lib_out is None else
                    float((lib_out.float() - want.float()).abs().max()))
         rows.append(dict(tag=tag, model=cfg.name, what=what, b=b, sq=sq,
-                         skv=skv, h=h, hkv=hkv, d=d, window=window,
-                         ms=t_k, plain_ms=t_p, bound_ms=t_b, bound_by=by,
-                         library_ms=t_l, library_backend=backend,
+                         skv=skv, h=h, hkv=hkv, d=d, window=window, body=body,
+                         ms=t_k, device_ms=t_dev, device_records=f"{kept}/{reps}",
+                         plain_ms=t_p, bound_ms=t_b,
+                         bound_by=by, library_ms=t_l, library_device_ms=t_l_dev,
+                         library_backend=backend,
                          library_refused=refused, library_max_abs_err=lib_err,
                          **errs, launches=launches["flash_attention"]))
         log(f"  {tag} {cfg.name} B={b} Sq={sq} Skv={skv} H={h}/{hkv} D={d} "
@@ -2646,11 +2768,11 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
             f"keys seen): max_abs_err={err:.3e} norm {errs['norm_err']:.2e}, "
             f"probe {errs['probe_max_abs_err']:.2e} / norm "
             f"{errs['probe_norm_err']:.2e} "
-            f"{'ok' if ok else 'FAIL ' + errs['failed']}; kernel {t_k:.4f} ms, "
-            f"bound {t_b:.4f} "
+            f"{'ok' if ok else 'FAIL ' + errs['failed']}; {body}: kernel "
+            f"{t_k:.4f} ms (device {t_dev:.4f}, {kept}/{reps} records), bound {t_b:.4f} "
             f"ms ({by}), plain {t_p:.4f} ms, SDPA "
-            + (f"{t_l:.4f} ms ({backend}, max_abs_err {lib_err:.2e})"
-               if t_l is not None else "none")
+            + (f"{t_l:.4f} ms (device {t_l_dev:.4f}; {backend}, max_abs_err "
+               f"{lib_err:.2e})" if t_l is not None else "none")
             + (f"; refused: {refused}" if refused else ""))
         del q, k, v, out, want, want_probe, lib_out
         torch.cuda.empty_cache()
@@ -2662,25 +2784,45 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
 
 # Faults that ``--planted-faults`` plants in copies of K4's source: (name,
 # [(text replaced, its replacement), ...], whether the fault reaches a
-# phase-6 shape of this window). Phase 6's check must fail at every shape
-# each one reaches. A window edge moved out must move in the tile walk too:
-# at decode_32k the window starts on a tile edge, so a mask alone would
-# keep the extra key out.
+# phase-6 shape of this Sq and window). Phase 6's check must fail at every
+# shape each one reaches. A window edge moved out must move in the tile
+# walk too: at decode_32k the window starts on a tile edge, so a mask
+# alone would keep the extra key out. The mask faults reach every body
+# because `interior_tile` decides by `sees` too: a tile a moved edge cuts
+# is an edge tile, and masked.
 K4_FAULTS = [
     ("one KV tile dropped", [("*j0 = static_cast<int>(k_lo / bkv);",
                               "*j0 = static_cast<int>(k_lo / bkv) + 1;")],
-     lambda window: True),
+     lambda sq, window: True),
     ("causal edge one key in", [("(!p.causal || q_pos >= k_pos)",
                                  "(!p.causal || q_pos > k_pos)")],
-     lambda window: True),
+     lambda sq, window: True),
     ("window edge one key in", [("(!p.has_window || q_pos - k_pos < p.window)",
                                  "(!p.has_window || q_pos - k_pos < p.window - 1)")],
-     lambda window: window is not None),
+     lambda sq, window: window is not None),
     ("window edge one key out", [
         ("(!p.has_window || q_pos - k_pos < p.window)",
          "(!p.has_window || q_pos - k_pos <= p.window)"),
         ("k_lo = qp_lo - p.window + 1;", "k_lo = qp_lo - p.window;")],
-     lambda window: window is not None),
+     lambda sq, window: window is not None),
+    # The diagonal tile classified one tile off: taken as interior, so it
+    # goes unmasked and rows see keys past their own. Only prefill has a
+    # diagonal inside the keys (at decode the last key is the query's).
+    ("edge tile taken as interior (diagonal one tile off)", [
+        ("sees(p, true, qp_lo, k0 + n - 1)", "sees(p, true, qp_lo + n, k0 + n - 1)")],
+     lambda sq, window: sq > 1),
+    # The wgmma body's ring walks one KV tile short: the last tile is
+    # never loaded nor awaited (producer and consumers agree, so nothing
+    # hangs). Reaches the prefill shapes, the only ones on wgmma.
+    ("wgmma: the ring one KV tile short", [
+        ("const int steps = j1 - j0;  // KV tiles the block walks",
+         "const int steps = j1 - j0 - 1;  // KV tiles the block walks")],
+     lambda sq, window: sq > 1),
+    # The stream body's combine drops warp 0's partial (warp 0 holds the
+    # block's first tile, so every decode shape has one).
+    ("stream: warp 0's partial dropped from the combine", [
+        ("for (int w = 0; w < ST_WARPS; ++w)", "for (int w = 1; w < ST_WARPS; ++w)")],
+     lambda sq, window: sq == 1),
 ]
 
 
@@ -2735,26 +2877,11 @@ GEMM_FAULTS = [
 ]
 
 
-def planted_gemm(torch, build, ks) -> tuple:
-    """Phase 1's GEMM edge checks against the kernels as built and a copy
-    of each with a fault of ``GEMM_FAULTS``: the kernels as built must
-    pass, each fault must fail. Returns (results, wrong)."""
-    gp, gv, gg, gt = ks["gp"], ks["gv"], ks["gg"], ks["gt"]
-    # kernel -> (entry point, argtypes, wrapper module, its loader's name)
-    entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES, gv, "_kernel"),
-             "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES, gp,
-                             "_packed_kernel"),
-             "gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES, gp,
-                                     "_kernel"),
-             "gemm_grouped_packed": ("gemm_grouped_packed_launch", gg._ARGTYPES, gg,
-                                     "_kernel"),
-             "gemm_tiled": ("gemm_tiled_launch", gt._ARGTYPES, gt, "_kernel")}
-    judge = {"gemm_vsx_like": k6_k8_checks, "gemm_packed": k6_k8_checks,
-             "gemm_packed_fused_a": k1_checks, "gemm_grouped_packed": k2_checks,
-             "gemm_tiled": k7_checks}
-    checks_name = {k6_k8_checks: "K6 / K8", k1_checks: "K1", k2_checks: "K2 / K3",
-                   k7_checks: "K7"}
-    t0 = time.perf_counter()
+def start_gemm_faults(build) -> list:
+    """Start one nvcc a copy of each GEMM kernel with a fault of
+    ``GEMM_FAULTS`` (the source and every header copied, the fault applied
+    to its copy of the target). Returns the jobs, (name, kernel, process,
+    library, log)."""
     jobs = []
     for i, (name, kernel, target, edits) in enumerate(GEMM_FAULTS):
         out_dir = build.BUILD_DIR / "planted" / f"{kernel}_fault{i}"
@@ -2774,6 +2901,29 @@ def planted_gemm(torch, build, ks) -> tuple:
             jobs.append((name, kernel, subprocess.Popen(
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
+    return jobs
+
+
+def planted_gemm(torch, ks, jobs) -> tuple:
+    """Phase 1's GEMM edge checks against the kernels as built and the
+    copies ``start_gemm_faults`` builds (``jobs``): the kernels as built
+    must pass, each fault must fail. Returns (results, wrong)."""
+    gp, gv, gg, gt = ks["gp"], ks["gv"], ks["gg"], ks["gt"]
+    # kernel -> (entry point, argtypes, wrapper module, its loader's name)
+    entry = {"gemm_vsx_like": ("matmul_vsx_like_launch", gv._ARGTYPES, gv, "_kernel"),
+             "gemm_packed": ("gemm_packed_launch", gp._PACKED_ARGTYPES, gp,
+                             "_packed_kernel"),
+             "gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES, gp,
+                                     "_kernel"),
+             "gemm_grouped_packed": ("gemm_grouped_packed_launch", gg._ARGTYPES, gg,
+                                     "_kernel"),
+             "gemm_tiled": ("gemm_tiled_launch", gt._ARGTYPES, gt, "_kernel")}
+    judge = {"gemm_vsx_like": k6_k8_checks, "gemm_packed": k6_k8_checks,
+             "gemm_packed_fused_a": k1_checks, "gemm_grouped_packed": k2_checks,
+             "gemm_tiled": k7_checks}
+    checks_name = {k6_k8_checks: "K6 / K8", k1_checks: "K1", k2_checks: "K2 / K3",
+                   k7_checks: "K7"}
+    t0 = time.perf_counter()
     runs = [("as built", kernel, None) for kernel in ("gemm_packed_fused_a", "gemm_packed",
                                                       "gemm_grouped_packed", "gemm_tiled")]
     for name, kernel, proc, lib, log_path in jobs:
@@ -2783,8 +2933,8 @@ def planted_gemm(torch, build, ks) -> tuple:
         fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
         fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
         runs.append((name, kernel, fn))
-    log(f"  built {len(jobs)} faulty copies of K1 / K2 / K6 / K7 / K8 in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"  built {len(jobs)} faulty copies of K1 / K2 / K6 / K7 / K8 "
+        f"({time.perf_counter() - t0:.1f} s more after K4's)")
     as_built = {k: getattr(mod, attr) for k, (_, _, mod, attr) in entry.items()}
     results, wrong = [], []
     try:
@@ -2813,13 +2963,13 @@ def planted_gemm(torch, build, ks) -> tuple:
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
     check catches a wrong K4 and phase 1's a wrong K1, K2, K6, K7 or K8.
-    Builds K4
-    and one copy of its source for each fault of ``K4_FAULTS`` (under
-    ``build/kernels/planted/``, all at once), then runs the kernel as built
-    and each faulty copy through the wrapper at A1-A6 and judges each output
-    as phase 6 does; then the same for K1 / K2 / K6-K8 (planted_gemm). Exits 0
-    when the kernels as built pass everywhere and each fault fails at every
-    shape it reaches."""
+    Starts one nvcc for each copy of K4's source with a fault of
+    ``K4_FAULTS`` (under ``build/kernels/planted/``) and for each GEMM copy
+    of ``GEMM_FAULTS``, all at once; then runs K4 as built and each faulty
+    copy through the wrapper at A1-A6 and judges each output as phase 6
+    does, and the same for K1 / K2 / K6-K8 (planted_gemm). Exits 0 when the
+    kernels as built pass everywhere and each fault fails at every shape it
+    reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
     out_dir = build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2839,6 +2989,7 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
             jobs.append((name, subprocess.Popen(
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
+    gemm_jobs = start_gemm_faults(build)
     kernels = {"as built": fa._kernel()}
     for name, proc, lib, log_path in jobs:
         if proc.wait() != 0:
@@ -2848,7 +2999,8 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
         fn.argtypes, fn.restype = fa._ARGTYPES, ctypes.c_int
         kernels[name] = fn
     log(f"  built K4 and {len(jobs)} faulty copies in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s ({len(gemm_jobs)} GEMM copies "
+        f"building beside them)")
     reach = {name: r for name, _, r in K4_FAULTS}
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     results, wrong = [], []
@@ -2863,7 +3015,7 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
                 torch.cuda.synchronize()
                 ok, errs = attention_verdict(torch, fa, out, q, k, v, window,
                                              want, want_probe)
-                reached = name != "as built" and reach[name](window)
+                reached = name != "as built" and reach[name](sq, window)
                 expect = "fail" if reached else "pass"
                 results.append(dict(shape=tag, kernel=name, expect=expect,
                                     passed=ok, **errs))
@@ -2879,7 +3031,8 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
             torch.cuda.empty_cache()
     finally:
         fa._kernel = as_built
-    results_68, wrong_68 = planted_gemm(torch, build, ks)
+    results_68, wrong_68 = planted_gemm(torch, ks, gemm_jobs)
+    log(f"  fault run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"planted_faults": results, "planted_faults_gemm": results_68,
                     "ok": not wrong and not wrong_68}))
     if wrong or wrong_68:
@@ -3016,6 +3169,7 @@ def main(argv) -> int:
     log(f"  gemm_grouped_packed SASS: "
         f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
     log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
+    log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
     table, main_err, k1_quant = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
@@ -3224,10 +3378,12 @@ def main(argv) -> int:
           on_main_path=("reached through repro_torch.kernels.ops.attention "
                         "(phase 6), not by the served models"),
           max_abs_err=attn_main_err, checks_max_abs_err=attn_err,
-          ms=attn_sum("ms"), plain_ms=attn_sum("plain_ms"),
-          bound_ms=attn_sum("bound_ms"),
+          ms=attn_sum("ms"), device_ms=attn_sum("device_ms"),
+          plain_ms=attn_sum("plain_ms"), bound_ms=attn_sum("bound_ms"),
           bound_by="operations" if 2 * by_ops > attn_sum("bound_ms") else "bytes",
           library_ms=attn_sum("library_ms"),
+          library_device_ms=attn_sum("library_device_ms"),
+          launches_by_body={r["tag"]: r["body"] for r in attn_rows},
           library="F.scaled_dot_product_attention(enable_gqa=True), backend "
                   "per shape",
           work="one ops.attention call at each of A1-A6 (bf16), summed",

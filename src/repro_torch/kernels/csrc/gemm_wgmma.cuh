@@ -254,6 +254,74 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
   }
 }
 
+#define WG_ACC8(d, o)                                                                          \
+  "+f"(d[o]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]), "+f"(d[o + 5]),   \
+      "+f"(d[o + 6]), "+f"(d[o + 7])
+#define WG_ACC64(d)                                                                            \
+  WG_ACC32(d), WG_ACC8(d, 32), WG_ACC8(d, 40), WG_ACC8(d, 48), WG_ACC8(d, 56)
+
+#define WG_MMA128_ASM(TYPE)                                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                               \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "        \
+  "%64, %65, p, 1, 1, %67, %68;\n}\n"
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory; D is
+// overwritten where scale_d is 0. Accumulator element e: n8 block e / 4,
+// row lane/4 (+8 for e % 4 >= 2) of the warp's 16, column 2*(lane%4) + e%2.
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(WG_MMA128_ASM("bf16")
+                 : WG_ACC64(d) : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(WG_MMA128_ASM("f16")
+                 : WG_ACC64(d) : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+}
+
+#define WG_MMA_RS_ASM(TYPE)                                                                  \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                               \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TYPE "." TYPE " "                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "        \
+  "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+
+// D[64 x 64] += A[64 x 16] B[16 x 64] with A from registers (RS): each
+// warp of the warpgroup holds its 16 rows as mma.sync m16n8k16's A
+// fragment (a[0] row lane/4, columns 2*(lane%4) and +1; a[1] the row + 8;
+// a[2] / a[3] the same 8 columns on), B from shared memory.
+template <typename T, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                   uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(WG_MMA_RS_ASM("bf16")
+                 : WG_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+  } else {
+    asm volatile(WG_MMA_RS_ASM("f16")
+                 : WG_ACC32(d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+  }
+}
+
+// fence_acc for any register array the asynchronous wgmma reads or writes.
+template <typename R, int N>
+__device__ __forceinline__ void fence_regs(R (&d)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if constexpr (std::is_same<R, float>::value) {
+      asm volatile("" : "+f"(d[e])::"memory");
+    } else {
+      asm volatile("" : "+r"(d[e])::"memory");
+    }
+  }
+}
+
 constexpr int WG_THREADS = 288;  // two consumer warpgroups, then one producer warp
 constexpr int WG_BOX_BYTES = BOX * BOX * 2;
 constexpr int WG_STAGE_BYTES = 4 * WG_BOX_BYTES;  // A tiles 2i, 2i+1; B tiles 2j, 2j+1

@@ -8,6 +8,20 @@ A row that sees no key (``Sq > Skv`` under causal masking, or a window that
 leaves nothing) comes out 0, as in the reference kernel, where the softmax
 oracle ``ref.attention_ref`` gives NaN.
 
+The kernel has four bodies, and :func:`attention_body` picks one a call:
+
+* ``stream`` (decode): bf16 / f16 that TMA can read
+  (:func:`attention_tma_aligned`), D 64 or 128, at most ``STREAM_ROWS``
+  (query, head) rows per (batch, KV head): K / V stream through a TMA ring,
+  every warp takes its share of the keys on mma.sync;
+* ``wgmma`` (prefill): the same operands with more rows: TMA + wgmma,
+  128 queries of one head a block, P kept in registers for P V;
+* ``mma_general``: any other bf16 / f16 (D not 64 / 128, a base or stride
+  off 16 bytes): mma.sync from padded shared rows;
+* ``f32``: full f32 on the CUDA cores.
+
+``flash_attention.variants`` counts the launches by body.
+
 The wrapper takes the plain version only for tensors on the CPU. For a CUDA
 tensor it launches the kernel or raises: there is no fallback.
 """
@@ -22,6 +36,7 @@ import torch
 
 from repro_torch.core.dtypes import dtype_name
 from repro_torch.kernels import build
+from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ref import attention_mask
 
 DT = {"float32": 0, "bfloat16": 1, "float16": 2}  # enum DType of the source
@@ -30,6 +45,15 @@ MAX_KV_HEADS = 65535  # B * Hkv rides the kernel's grid y axis (checked here onl
 # Largest f32 temporary of the plain version, in elements (1 GiB): scores of
 # a chunk of queries and batch rows, or its K / V rows widened to f32.
 PLAIN_CHUNK_ELEMS = 1 << 28
+# K4's bodies by name and their codes in the source (enum FlashBody); the
+# names are the ``.variants`` keys.
+BODY = {"f32": 0, "mma_general": 1, "stream": 2, "wgmma": 3}
+ATTENTION_BODIES = tuple(BODY)
+STREAM_ROWS = 16          # the stream body's rows per (batch, KV head): one m16 tile
+TMA_HEAD_DIMS = (64, 128)  # head dims of the TMA bodies (one or two 64-column boxes)
+# Key tiles of the TMA bodies (WQ_BKV, ST_BKV) and the wgmma body's row tile
+# (WQ_ROWS): the geometry that :func:`tile_class` mirrors.
+WGMMA_ROWS, WGMMA_KEYS, STREAM_KEYS = 128, 128, 64
 
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # q, strides
@@ -38,7 +62,7 @@ _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,                 # out, dt, B, Sq
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,                    # Skv, H, Hkv, D
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,             # causal, has_w, w, scale
-    ctypes.c_void_p,                                                           # stream
+    ctypes.c_int, ctypes.c_void_p,                                             # body, stream
 ]
 
 
@@ -113,12 +137,128 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+def attention_strides(t: torch.Tensor) -> tuple:
+    """(sb, ss, sh): the batch, sequence and head element strides of q, k
+    or v as the kernel takes them. A dim of extent 1 is never stepped, so
+    torch leaves its stride free; it is replaced by the span of the dims
+    inside it, rounded up to 16 bytes, so that a ``[B, 1, H, D]`` decode q
+    (or a single head, or batch 1) never looks misaligned."""
+    b, s, h, d = t.shape
+    sb, ss, sh, _ = t.stride()
+    per16 = max(1, 16 // t.element_size())
+
+    def span(elems):
+        return cdiv(max(1, elems), per16) * per16
+    if h == 1:
+        sh = span(d)
+    if s == 1:
+        ss = span(h * sh)
+    if b == 1:
+        sb = span(s * ss)
+    return sb, ss, sh
+
+
+def attention_tma_aligned(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor) -> bool:
+    """Whether TMA can read q, k and v as they lie: each has elements, a
+    16-byte aligned base, a unit last stride, and batch / sequence / head
+    strides (after :func:`attention_strides`) that are positive multiples
+    of 16 bytes."""
+    for t in (q, k, v):
+        if t.numel() == 0 or t.stride(-1) != 1:
+            return False
+        per16 = max(1, 16 // t.element_size())
+        if t.data_ptr() % 16 or any(st <= 0 or st % per16
+                                    for st in attention_strides(t)):
+            return False
+    return True
+
+
+def attention_body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True, window: Optional[int] = None) -> str:
+    """K4's body for these operands (the masks do not change it): f32 takes
+    ``f32``; bf16 / f16 that :func:`attention_tma_aligned` passes, with D
+    in ``TMA_HEAD_DIMS``, take ``stream`` up to ``STREAM_ROWS`` rows
+    (Sq * H / Hkv) per (batch, KV head) and ``wgmma`` above; any other bf16
+    / f16 takes ``mma_general``. D = 256 is not on a TMA body: its O
+    accumulator alone would be 128 registers a thread of the wgmma body."""
+    del causal, window
+    if dtype_name(q.dtype) == "float32":
+        return "f32"
+    _, sq, h, d = q.shape
+    if d in TMA_HEAD_DIMS and attention_tma_aligned(q, k, v):
+        return "stream" if sq * (h // k.shape[2]) <= STREAM_ROWS else "wgmma"
+    return "mma_general"
+
+
+def tile_class(sq: int, skv: int, causal: bool, window: Optional[int],
+               i_lo: int, i_hi: int, j: int, bkv: int) -> str:
+    """The class of key tile ``j`` (keys ``[j * bkv, (j + 1) * bkv)``)
+    against the live queries ``[i_lo, i_hi]`` of a row tile, as the CUDA
+    source decides it (``visible_tiles`` and ``interior_tile``):
+    ``"invisible"`` (not loaded), ``"interior"`` (every row sees every key:
+    no mask) or ``"edge"`` (masked key by key)."""
+    shift = skv - sq
+    qp_lo, qp_hi = i_lo + shift, i_hi + shift
+
+    def sees(q_pos, k_pos):
+        return (k_pos < skv and (not causal or q_pos >= k_pos)
+                and (window is None or q_pos - k_pos < window))
+    k_lo, k_hi = 0, skv - 1
+    if causal:
+        k_hi = min(k_hi, qp_hi)
+    if window is not None:
+        k_lo = max(k_lo, qp_lo - window + 1)
+    if k_hi < k_lo or not k_lo // bkv <= j <= k_hi // bkv:
+        return "invisible"
+    k0 = j * bkv
+    if sees(qp_lo, k0 + bkv - 1) and sees(qp_hi, k0):
+        return "interior"
+    return "edge"
+
+
+def launch_args(q, k, v, out, *, causal, window, scale, stream) -> tuple:
+    """The C entry point's argument tuple for q, k, v (the wrapper has
+    checked them) and the output ``out``, and the body it runs:
+    ``(args, body)``. Strides of extent-1 dims are replaced
+    (:func:`attention_strides`)."""
+    b, sq, h, d, skv, hkv = _geometry(q, k, v)
+    body = attention_body(q, k, v, causal, window)
+    return (q.data_ptr(), *attention_strides(q), k.data_ptr(),
+            *attention_strides(k), v.data_ptr(), *attention_strides(v),
+            out.data_ptr(), DT[dtype_name(q.dtype)], b, sq, skv, h, hkv, d,
+            int(bool(causal)), int(window is not None),
+            0 if window is None else int(window), _scale(scale, d),
+            BODY[body], stream), body
+
+
+def _launch(q, k, v, *, causal, window, scale, stream) -> torch.Tensor:
+    """Allocate the output, launch the kernel on ``stream`` and count the
+    launch by body (an empty output launches nothing). A tensor whose last
+    stride is not 1 is copied first."""
+    b, sq, h, d, _, _ = _geometry(q, k, v)
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    args, body = launch_args(q, k, v, out, causal=causal, window=window,
+                             scale=scale, stream=stream)
+    rc = _kernel()(*args)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed ({body}): CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    flash_attention.variants[body] += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Skv,Hkv,D] -> [B,Sq,H,D] in q's dtype; ``scale``
-    defaults to 1/sqrt(D) and multiplies the f32 scores. The kernel chooses
-    its own tiles. On the CPU this is :func:`flash_attention_plain`."""
+    defaults to 1/sqrt(D) and multiplies the f32 scores. The kernel's body
+    is :func:`attention_body`'s. On the CPU this is
+    :func:`flash_attention_plain`."""
     b, sq, h, d, skv, hkv = _geometry(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -135,21 +275,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"kernel takes head dims up to {MAX_HEAD_DIM}; got {d}")
     if b * hkv > MAX_KV_HEADS:
         raise ValueError(f"B * Hkv = {b * hkv} exceeds {MAX_KV_HEADS}")
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _kernel()(
-            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
-            v.data_ptr(), *v.stride()[:3], out.data_ptr(), DT[dt], b, sq, skv,
-            h, hkv, d, int(bool(causal)), int(window is not None),
-            0 if window is None else int(window), _scale(scale, d), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
-    return out
+        return _launch(q, k, v, causal=causal, window=window, scale=scale,
+                       stream=stream)
 
 
 flash_attention.launches = 0
+flash_attention.variants = dict.fromkeys(ATTENTION_BODIES, 0)
