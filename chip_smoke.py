@@ -1,7 +1,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K2, K4, K6-K8
+    python3 chip_smoke.py --planted-faults   # the checks against a wrong K1, K2, K4-K8
     python3 chip_smoke.py --served-attention OTHER/layers.py   # served attention, A/B
 
 Phases (any failure exits non-zero and prints no result line):
@@ -39,8 +39,17 @@ Phases (any failure exits non-zero and prints no result line):
        misaligned A on mma_sync), each call held to the body it must take.
        Rows past the counts must be exactly 0;
      - pack_a / pack_b / pack_b_grouped (K5) byte-equal to the plain
-       packers (f32, bf16, int8, int4; row and col; tile and col scales;
-       odd shapes; a transposed source); gemm_packed (K6), gemm_tiled (K7,
+       packers (k5_checks: f32, bf16, int8, int4; row and col; tile and
+       col scales; odd shapes; padded and transposed sources; tiles 16 ...
+       256 and over; odd offsets, strided columns, 8-byte elements;
+       extent-1 dims), each call held to the body pack_body names
+       (tma_copy, tma_stage, general) under a freed 0xFF block where the
+       output lands; K5's SASS per function (UTMALDG and UBLKCP in both
+       TMA bodies, neither in general); K5 timed at the served paths'
+       shapes (each olmo-1b projection, the LM head as table.t(), one
+       mixtral-8x22b expert stack) in events and device time beside its
+       byte bound, torch's one-call strided copy and its general body;
+       gemm_packed (K6), gemm_tiled (K7,
        also as one block) and matmul_vsx_like (K8, and its packed-B
        variant) in f32, bf16 and int8 at odd shapes, with strided and
        transposed operands, bias, every epilogue and beta * C; K6 and K8
@@ -73,7 +82,8 @@ Phases (any failure exits non-zero and prints no result line):
      random weights from a seed, made on the card) through
      ``Engine(..., ServeConfig(pack_weights=True))``: prompt batch 4 x 128,
      then 32 greedy decode steps (K1's launches by body: wgmma at prefill,
-     tc_stream for the prefill's LM head and at decode, nothing else). The
+     tc_stream for the prefill's LM head and at decode, nothing else; the
+     load's K5 packs: 112 tma_copy, the LM head tma_stage). The
      first prefill's logits are compared with the same weights run through
      the plain versions on the card.
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
@@ -82,7 +92,8 @@ Phases (any failure exits non-zero and prints no result line):
      layers of f32 weights are 40 GB, plus 20 GB packed in bf16) — the
      same way: prefill logits against the plain versions, expert choices
      compared, K1's launches by body as for olmo-1b, K2's on wgmma at
-     prefill and tc_stream at decode, nothing else.
+     prefill and tc_stream at decode, nothing else; the load's K5 packs
+     on tma_copy, but the LM head's (table.t()) on tma_stage.
   4. The paper's strategy comparison: square GEMMs of the paper's sizes
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
@@ -96,7 +107,9 @@ Phases (any failure exits non-zero and prints no result line):
   5. Serve olmo-1b again with phase 2's weights RAW (bf16) through the
      default ``Engine(model, params)``: prefill logits against phase 2's,
      and the lowering of every contraction recorded (K1 at prefill on
-     wgmma only, every K7 launch on tc_stream).
+     wgmma only, every K7 launch on tc_stream, the prefill's 112 K5
+     packs on tma_copy); a profile of the prefill forward (device busy
+     time, K5's device time a forward).
   6. Long-context attention through ``repro_torch.kernels.ops.attention``
      (K4) in bf16 at full head width, lengths from ``configs.shapes``:
      olmo-1b (16 heads x 128) at its served prefill and decode (A1, A2),
@@ -124,9 +137,12 @@ the last split dropped from tc_stream's reduction, and of K2 with a dead
 segment that stores nothing, the row at the count kept, the pair's up
 stream read from B's map and the last split dropped from grouped_reduce,
 and of K7 with B's maps as wide as their row strides, the k-box count
-floored and the last split dropped from tc_stream's reduction, which
-phase 1's K6 / K8, K1, K2 / K3 and K7 edge checks must fail while passing
-the kernels as built. Every copy's nvcc starts at once.
+floored and the last split dropped from tc_stream's reduction, and of K5
+with its source map as wide as the row stride, the persistent walk's last
+chunk dropped and the stage pass reading one lane over, which phase 1's
+K6 / K8, K1, K2 / K3, K7 and K5 checks must fail (K5: at every call each
+fault reaches) while passing the kernels as built. Every copy's nvcc
+starts at once.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -1145,6 +1161,344 @@ def k7_checks(torch, ks, quiet=False) -> tuple:
     return fails, seen
 
 
+# K5 checks, (wrapper, dtype, scale granularity, layout, shape of X, view,
+# tile (bm, bk) of pack_a / (bk, bn) of pack_b, the body it must take):
+# phase 1's original cases, then each body's edges. Views: "contig";
+# "padded", a column slice of a buffer wider by at least 64 columns of
+# random values (a row stride past C, C off whole tiles: a map as wide as
+# the stride would read them); "t", "t_padded", the transpose of a [C, R]
+# matrix or of such a slice; "offset", one element past a 16-byte
+# boundary; "step2", every second column. A quantized format quantizes f32
+# values (the kernel then sees them zero-padded to whole tiles).
+K5_FORMATS = [("float32", None), ("bfloat16", None), ("int8", None),
+              ("int8", "tile"), ("int8", "col"), ("int4", "tile"),
+              ("int4", "col")]
+
+
+def k5_format_body(dtype, gran, layout):
+    """The body of phase 1's format cases at (300, 200) with 64 x 32 tiles:
+    raw int8 rows are 200 bytes (off 16), the rest take TMA; the row layout
+    of a float or int8 X is its box as it lies, anything else a stage."""
+    if dtype == "int8" and gran is None:
+        return "general"
+    return "tma_copy" if layout == "row" and dtype != "int4" else "tma_stage"
+
+
+K5_CASES = (
+    [("pack_a", dt, None, lay, (37, 70), "contig", (16, 32), "general")
+     for lay in ("row", "col") for dt in ("float32", "bfloat16", "int8")]
+    + [(fn, dt, gran, lay, shape, "contig", (64, 32), k5_format_body(dt, gran, lay))
+       for lay in ("row", "col") for dt, gran in K5_FORMATS
+       for fn, shape in (("pack_b", (300, 200)), ("pack_b_grouped", (3, 300, 200)))]
+    + [("pack_b", "bfloat16", None, "row", (300, 200), "t", (128, 64), "general"),
+       # tma_copy: ragged R and C under a wider row stride, tiles 16 ... 256
+       ("pack_b", "bfloat16", None, "row", (300, 200), "padded", (64, 32), "tma_copy"),
+       ("pack_b_grouped", "bfloat16", None, "row", (3, 300, 200), "padded", (64, 32),
+        "tma_copy"),
+       ("pack_b", "bfloat16", None, "row", (300, 200), "padded", (16, 16), "tma_copy"),
+       ("pack_b", "bfloat16", None, "row", (300, 200), "padded", (128, 64), "tma_copy"),
+       ("pack_b", "bfloat16", None, "row", (600, 300), "padded", (256, 128), "tma_copy"),
+       ("pack_a", "bfloat16", None, "row", (300, 200), "padded", (64, 32), "tma_copy"),
+       ("pack_b", "int8", None, "row", (300, 200), "padded", (64, 32), "tma_copy"),
+       ("pack_b", "float32", None, "col", (300, 200), "t_padded", (64, 32), "tma_copy"),
+       # tma_stage: transposes of a row-major X, table.t() in the row layout
+       ("pack_b", "float32", None, "col", (300, 200), "padded", (64, 32), "tma_stage"),
+       ("pack_b", "bfloat16", None, "col", (300, 200), "padded", (64, 32), "tma_stage"),
+       ("pack_a", "bfloat16", None, "col", (300, 200), "padded", (64, 32), "tma_stage"),
+       ("pack_b", "int8", None, "col", (300, 200), "padded", (64, 32), "tma_stage"),
+       ("pack_b", "bfloat16", None, "row", (300, 200), "t_padded", (128, 64), "tma_stage"),
+       ("pack_b_grouped", "bfloat16", None, "row", (3, 300, 200), "t_padded", (128, 64),
+        "tma_stage"),
+       ("pack_b", "float32", None, "col", (600, 300), "padded", (256, 128), "tma_stage"),
+       # general: what TMA cannot read
+       ("pack_b", "bfloat16", None, "row", (300, 200), "offset", (64, 32), "general"),
+       ("pack_b", "float32", None, "col", (300, 200), "offset", (64, 32), "general"),
+       ("pack_b", "bfloat16", None, "row", (300, 200), "step2", (64, 32), "general"),
+       ("pack_b", "bfloat16", None, "row", (37, 70), "contig", (64, 32), "general"),
+       ("pack_b", "float64", None, "row", (300, 200), "contig", (64, 32), "general"),
+       ("pack_b", "int64", None, "col", (300, 200), "contig", (64, 32), "general"),
+       ("pack_b", "bfloat16", None, "row", (600, 200), "contig", (512, 64), "general"),
+       # extent-1 dims: K = 1, N = 1 (a column, and a column of table.t()),
+       # E = 1, a 1 x 1 matrix
+       ("pack_b", "bfloat16", None, "row", (1, 200), "contig", (64, 32), "tma_copy"),
+       ("pack_b", "bfloat16", None, "row", (300, 1), "contig", (64, 32), "tma_stage"),
+       ("pack_b", "bfloat16", None, "col", (300, 1), "t", (64, 32), "tma_copy"),
+       ("pack_b_grouped", "bfloat16", None, "row", (1, 300, 200), "padded", (64, 32),
+        "tma_copy"),
+       ("pack_b", "float32", None, "row", (1, 1), "contig", (64, 32), "tma_copy")])
+
+def k5_input(torch, gen, device, dtype, gran, shape, view):
+    """X of a K5 case: values from ``gen`` on ``device`` laid out as
+    ``view`` says (K5_CASES); f32 values for a quantized format."""
+    dt = getattr(torch, "float32" if gran else dtype)
+
+    def values(*s):
+        if dt.is_floating_point:
+            return torch.randn(s, generator=gen, device=device).to(dt)
+        return torch.randint(-100, 100, s, generator=gen, device=device, dtype=dt)
+    *lead, r, c = shape
+    if view == "contig":
+        return values(*shape)
+    if view == "padded":
+        return values(*lead, r, -(-c // 64) * 64 + 64)[..., :c]
+    if view == "t":
+        return values(*lead, c, r).transpose(-2, -1)
+    if view == "t_padded":
+        return values(*lead, c, -(-r // 64) * 64 + 64)[..., :r].transpose(-2, -1)
+    if view == "offset":
+        return values(math.prod(shape) + 1)[1:].view(shape)
+    if view == "step2":
+        return values(*lead, r, 2 * c)[..., ::2]
+    raise ValueError(f"unknown view {view!r}")
+
+
+def k5_call(pk, tf, fn, dtype, gran, layout, tile):
+    """(kernel wrapper, plain version, its arguments after X) of a case."""
+    if fn == "pack_a":
+        return pk.pack_a, pk.pack_a_plain, (*tile, layout)
+    scale = dict(scale=tf.ScaleSpec(granularity=gran)) if gran else {}
+    fmt = tf.TileFormat(bk=tile[0], bn=tile[1], layout=layout, dtype=dtype, **scale)
+    return ((pk.pack_b, pk.pack_b_plain) if fn == "pack_b"
+            else (pk.pack_b_grouped, pk.pack_b_grouped_plain)) + ((fmt,),)
+
+
+def k5_launched(pk, fn, x, args) -> tuple:
+    """(X as the kernel sees it, [E, R, C]; b0, b1, transpose, nibble) of a
+    wrapper call: pack_a's and pack_b's X as a stack of one, a quantized
+    format's values after quantizing."""
+    if fn == "pack_a":
+        bm, bk, layout = args
+        return x[None], bm, bk, layout == "col", False
+    fmt = args[0]
+    x3 = x[None] if x.dim() == 2 else x
+    if fmt.is_quantized:
+        x3 = pk.quantize_natural(x3, fmt)[0]
+    return x3, fmt.bk, fmt.bn, fmt.layout == "col", fmt.sub_byte
+
+
+def k5_reach(pk, x3, b0, b1, transpose, nibble) -> dict:
+    """What a planted fault of K5_FAULTS needs to show at a call: its body,
+    and whether a map as wide as the row stride reads past X's unit-stride
+    extent into values (the extent off whole tiles under a wider stride
+    between rows; a single row or column has no neighbour to read)."""
+    body = pk.pack_body(x3, b0, b1, transpose, nibble)
+    plan = pk.pack_plan(x3, b0, b1, transpose, nibble)
+    wide = False
+    if plan is not None:
+        _, r, c = x3.shape
+        _, sr, sc = pk.pack_strides(x3)
+        ext_u, ext_v, sv, bu = (c, r, sr, b1) if plan.unit == "c" else (r, c, sc, b0)
+        wide = ext_v > 1 and sv > ext_u and ext_u % bu != 0
+    return dict(body=body, wide=wide)
+
+
+def k5_checks(torch, ks, quiet=False, reach=None) -> tuple:
+    """K5 against the plain packers, byte for byte, at every case of
+    K5_CASES, each call held to the body K5_CASES names, which must be the
+    one ``pack_body`` names (read from ``.variants``). Before each call a
+    freed block of the output's size filled with 0xFF bytes lies where the
+    caching allocator hands out the output, so a chunk the kernel does not
+    store shows (logged: how often the block came back). Then empty
+    operands, which launch and count nothing. ``reach``, a dict, gets each
+    case's ``k5_reach``. Returns (failed tags, launches by body)."""
+    pk, tf = ks["pack"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    fails = []
+    seen = dict.fromkeys(pk.PACK_BODIES, 0)
+    landed = 0
+    for i, (fn_name, dtype, gran, layout, shape, view, tile, want) in enumerate(K5_CASES):
+        tag = (f"K5 {i} {fn_name} {dtype}{':' + gran if gran else ''} {layout} "
+               f"{shape} {view} tile {tile}")
+        x = k5_input(torch, gen, DEVICE, dtype, gran, shape, view)
+        fn, plain, args = k5_call(pk, tf, fn_name, dtype, gran, layout, tile)
+        launched = k5_launched(pk, fn_name, x, args)
+        named = pk.pack_body(*launched)
+        if reach is not None:
+            reach[tag] = k5_reach(pk, *launched)
+        want_out = plain(x, *args)
+        want_t = want_out if isinstance(want_out, tuple) else (want_out,)
+        poison = torch.full((want_t[0].numel() * want_t[0].element_size(),), 0xFF,
+                            dtype=torch.uint8, device=DEVICE)
+        spot = poison.data_ptr()
+        del poison
+        before = dict(fn.variants)
+        try:
+            got = fn(x, *args)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            continue
+        got_t = got if isinstance(got, tuple) else (got,)
+        landed += got_t[0].data_ptr() == spot
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            seen[v] += fn.variants[v] - before[v]
+        same = len(got_t) == len(want_t) and all(
+            same_bytes(torch, g, w) for g, w in zip(got_t, want_t))
+        ok = same and ran == [want] == [named]
+        if not ok:
+            fails.append(tag)
+        if not ok or not quiet:
+            log(f"  check {tag} [{'+'.join(ran)}; want {want}, pack_body {named}]: "
+                f"byte-equal {same} {'ok' if ok else 'FAIL'}")
+    log(f"  K5: the 0xFF block came back under {landed} of {len(K5_CASES)} outputs")
+    fmt = ks["tf"].TileFormat(bk=128, bn=64, dtype="bfloat16")
+    before = {f.__name__: f.launches for f in (pk.pack_a, pk.pack_b, pk.pack_b_grouped)}
+    pk.pack_a(torch.zeros((0, 70), device=DEVICE), 16, 32)
+    pk.pack_b(torch.zeros((0, 200), device=DEVICE), fmt)
+    pk.pack_b_grouped(torch.zeros((0, 300, 200), device=DEVICE), fmt)
+    after = {f.__name__: f.launches for f in (pk.pack_a, pk.pack_b, pk.pack_b_grouped)}
+    if after != before:
+        fails.append("K5 empty operands")
+        log(f"  check K5 empty operands: counts {after} (before {before}) FAIL")
+    return fails, seen
+
+
+def k5_times(torch, pk, tf) -> tuple:
+    """K5 at the shapes the served paths pack (bf16, bk 128 bn 64, row):
+    each olmo-1b projection (the raw prefill packs them per call), the LM
+    head as table.t() (packed at load) and one mixtral-8x22b expert stack
+    (pack_b_grouped at load). At each: byte-equal to the plain packer, on
+    the body ``pack_body`` names; CUDA events and device time (the mean a
+    recorded launch, ``launch_ms``) of the wrapper, of the library
+    yardstick (one strided copy, ``reshape(Kb, bk, Nb, bn).permute(2, 0,
+    1, 3).contiguous()``: the same function at these tile-aligned float
+    shapes, byte-equal too) and of the ``general`` body (the C entry called
+    with that body, a measurement only, also byte-equal); the plain packer
+    in events; the byte bound (X read once, the buffer written once).
+    Returns (rows, failed tags)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    bk, bn = 128, 64
+    fmt = tf.TileFormat(bk=bk, bn=bn, dtype="bfloat16")
+    rows, fails = [], []
+    shapes = [(None, k, n) for k, n in OLMO_SHAPES] + [(MIX_E, MIX_D, MIX_F)]
+    for e, k, n in shapes:
+        head = (k, n) == (2048, 50304)
+        nbytes = (e or 1) * k * n * 2
+        copies = max(1, min(16, math.ceil(128e6 / nbytes)))
+
+        def randn(*s):
+            return (torch.randn(s, generator=gen, device=DEVICE) * 0.02).to(torch.bfloat16)
+        # The LM head is packed as table.t(), a transposed view.
+        xs = [randn(e, k, n) if e else randn(n, k).t() if head else randn(k, n)
+              for _ in range(copies)]
+        fn, plain = ((pk.pack_b_grouped, pk.pack_b_grouped_plain) if e
+                     else (pk.pack_b, pk.pack_b_plain))
+        lead = (e,) if e else ()
+        perm = (0, 3, 1, 2, 4) if e else (2, 0, 1, 3)
+
+        def library(i):
+            return xs[i % copies].reshape(*lead, k // bk, bk, n // bn, bn).permute(
+                *perm).contiguous()
+        x3s = [x if e else x[None] for x in xs]
+        body = pk.pack_body(x3s[0], bk, bn, False, False)
+        expect = "tma_stage" if head else "tma_copy"   # table.t() transposes
+        want = plain(xs[0], fmt)
+        before = dict(fn.variants)
+        got = fn(xs[0], fmt)
+        torch.cuda.synchronize()
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        outs = [torch.empty_like(want) for _ in range(2)]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def general(i):
+            rc = pk._kernel()(*pk.launch_args(
+                x3s[i % copies], bk, bn, col_order=True, transpose=False,
+                nibble=False, body="general", out=outs[i % 2], stream=stream))
+            if rc != 0:
+                raise RuntimeError(f"K5 general launch failed: CUDA error {rc}")
+        general(0)
+        torch.cuda.synchronize()
+        tag = f"K5 times {'pack_b_grouped E=' + str(e) if e else 'pack_b'} K={k} N={n}"
+        ok = (same_bytes(torch, got, want) and ran == [body] == [expect]
+              and same_bytes(torch, library(0).view(want.shape), want)
+              and same_bytes(torch, outs[0], want))
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        if not ok:
+            fails.append(tag)
+        reps = 5 if e else 20
+        call = (lambda i: fn(xs[i % copies], fmt))
+        t_k = time_ms(call, reps)
+        t_dev, kept = launch_ms(call, reps)
+        t_lib = time_ms(library, reps)
+        t_lib_dev, kept_lib = launch_ms(library, reps)
+        t_gen_dev, kept_gen = launch_ms(general, max(2, reps // 4))
+        t_plain = time_ms(lambda i: plain(xs[i % copies], fmt), max(2, reps // 4))
+        bound = 2 * nbytes / H100_HBM_BYTES * 1e3
+        rows.append(dict(kernel="pack_b_grouped" if e else "pack_b", e=e, k=k, n=n,
+                         body=body, ms=t_k, device_ms=t_dev, plain_ms=t_plain,
+                         library_ms=t_lib, library_device_ms=t_lib_dev,
+                         general_device_ms=t_gen_dev, bound_ms=bound, bound_by="bytes",
+                         max_abs_err=err, records_kept=min(kept, kept_lib, kept_gen)))
+        log(f"  {tag} ({'table.t(), ' if head else ''}{ran}; want {expect}, pack_body "
+            f"{body}): byte-equal "
+            f"(kernel, library, general) {'ok' if ok else 'FAIL'}; kernel {t_k:.4f} ms "
+            f"(device {t_dev:.4f}), torch copy {t_lib:.4f} (device {t_lib_dev:.4f}), "
+            f"general device {t_gen_dev:.4f}, plain {t_plain:.4f}, bound {bound:.4f} "
+            f"(bytes); records kept {kept} / {kept_lib} / {kept_gen}")
+        del xs, x3s, outs
+        torch.cuda.empty_cache()
+    return rows, fails
+
+
+# K5's kernel functions, by a piece of their names: both TMA bodies must
+# issue the TMA load (UTMALDG) and the bulk store (UBLKCP), the general body
+# neither.
+K5_TMA_OPS = ("UTMALDG", "UBLKCP")
+
+
+def check_k5_sass(path) -> str:
+    """K5's library, per function: a TMA load and a bulk store (UTMALDG,
+    UBLKCP, whatever their suffixes) in every k5_tma_copy and k5_tma_stage,
+    neither in k5_general. Returns the opcodes found, by body."""
+    import re
+    # Whatever cuobjdump calls them: UTMALDG.3D, UBLKCP.S.G, ...
+    funcs = sass_by_function(path, lambda line: re.findall(r"\bU(?:TMA|BLK)[A-Z0-9_.]*", line))
+    found = {tag: [ops for n, ops in funcs.items() if tag in n]
+             for tag in ("k5_tma_copy", "k5_tma_stage", "k5_general")}
+
+    def has(ops, op):
+        return any(o.startswith(op) for o in ops)
+    bad = [tag for tag in ("k5_tma_copy", "k5_tma_stage")
+           if not found[tag] or not all(has(ops, op) for ops in found[tag]
+                                        for op in K5_TMA_OPS)]
+    if not found["k5_general"] or any(has(ops, op) for ops in found["k5_general"]
+                                      for op in K5_TMA_OPS):
+        bad.append("k5_general")
+    if bad:
+        raise AssertionError(f"{path.name}: functions failing their SASS check "
+                             f"{bad}: {found}")
+    return ", ".join(f"{len(ops)} {tag} ({sorted(set().union(*ops)) or 'none'})"
+                     for tag, ops in found.items())
+
+
+# Faults that ``--planted-faults`` plants in copies of K5's source (name,
+# edits of pack.cu, which calls of k5_checks it reaches by their
+# ``k5_reach``). k5_checks must fail each at every call it reaches.
+K5_FAULTS = [
+    # The map as wide as X's row stride: past a ragged edge TMA then reads
+    # the row's padding instead of filling zeros.
+    ("K5: the source map as wide as its row stride, not X", [
+        ("const cuuint64_t width = static_cast<cuuint64_t>(ext_u);",
+         "const cuuint64_t width = static_cast<cuuint64_t>(sv);")],
+     lambda r: r["wide"]),
+    # The block holding the last chunk walks one chunk short: it stays 0xFF.
+    ("K5: the persistent walk's last chunk dropped", [
+        ("return static_cast<int>((p.chunks - blockIdx.x + gridDim.x - 1) / gridDim.x);",
+         "return static_cast<int>((p.chunks - 1 - blockIdx.x + gridDim.x - 1) / gridDim.x);")],
+     lambda r: r["body"] != "general"),
+    # The stage pass reads its block one 32-bit lane over (transposes) or
+    # its vector one over (nibble packing alone); it stays in bounds.
+    ("K5: the stage pass's read one lane over", [
+        ("load_block<P>(s32, jb, ib, ub, w);",
+         "load_block<P>(s32, jb, (ib + 1) % ub, ub, w);"),
+        ("const uint4 w = s4[v];", "const uint4 w = s4[(v + 1) % n16];")],
+     lambda r: r["body"] == "tma_stage"),
+]
+
+
 def phase_layered(torch, ks, tf):
     """K5 (pack), K6 (gemm_packed), K7 (gemm_tiled) and K8 (matmul_vsx_like
     and its packed variant) against their plain versions on the card, then
@@ -1168,17 +1522,6 @@ def phase_layered(torch, ks, tf):
         if not ok:
             fails.append(tag)
 
-    def check_pack(tag, got, want):
-        """Byte-equality of a packer's output (and scales) with the plain
-        version's; returns the max abs difference of their values."""
-        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-        same = all(same_bytes(torch, g, w) for g, w in pairs)
-        err = max(math.inf if g.shape != w.shape else
-                  float((g.float() - w.float()).abs().max()) if g.numel()
-                  else 0.0 for g, w in pairs)
-        verdict(tag, same, f"byte-equal, max_abs_err={err:.3e}")
-        return err
-
     def check(tag, fn, plain, args, kw, rtol, atol):
         got = fn(*args, **kw)
         torch.cuda.synchronize()
@@ -1188,43 +1531,19 @@ def phase_layered(torch, ks, tf):
                 f"max_abs_err={err:.3e} (rtol={rtol}, atol={atol})")
         return err
 
-    # -- K5: pack_a / pack_b / pack_b_grouped, byte-equal ---------------------
-    formats = [("float32", None), ("bfloat16", None), ("int8", None),
-               ("int8", "tile"), ("int8", "col"), ("int4", "tile"),
-               ("int4", "col")]
-    tdt = {"float32": torch.float32, "bfloat16": bf16}
-    for layout in ("row", "col"):
-        for name in ("float32", "bfloat16", "int8"):
-            x = randi(37, 70) if name == "int8" else randn(37, 70, dtype=tdt[name])
-            check_pack(f"pack_a {name} {layout} 37x70 bm=16 bk=32",
-                       pk.pack_a(x, 16, 32, layout), pk.pack_a_plain(x, 16, 32, layout))
-        for name, gran in formats:
-            scale = dict(scale=tf.ScaleSpec(granularity=gran)) if gran else {}
-            fmt = tf.TileFormat(bk=64, bn=32, layout=layout, dtype=name, **scale)
-            for shape in ((300, 200), (3, 300, 200)):
-                w = (randn(*shape) if gran or name == "float32" else
-                     randi(*shape) if name == "int8" else randn(*shape, dtype=bf16))
-                fn, plain = ((pk.pack_b, pk.pack_b_plain) if len(shape) == 2
-                             else (pk.pack_b_grouped, pk.pack_b_grouped_plain))
-                check_pack(f"{fn.__name__} {name}:{gran} {layout} {shape}",
-                           fn(w, fmt), plain(w, fmt))
-    table = randn(200, 300, dtype=bf16)   # a transposed view, as the LM head
+    # -- K5: pack_a / pack_b / pack_b_grouped, byte-equal, on their bodies ----
+    k5_fails, k5_seen = k5_checks(torch, dict(pack=pk, tf=tf))
+    log(f"  K5 checks, launches by body: {k5_seen}")
+    fails += k5_fails
     fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
-    check_pack("pack_b bf16 of a transposed view", pk.pack_b(table.t(), fmt),
-               pk.pack_b_plain(table.t(), fmt))
     # Empty operands launch nothing and count nothing.
     before = {f.__name__: f.launches for f in (
-        pk.pack_a, pk.pack_b, pk.pack_b_grouped, gt.gemm_tiled,
-        gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
-    pk.pack_a(randn(0, 70), 16, 32)
-    pk.pack_b(randn(0, 200), fmt)
-    pk.pack_b_grouped(randn(0, 300, 200), fmt)
+        gt.gemm_tiled, gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
     gt.gemm_tiled(randn(0, 64), randn(64, 32))
     gv.matmul_vsx_like(randn(0, 64), randn(64, 32))
     gv.matmul_vsx_like_packed(randn(0, 64), pk.pack_b_plain(randn(64, 32), fmt), 32)
     after = {f.__name__: f.launches for f in (
-        pk.pack_a, pk.pack_b, pk.pack_b_grouped, gt.gemm_tiled,
-        gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
+        gt.gemm_tiled, gv.matmul_vsx_like, gv.matmul_vsx_like_packed)}
     verdict("empty operands count no launch", after == before,
             f"counts {after} (before {before})")
 
@@ -1316,7 +1635,7 @@ def phase_layered(torch, ks, tf):
                              f"{fails}")
 
     # -- times at olmo-1b's shapes (bf16), B rotated over >= 128 MB -----------
-    rows, main_err = [], {"pack_b": 0.0, "gemm_tiled": 0.0, "gemm_packed": 0.0,
+    rows, main_err = [], {"gemm_tiled": 0.0, "gemm_packed": 0.0,
                           "matmul_vsx_like": 0.0,
                           "matmul_vsx_like_packed": 0.0}
     fmt = tf.TileFormat(bk=128, bn=64, dtype="bfloat16")
@@ -1331,20 +1650,7 @@ def phase_layered(torch, ks, tf):
         bps = [pk.pack_b(x, fmt) for x in ws]
         # K8's CUDA-core yardstick: the same product in f32 with TF32 off.
         ws32 = [x.float() for x in ws]
-        # K5 at the shapes the served paths pack: every projection of the
-        # raw-weight prefill, and the LM head (table.t()) packed at load.
-        main_err["pack_b"] = max(main_err["pack_b"], check_pack(
-            f"pack_b bf16 K={k} N={n}{' (table.t())' if head else ''}",
-            bps[0], pk.pack_b_plain(ws[0], fmt)))
         b_bytes = k * n * 2
-        t_pack = time_ms(lambda i: pk.pack_b(ws[i % copies], fmt), 10)
-        t_pack_plain = time_ms(lambda i: pk.pack_b_plain(ws[i % copies], fmt), 3)
-        pack_bound = (b_bytes + fmt.packed_bytes(k, n)) / H100_HBM_BYTES * 1e3
-        rows.append(dict(kernel="pack_b", k=k, n=n, ms=t_pack,
-                         plain_ms=t_pack_plain, bound_ms=pack_bound,
-                         bound_by="bytes", library_ms=None))
-        log(f"  time pack_b K={k} N={n}: kernel {t_pack:.4f} ms, plain "
-            f"{t_pack_plain:.4f} ms, bound {pack_bound:.4f} ms (bytes)")
         for m in (4, 512):
             a = randn(m, k, dtype=bf16)
             bm = min(64, -(-m // 16) * 16)
@@ -1422,22 +1728,13 @@ def phase_layered(torch, ks, tf):
                     + f", bound {t_b:.4f} ms ({by})")
         del ws, ws32, bps
     rows += k7_square_times(torch, gt)
-    # pack_b_grouped at one mixtral-8x22b expert stack (gate, E=8).
-    wst = randn(MIX_E, MIX_D, MIX_F, std=0.02, dtype=bf16)
-    main_err["pack_b_grouped"] = check_pack(
-        f"pack_b_grouped bf16 E={MIX_E} K={MIX_D} N={MIX_F}",
-        pk.pack_b_grouped(wst, fmt), pk.pack_b_grouped_plain(wst, fmt))
-    torch.cuda.empty_cache()
-    t_g = time_ms(lambda i: pk.pack_b_grouped(wst, fmt), 5)
-    t_gp = time_ms(lambda i: pk.pack_b_grouped_plain(wst, fmt), 2)
-    g_bound = (wst.numel() * 2 + MIX_E * fmt.packed_bytes(MIX_D, MIX_F)) \
-        / H100_HBM_BYTES * 1e3
-    rows.append(dict(kernel="pack_b_grouped", e=MIX_E, k=MIX_D, n=MIX_F,
-                     ms=t_g, plain_ms=t_gp, bound_ms=g_bound, bound_by="bytes",
-                     library_ms=None))
-    log(f"  time pack_b_grouped E={MIX_E} K={MIX_D} N={MIX_F}: kernel "
-        f"{t_g:.4f} ms, plain {t_gp:.4f} ms, bound {g_bound:.4f} ms (bytes)")
-    del wst
+    # K5 at the served paths' shapes, beside torch's one-call copy and its
+    # general body.
+    k5_rows, k5_fails = k5_times(torch, pk, tf)
+    rows += k5_rows
+    fails += k5_fails
+    for kernel in ("pack_b", "pack_b_grouped"):
+        main_err[kernel] = max(r["max_abs_err"] for r in k5_rows if r["kernel"] == kernel)
     if fails:
         raise AssertionError(f"kernels disagree with their plain versions: "
                              f"{fails}")
@@ -1507,15 +1804,19 @@ def tensor_core_ops(path) -> tuple:
             len(sass.splitlines()))
 
 
-def sass_by_function(path) -> dict:
-    """{kernel function (mangled name): tensor-core opcodes in its SASS}."""
+def sass_by_function(path, find=None) -> dict:
+    """{kernel function (mangled name): the opcodes ``find(line)`` picks
+    from its SASS lines (by default the tensor-core ones)}."""
+    if find is None:
+        def find(line):
+            return [op for op in TENSOR_CORE_OPS if op in line]
     funcs, name = {}, None
     for line in dump_sass(path).splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
             funcs[name] = set()
         elif name is not None:
-            funcs[name].update(op for op in TENSOR_CORE_OPS if op in line)
+            funcs[name].update(find(line))
     return funcs
 
 
@@ -1916,12 +2217,13 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     want = {}
     outs = []
     counters.reset()
-    bodies = []  # the K6 / K8 bodies each case launched
+    bodies = []  # the GEMM bodies each case launched (K5's are logged apart)
     for dt, size, s, a, b in cases:
         before = counters.variants()
         outs.append(gemm.matmul(a, b, strategy=s))
         bodies.append(sorted(f"{name}:{v}" for name, vs in counters.variants().items()
-                             for v, c in vs.items() if c != before[name][v]))
+                             for v, c in vs.items()
+                             if c != before[name][v] and not name.startswith("pack")))
     gouts = [grouped_call(s, wc) for s, wc in gcases]
     torch.cuda.synchronize()
     launches = counters.read()
@@ -1945,7 +2247,9 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     # fma_tiled (f32), tiling_packing_fused (K1) wgmma / fma_tiled, and vsx
     # fma_tiled; at f32 K1 runs on the CUDA-core bodies at every size;
     # intrinsic (K7 as one block) takes a TMA body at every bf16 size.
-    log(f"  sweep launches by body {variants}")
+    k5 = {name: {v: c for v, c in variants[name].items() if c}
+          for name in ("pack_a", "pack_b", "pack_b_grouped")}
+    log(f"  sweep launches by body {variants}; K5's {k5}")
     wrong = []
     for (dt, size, s, a, b), ran in zip(cases, bodies):
         eff = s if s != "auto" else gemm.resolve_strategy(
@@ -2147,6 +2451,69 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
                 decode_device_ms={k: v for k, v in per_kernel.items()})
 
 
+# The raw prefill's kernels in a profile: K5's three bodies ("k5_"), K1's
+# wgmma body (on NaturalA with packed B), the last-position LM head on K7's
+# tc_stream (NaturalB).
+RAW_PREFILL_TAGS = {"K5": "k5_", "K1 wgmma": "wgmma_packed", "K7": "NaturalB"}
+
+
+def prefill_profile(torch, engine, prompt, prefill_ms, kernel_tags, k5_calls,
+                    forwards=2) -> dict:
+    """Where one warm prefill forward's device time goes (torch.profiler,
+    ``forwards`` forwards): device busy ms a forward, its share of the
+    unprofiled forward (``prefill_ms``, CUDA events), and each tag's
+    kernel ms a forward, with the K5 launches the profile kept of
+    ``k5_calls`` a forward (it can lose records in a long process). Then
+    the forward in CUDA events (5 a turn) with K5 on the bodies pack_body
+    routes to and with every pack forced onto ``general`` (the element
+    kernel; a measurement only), in turns: general, routed, routed,
+    general, general, routed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import pack as pk
+    tok = prompt.to(DEVICE)
+    engine._prefill(tok)
+    torch.cuda.synchronize()
+    routed = pk.pack_body
+    turns = []
+    for body in ("general", "routed", "routed", "general", "general", "routed"):
+        if body == "general":
+            pk.pack_body = lambda *args: "general"
+        try:
+            turns.append((body, time_ms(lambda i: engine._prefill(tok), 5)))
+        finally:
+            pk.pack_body = routed
+    ab = {body: [ms for b, ms in turns if b == body] for body in ("routed", "general")}
+    log(f"  raw prefill forward, CUDA events (in turns): K5 routed {ab['routed']} ms, "
+        f"K5 forced onto general {ab['general']} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(forwards):
+            engine._prefill(tok)
+        torch.cuda.synchronize()
+    dev, counts = {}, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dev[ev.key], counts[ev.key] = t, ev.count
+    busy = sum(dev.values()) / forwards / 1e3
+    per_kernel = {label: sum(t for name, t in dev.items() if tag in name) / forwards / 1e3
+                  for label, tag in kernel_tags.items()}
+    k5_kept = sum(c for name, c in counts.items() if kernel_tags["K5"] in name)
+    log(f"  profile {forwards} raw prefill forwards: device busy {busy:.3f} ms a "
+        f"forward = {100 * busy / prefill_ms:.1f}% of the unprofiled forward "
+        f"({prefill_ms:.2f} ms), " + ", ".join(
+            f"{label} {ms:.3f} ms" for label, ms in per_kernel.items())
+        + f" a forward; K5 launches recorded {k5_kept} of {k5_calls * forwards}")
+    for name, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {t / forwards / 1e3:8.3f} ms a forward  {name[:90]}")
+    return dict(prefill_ms=prefill_ms, device_busy_ms=busy,
+                device_busy_share=busy / prefill_ms, device_ms=per_kernel,
+                k5_records=k5_kept, k5_launches=k5_calls * forwards,
+                forward_ms_k5_routed=ab["routed"], forward_ms_k5_general=ab["general"])
+
+
 def bf16_tree(torch, tree):
     """Every floating leaf of a parameter tree as bf16 (the compute dtype)."""
     if isinstance(tree, dict):
@@ -2173,17 +2540,27 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     # Load-time packing is on the path: every weight and the LM head
     # (table.t()) go through K5, once.
     counters.reset()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter()
     engine = serve.Engine(model, params, serve.ServeConfig(
         max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
         device=DEVICE)
     torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_load
     load = counters.read()
+    # Every projection is a row-major bf16 matrix (tma_copy); the LM head
+    # is packed from table.t(), a transpose (tma_stage).
+    load_bodies = launches_by_body(counters, "pack_b")
+    want_load_bodies = dict(tma_copy=per_forward - 1, tma_stage=1)
     log(f"  olmo-1b: {cfg.num_layers} layers, d_model {cfg.d_model}, vocab "
-        f"{cfg.vocab_size}; init + pack {time.perf_counter() - t0:.1f} s; "
-        f"load launches {load} (want pack_b {per_forward}, nothing else); "
-        f"dispatch {engine.dispatch_report}")
+        f"{cfg.vocab_size}; init + pack {time.perf_counter() - t0:.1f} s, of which "
+        f"Engine construction (load, synchronized) {t_load * 1e3:.1f} ms; load "
+        f"launches {load} (want pack_b {per_forward}, nothing else); K5 by body "
+        f"{load_bodies} (want {want_load_bodies}); dispatch {engine.dispatch_report}")
     if load != counters.only(pack_b=per_forward):
         raise AssertionError(f"load-time launch counts {load}")
+    if load_bodies != want_load_bodies:
+        raise AssertionError(f"load-time K5 launches by body {load_bodies}")
     gen = torch.Generator(device="cpu").manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
 
@@ -2232,7 +2609,8 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
 
     timings = serve_timings(torch, engine, prompt, STEPS, K1_KERNEL_TAGS)
     timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3,
-                   k1_launches_by_body=bodies)
+                   k1_launches_by_body=bodies, load_ms=t_load * 1e3,
+                   k5_load_launches_by_body=load_bodies)
     del engine
     return load, launches, timings, (model, params, logits_k, prompt)
 
@@ -2275,21 +2653,25 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         launches = counters.read()
         bodies = launches_by_body(counters)
         k7_bodies = launches_by_body(counters, "gemm_tiled")
+        k5_bodies = launches_by_body(counters, "pack_b")
     finally:
         ctr.LOWERINGS.update(real)
     want_bodies = dict(wgmma=7 * layers)   # the prefill's 4 x 128 rows
     # Every K7 launch (decode, and the prefill's last-position LM head) has
-    # 4 rows of aligned bf16 operands: tc_stream.
+    # 4 rows of aligned bf16 operands: tc_stream. The prefill packs each
+    # row-major bf16 projection per call: tma_copy.
     want_k7 = dict(tc_stream=want["gemm_tiled"])
+    want_k5 = dict(tma_copy=want["pack_b"])
     log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} "
         f"ms; launches {launches} (want {want}); lowerings {picks}; K1 by "
         f"body {bodies} (want {want_bodies}); K7 by body {k7_bodies} (want "
-        f"{want_k7})")
+        f"{want_k7}); K5 by body {k5_bodies} (want {want_k5})")
     if launches != want or picks.get("torch_matmul", 0) != 0:
         raise AssertionError(f"raw-weight launch counts {launches}, "
                              f"lowerings {picks}")
-    if bodies != want_bodies or k7_bodies != want_k7:
-        raise AssertionError(f"K1 launches by body {bodies}, K7 {k7_bodies}")
+    if bodies != want_bodies or k7_bodies != want_k7 or k5_bodies != want_k5:
+        raise AssertionError(f"K1 launches by body {bodies}, K7 {k7_bodies}, "
+                             f"K5 {k5_bodies}")
     check_tokens(tokens, cfg)
 
     logits_raw, _ = engine.prefill_request(prompt[0])
@@ -2308,7 +2690,10 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
     timings = serve_timings(torch, engine, prompt, STEPS, K7_KERNEL_TAGS)
     timings.update(rel_fro_vs_packed=rel, first_generate_ms=t_gen * 1e3,
                    lowerings=picks, k1_launches_by_body=bodies,
-                   k7_launches_by_body=k7_bodies)
+                   k7_launches_by_body=k7_bodies, k5_launches_by_body=k5_bodies,
+                   prefill_profile=prefill_profile(
+                       torch, engine, prompt, timings["model_prefill_ms"],
+                       RAW_PREFILL_TAGS, want["pack_b"]))
     del engine
     return launches, timings
 
@@ -2335,10 +2720,10 @@ K1_KERNEL_TAGS = {"K1 tc_stream": "mma_stream", "K1 wgmma": "wgmma_packed",
 # K7's at raw decode, where no K1 runs: its TMA bodies are the only ones
 # instantiated on natural B ("NaturalB"), all on tc_stream there
 # ("mma_stream", K1's too where K1 runs), with their split reduction
-# ("splitk_reduce"); blocked_mma is mma_general, pack_tiles K5.
+# ("splitk_reduce"); blocked_mma is mma_general; K5's bodies are k5_*.
 K7_KERNEL_TAGS = {"K7": "NaturalB", "mma_stream": "mma_stream",
                   "splitk_reduce": "splitk_reduce", "K7 mma_general": "blocked_mma",
-                  "K5": "pack_tiles"}
+                  "K5": "k5_"}
 # K2's: all of them ("grouped_"), then by body (the split reduction after
 # tc_stream apart).
 K2_KERNEL_TAGS = {"K2": "grouped_", "K2 tc_stream": "grouped_stream",
@@ -2394,12 +2779,22 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     want_load = counters.only(pack_b=4 * cfg.num_layers + 1,
                               pack_b_grouped=3 * cfg.num_layers)
     counters.reset()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter()
     engine = serve.Engine(model, params, serve.ServeConfig(
         max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
         device=DEVICE)
-    del params
     torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_load
+    del params
     load = counters.read()
+    # Attention projections and expert stacks are row-major bf16
+    # (tma_copy); the LM head is packed from table.t() (tma_stage).
+    load_bodies = {name: launches_by_body(counters, name)
+                   for name in ("pack_b", "pack_b_grouped")}
+    want_load_bodies = dict(
+        pack_b=dict(tma_copy=4 * cfg.num_layers, tma_stage=1),
+        pack_b_grouped=dict(tma_copy=3 * cfg.num_layers))
     torch.cuda.empty_cache()
     log(f"  mixtral-8x22b: {cfg.num_layers} of 56 layers (depth is the only "
         f"cut, forced by memory), d_model {cfg.d_model}, {cfg.num_heads} "
@@ -2409,10 +2804,14 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
         f"{time.perf_counter() - t0:.1f} s; after init {raw_gb:.1f} GB "
         f"allocated (raw f32 weights, and olmo-1b's kept for phase 5), "
         f"peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, packed "
-        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; load launches {load} "
-        f"(want {want_load}); dispatch {engine.dispatch_report}")
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB; Engine construction (load, "
+        f"synchronized) {t_load * 1e3:.1f} ms; load launches {load} (want "
+        f"{want_load}); K5 by body {load_bodies} (want {want_load_bodies}); "
+        f"dispatch {engine.dispatch_report}")
     if load != want_load:
         raise AssertionError(f"load-time launch counts {load}")
+    if load_bodies != want_load_bodies:
+        raise AssertionError(f"load-time K5 launches by body {load_bodies}")
     gen = torch.Generator(device="cpu").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
     want_k1 = (4 * cfg.num_layers + 1) * (STEPS + 1)
@@ -2517,7 +2916,8 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
                    expert_choice_flips_free=flips_free,
                    expert_choices=n_choices, first_generate_ms=t_gen * 1e3,
                    k1_launches_by_body=bodies, k2_launches_by_body=bodies_k2,
-                   prefill_counts=counts, prefill_dropped=dropped)
+                   prefill_counts=counts, prefill_dropped=dropped,
+                   load_ms=t_load * 1e3, k5_load_launches_by_body=load_bodies)
     del engine
     torch.cuda.empty_cache()
     return load, launches, timings
@@ -2877,13 +3277,13 @@ GEMM_FAULTS = [
 ]
 
 
-def start_gemm_faults(build) -> list:
-    """Start one nvcc a copy of each GEMM kernel with a fault of
-    ``GEMM_FAULTS`` (the source and every header copied, the fault applied
-    to its copy of the target). Returns the jobs, (name, kernel, process,
-    library, log)."""
+def start_gemm_faults(build, faults=GEMM_FAULTS) -> list:
+    """Start one nvcc a copy of each kernel with a fault of ``faults``
+    (name, kernel, target, edits; by default ``GEMM_FAULTS``): the source
+    and every header copied, the fault applied to its copy of the target.
+    Returns the jobs, (name, kernel, process, library, log)."""
     jobs = []
-    for i, (name, kernel, target, edits) in enumerate(GEMM_FAULTS):
+    for i, (name, kernel, target, edits) in enumerate(faults):
         out_dir = build.BUILD_DIR / "planted" / f"{kernel}_fault{i}"
         out_dir.mkdir(parents=True, exist_ok=True)
         for f in list(build.CSRC.glob("*.cuh")) + [build.CSRC / f"{kernel}.cu"]:
@@ -2960,16 +3360,59 @@ def planted_gemm(torch, ks, jobs) -> tuple:
     return results, wrong
 
 
+def planted_pack(torch, ks, jobs) -> tuple:
+    """k5_checks against K5 as built and each copy of ``K5_FAULTS`` that
+    ``jobs`` builds: as built must pass every case; each fault must fail
+    every case its reach names (``k5_reach`` of the call). Returns
+    (results, wrong)."""
+    pk = ks["pack"]
+    t0 = time.perf_counter()
+    runs = [("as built", None, None)]
+    for (name, _, proc, lib, log_path), (_, _, reaches) in zip(jobs, K5_FAULTS):
+        if proc.wait() != 0:
+            raise RuntimeError(f"fault '{name}' did not build:\n"
+                               + log_path.read_text()[-4000:])
+        fn = ctypes.CDLL(str(lib)).pack_tiles_launch
+        fn.argtypes, fn.restype = pk._ARGTYPES, ctypes.c_int
+        runs.append((name, fn, reaches))
+    log(f"  built {len(jobs)} faulty copies of K5 ({time.perf_counter() - t0:.1f} s "
+        f"more after the GEMM copies)")
+    as_built = pk._kernel
+    results, wrong = [], []
+    try:
+        for name, fn, reaches in runs:
+            if fn is not None:
+                pk._kernel = lambda fn=fn: fn
+            reach = {}
+            fails, _ = k5_checks(torch, ks, quiet=True, reach=reach)
+            pk._kernel = as_built
+            named = [] if fn is None else [t for t, r in reach.items() if reaches(r)]
+            missed = [t for t in named if t not in fails]
+            ok = not fails if fn is None else bool(named) and not missed
+            results.append(dict(kernel=name, checks="K5", reached=len(named),
+                                failed_checks=len(fails), missed=missed, ok=ok))
+            if not ok:
+                wrong.append(f"{name} (K5 checks)")
+            log(f"  phase 1 K5 checks, {name}: {len(fails)} of {len(reach)} cases "
+                f"failed" + (f" (it reaches {len(named)}, all must fail; missed "
+                             f"{missed})" if fn is not None else " (all must pass)")
+                + f" {'ok' if ok else 'WRONG'}"
+                + (f"; first {fails[:3]}" if fails and fn is None else ""))
+    finally:
+        pk._kernel = as_built
+    return results, wrong
+
+
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
-    check catches a wrong K4 and phase 1's a wrong K1, K2, K6, K7 or K8.
-    Starts one nvcc for each copy of K4's source with a fault of
-    ``K4_FAULTS`` (under ``build/kernels/planted/``) and for each GEMM copy
-    of ``GEMM_FAULTS``, all at once; then runs K4 as built and each faulty
-    copy through the wrapper at A1-A6 and judges each output as phase 6
-    does, and the same for K1 / K2 / K6-K8 (planted_gemm). Exits 0 when the
-    kernels as built pass everywhere and each fault fails at every shape it
-    reaches."""
+    check catches a wrong K4 and phase 1's a wrong K1, K2, K5, K6, K7 or
+    K8. Starts one nvcc for each copy of K4's source with a fault of
+    ``K4_FAULTS`` (under ``build/kernels/planted/``), for each GEMM copy of
+    ``GEMM_FAULTS`` and each K5 copy of ``K5_FAULTS``, all at once; then
+    runs K4 as built and each faulty copy through the wrapper at A1-A6 and
+    judges each output as phase 6 does, and the same for K1 / K2 / K6-K8
+    (planted_gemm) and K5 (planted_pack). Exits 0 when the kernels as built
+    pass everywhere and each fault fails at every shape it reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
     out_dir = build.BUILD_DIR / "planted"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2990,6 +3433,8 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
                 build.nvcc_command(src, lib), stdout=log_f,
                 stderr=subprocess.STDOUT), lib, log_path))
     gemm_jobs = start_gemm_faults(build)
+    pack_jobs = start_gemm_faults(build, [(name, "pack", "pack.cu", edits)
+                                          for name, edits, _ in K5_FAULTS])
     kernels = {"as built": fa._kernel()}
     for name, proc, lib, log_path in jobs:
         if proc.wait() != 0:
@@ -2999,8 +3444,8 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
         fn.argtypes, fn.restype = fa._ARGTYPES, ctypes.c_int
         kernels[name] = fn
     log(f"  built K4 and {len(jobs)} faulty copies in "
-        f"{time.perf_counter() - t0:.1f} s ({len(gemm_jobs)} GEMM copies "
-        f"building beside them)")
+        f"{time.perf_counter() - t0:.1f} s ({len(gemm_jobs)} GEMM and "
+        f"{len(pack_jobs)} K5 copies building beside them)")
     reach = {name: r for name, _, r in K4_FAULTS}
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     results, wrong = [], []
@@ -3032,12 +3477,14 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     finally:
         fa._kernel = as_built
     results_68, wrong_68 = planted_gemm(torch, ks, gemm_jobs)
+    results_k5, wrong_k5 = planted_pack(torch, ks, pack_jobs)
     log(f"  fault run {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"planted_faults": results, "planted_faults_gemm": results_68,
-                    "ok": not wrong and not wrong_68}))
-    if wrong or wrong_68:
+                    "planted_faults_k5": results_k5,
+                    "ok": not wrong and not wrong_68 and not wrong_k5}))
+    if wrong or wrong_68 or wrong_k5:
         log(f"chip_smoke: the checks judged these as not expected: "
-            f"{wrong + wrong_68}")
+            f"{wrong + wrong_68 + wrong_k5}")
         return 1
     return 0
 
@@ -3058,8 +3505,7 @@ class Counters:
         return {name: fn.launches for name, fn in self.fns.items()}
 
     def variants(self) -> dict:
-        """Launches by body of the wrappers that count them (K1, K2, K3,
-        K6, K7, K8)."""
+        """Launches by body of every wrapper that counts them (K1-K8)."""
         return {name: dict(fn.variants) for name, fn in self.fns.items()
                 if hasattr(fn, "variants")}
 
@@ -3141,8 +3587,8 @@ def main(argv) -> int:
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
             "judged by phase 6's check at A1-A6; K1 / K2 / K6-K8 as built "
-            "and with each fault of GEMM_FAULTS, judged by phase 1's edge "
-            "checks")
+            "and with each fault of GEMM_FAULTS, and K5 with each of "
+            "K5_FAULTS, judged by phase 1's edge checks")
         return planted_faults(torch, build, fa, cfgs, shapes,
                               dict(pack=pk, gp=gp, gv=gv, gg=gg, gt=gt, ref=ref,
                                    tf=tf))
@@ -3170,6 +3616,7 @@ def main(argv) -> int:
         f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
     log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
     log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
+    log(f"  pack SASS: {check_k5_sass(paths['pack'])}")
     table, main_err, k1_quant = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
     layered_rows, layered_err = phase_layered(
@@ -3328,17 +3775,39 @@ def main(argv) -> int:
           launches_by_body={"strategy sweep": {v: c for v, c in sweep_variants[
               "gemm_grouped_packed"].items() if c}},
           work=grouped_work + "; every row live (no counts)", card=card)
+    k5_keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+               "general_device_ms", "bound_ms")
+    k5_library = ("torch's one-call strided copy, x.reshape(Kb, bk, Nb, bn).permute(2, "
+                  "0, 1, 3).contiguous(): the same function for float tiles on "
+                  "tile-aligned shapes only (int4, and ragged shapes, which need "
+                  "F.pad first, have no single call)")
+
+    def nonzero(counts):
+        return {v: c for v, c in counts.items() if c}
     entry("pack", "pack.cu", "src/repro/kernels/pack.py:43",
           ["pack_a", "pack_b"], max_abs_err=layered_err["pack_b"],
-          **layered_entry("pack_b", None, prefill_count,
-                          "the 112 per-call pack_b of one raw-weight olmo-1b "
-                          "prefill forward (bf16, bk 128 bn 64)"),
-          serve=raw_t)
+          **{key: forward_sum(layered_rows, "pack_b", None, key, prefill_count)
+             for key in k5_keys}, bound_by="bytes", body="tma_copy",
+          launches_by_body={
+              "olmo-1b packed, load": serve_t["k5_load_launches_by_body"],
+              "mixtral-8x22b packed, load": mix_t["k5_load_launches_by_body"]["pack_b"],
+              "strategy sweep": {name: nonzero(sweep_variants[name])
+                                 for name in ("pack_a", "pack_b")},
+              "olmo-1b raw": raw_t["k5_launches_by_body"]},
+          library=k5_library,
+          work="the 112 per-call pack_b of one raw-weight olmo-1b prefill forward "
+               "(bf16, bk 128 bn 64, row)",
+          shapes=[r for r in layered_rows if r["kernel"] == "pack_b"],
+          raw_prefill_profile=raw_t["prefill_profile"], card=card)
     grouped_pack = [r for r in layered_rows if r["kernel"] == "pack_b_grouped"][0]
     entry("pack_b_grouped", "pack.cu", "src/repro/kernels/pack.py:121",
           ["pack_b_grouped"], max_abs_err=layered_err["pack_b_grouped"],
-          **{k: grouped_pack[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")},
+          **{k: grouped_pack[k] for k in k5_keys + ("bound_by", "body")},
+          launches_by_body={
+              "mixtral-8x22b packed, load":
+                  mix_t["k5_load_launches_by_body"]["pack_b_grouped"],
+              "strategy sweep": nonzero(sweep_variants["pack_b_grouped"])},
+          library=k5_library,
           work=f"one mixtral-8x22b expert stack, E={MIX_E} x {MIX_D} x "
                f"{MIX_F} bf16", grouped_sweep=grouped_sweep, card=card)
     entry("gemm_packed", "gemm_packed.cu", "src/repro/kernels/gemm_packed.py:93",
