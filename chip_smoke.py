@@ -75,6 +75,25 @@ Phases (any failure exits non-zero and prints no result line):
        tile edge, D 64 / 128 / 256), fused-qkv views at prefill and
        decode, heads stored outside the sequence and a misaligned q, each
        call held to the body attention_body names;
+     - the quantized TMA bodies of K1 and K2 / K3 (gemm_quant.cuh:
+       tc_stream_q at decode, wgmma_q above; their SASS must hold UTMALDG
+       and HMMA / HGMMA), kq_checks: int8 / int4 tiles over the whole
+       range (-8 and -128 included) with tile or col scales, both layouts,
+       K1 at M 1 ... 512 with K 700 split and unsplit, every epilogue with
+       bias and beta * C, f16, K2 at C 1 ... 300 over counts 0, partial,
+       C, > C and negative, the pair with B != B2, every segment dead, K3,
+       a misaligned A on the earlier bodies; each call held to the body
+       the route names under a freed NaN block; kq_served: the same
+       checks at the served shapes below, int8:tile and int4:col, new body
+       and earlier one, tiles over the whole range with scales drawn over
+       a 16x range; then kq_times: K1 at
+       olmo-1b's decode (113 calls) and prefill (112 calls) shapes, K2 / K3
+       at mixtral's decode and prefill envelopes, int8:tile and int4:col,
+       new body beside the earlier one (forced through the route) in
+       device time and events, against the narrow bytes' bound, the plain
+       version and the one-call library op where the card's torch has one
+       (``torch._weight_int8pack_mm`` for int8:col,
+       ``torch._weight_int4pack_mm`` for int4);
      - every ``repro_torch.kernels.ops`` wrapper once at a small odd shape
        against the plain composition of what it launches, with its
        launches counted (packed_matmul = 2 K5 + 1 K6, and so on).
@@ -94,6 +113,16 @@ Phases (any failure exits non-zero and prints no result line):
      compared, K1's launches by body as for olmo-1b, K2's on wgmma at
      prefill and tc_stream at decode, nothing else; the load's K5 packs
      on tma_copy, but the LM head's (table.t()) on tma_stage.
+  3b. Serve olmo-1b with phase 2's weights quantized at load, as int8
+     (tile scales) and as int4 (col scales), through
+     ``ServeConfig(pack_weights=True, quantize=...)``: every K1 launch on
+     wgmma_q (prefill) or tc_stream_q, nothing on the earlier quantized bodies; prefill
+     logits against the plain versions on the same quantized weights (the
+     gate, as phase 2's) and against phase 2's float logits (reported).
+  3c. Serve mixtral-8x22b (4 of 56 layers, phase 3's seed, drawn again
+     after phase 3's engine is freed) quantized to int8 the same way: K1
+     and K2 on the quantized TMA bodies only, phase 3's logits gate, the
+     error against phase 3's float logits reported.
   4. The paper's strategy comparison: square GEMMs of the paper's sizes
      (16 ... 4096) in f32 and bf16 through
      ``repro_torch.core.gemm.matmul(..., strategy=s)`` for every strategy
@@ -119,8 +148,10 @@ Phases (any failure exits non-zero and prints no result line):
      on wgmma at A1 / A3 / A5 and stream at A2 / A4 / A6),
      checked against the plain version (each element within 2e-2 of |want|
      + its row's RMS, at most |want| + 1e-2, the norm within 1e-2, and a uniform-weight probe that
-     catches one key too many or too few), timed (CUDA events, and
-     torch.profiler's mean kernel time a launch) beside its bound, the
+     catches one key too many or too few), timed (CUDA events; device
+     time by CUDA events with the stream held back by a spin kernel, since
+     late in the process torch.profiler loses kernel records; the
+     profiler's mean kernel time beside it where it kept every record) beside its bound, the
      plain version and F.scaled_dot_product_attention (the yardstick only).
      Then served attention alone: ``models.layers.chunked_attention`` (what
      the served models run) at olmo-1b's served prefill and decode and one
@@ -139,10 +170,14 @@ stream read from B's map and the last split dropped from grouped_reduce,
 and of K7 with B's maps as wide as their row strides, the k-box count
 floored and the last split dropped from tc_stream's reduction, and of K5
 with its source map as wide as the row stride, the persistent walk's last
-chunk dropped and the stage pass reading one lane over, which phase 1's
-K6 / K8, K1, K2 / K3, K7 and K5 checks must fail (K5: at every call each
-fault reaches) while passing the kernels as built. Every copy's nvcc
-starts at once.
+chunk dropped and the stage pass reading one lane over, and of K1 / K2's
+quantized bodies (QUANT_FAULTS: the tile scale of the next k-tile, the col
+scale applied to every split as well, int4's nibbles swapped, int4's -8
+read as -7), which phase 1's K6 / K8, K1, K2 / K3, K7, K5 and quantized
+checks must fail (K5 and the quantized ones: at every call each fault
+reaches, the quantized ones at their edges and at the served shapes) while
+passing the kernels as built. Every copy's nvcc starts at once.
+``--planted-faults quantized`` runs the quantized copies alone.
   Each served or swept path runs with every kernel's launch count set to 0
   just before it and read just after; a path that did not launch what it
   must fails the run. Timings: for each served model, warm Engine.generate
@@ -160,6 +195,7 @@ per-kernel JSON summary.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -215,10 +251,18 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+# Each time a profiler reading was lost and stream-backed events stood in
+# (``device_ms``, ``k5_times``): what, and why. Printed in the summary.
+DEVICE_FALLBACKS = []
+
+
+def device_ms(fn, reps: int, what: str = "") -> float:
     """Mean device time of ``fn(i)`` over ``reps`` calls: the kernels' own
     time from torch.profiler (CUPTI), without the host's launch gaps that
-    CUDA events around a loop of small calls include."""
+    CUDA events around a loop of small calls include. Where the profiler
+    recorded no kernel time (its records were lost), the stream-backed
+    events' time (``backed_ms``) instead, logged and listed in
+    ``DEVICE_FALLBACKS``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(0)
@@ -233,17 +277,30 @@ def device_ms(fn, reps: int) -> float:
             continue  # a host op's device time is its kernels', counted here
         t = getattr(ev, "self_device_time_total", None)
         total += t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+    if total <= 0:
+        return backed_fallback(fn, reps, what, f"torch.profiler recorded no "
+                               f"kernel time of {reps} calls")
     return total / reps / 1e3
+
+
+def backed_fallback(fn, reps, what, why) -> float:
+    """``backed_ms`` where a profiler reading was lost, logged and listed."""
+    ms = backed_ms(fn, reps)
+    DEVICE_FALLBACKS.append(dict(what=what or "a timed call", why=why, ms=ms))
+    log(f"  device time of {what or 'a timed call'}: {why}; stream-backed "
+        f"events instead, {ms:.4f} ms")
+    return ms
 
 
 def launch_ms(fn, reps: int) -> tuple:
     """Device time of ``fn(i)`` for a call that launches each of its
-    kernels once: the mean duration of each kernel's launches that
-    torch.profiler recorded, summed over the kernels. Late in this
-    script's process the profiler can lose kernel records (2 of 5 at each
-    long phase-6 shape on an H100), which ``device_ms`` would count as
-    idle; a mean over the records it kept is not biased by that. Returns
-    (ms, the fewest records of any kernel)."""
+    kernels once, from torch.profiler: the mean duration of each kernel's
+    launches, summed over the kernels. The profiler can lose kernel
+    records late in this script's process, after the served phases' long
+    profiles (on an H100: 2 of 5 at each phase-6 shape, then all of them,
+    leaving only entries of zero time). Returns (ms, records kept of
+    ``reps``, why not): ms is None when a kernel lost any record or no
+    kernel time was recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(0)
@@ -252,15 +309,73 @@ def launch_ms(fn, reps: int) -> tuple:
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
-    total, kept = 0.0, reps
+    total, kept = 0.0, None
     for ev in prof.key_averages():
         if not str(getattr(ev, "device_type", "")).endswith("CUDA") or not ev.count:
             continue
         t = getattr(ev, "self_device_time_total", None)
         t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        if t <= 0:
+            continue  # no kernel: an entry without device time
         total += t / ev.count
-        kept = min(kept, ev.count)
-    return total / 1e3, kept
+        kept = ev.count if kept is None else min(kept, ev.count)
+    if kept is None:
+        return None, 0, f"torch.profiler recorded no kernel time of {reps} calls"
+    if kept < reps:
+        return None, kept, f"torch.profiler kept {kept} of {reps} records"
+    return total / 1e3, kept, None
+
+
+def backed_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn(i)`` over ``reps`` calls by CUDA events
+    with the stream held back: a spin kernel (``torch.cuda._sleep``) runs
+    while the host enqueues the calls, so they run back to back and the
+    events time the device alone, without the host's launch gaps. Reads
+    what torch.profiler reads within 0.5% at 1.4-1.8 ms kernels, and
+    adds the device's gap between queued launches (about 2.6 us) to
+    calls of a few microseconds."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(0)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(0.2, 2 * reps * host + 2e-3) * 2e9))
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def timer_check(torch, label) -> dict:
+    """torch.profiler (``launch_ms``) against stream-backed events
+    (``backed_ms``) and plain events on one bf16 8192^3 torch.matmul, five
+    calls each: phase 1 runs it in a fresh process, phase 6 after the
+    served phases' long profiles, after which the profiler has lost
+    kernel records."""
+    a, b = (torch.randn((8192, 8192), device=DEVICE, dtype=torch.bfloat16)
+            for _ in range(2))
+
+    def call(i):
+        return torch.matmul(a, b)
+    prof, kept, lost = launch_ms(call, 5)
+    out = dict(label=label, profiler_ms=prof, profiler_records=f"{kept}/5",
+               profiler_lost=lost, backed_ms=backed_ms(call, 5),
+               events_ms=time_ms(call, 5))
+    log(f"  timer check ({label}), bf16 8192^3 matmul: stream-backed events "
+        f"{out['backed_ms']:.4f} ms, events {out['events_ms']:.4f}, profiler "
+        f"{fmt_ms(prof, lost)} ({kept}/5 records)")
+    return out
+
+
+def fmt_ms(ms, why_not) -> str:
+    """A time for the log, or why there is none."""
+    return f"{ms:.4f}" if ms is not None else f"none ({why_not})"
 
 
 def bound_ms(m, k, n, a_item, b_bytes, out_item, peak_flops):
@@ -390,7 +505,7 @@ def k1_checks(torch, ks, quiet=False) -> tuple:
 
 def phase_kernels(torch, gp, ref, tf, pk):
     """Kernel vs plain version on the card; returns (the per-shape table,
-    the max abs error at the serving shapes, K1's quantized timings)."""
+    the max abs error at the serving shapes)."""
     dev = DEVICE
     gen = torch.Generator(device=dev).manual_seed(0)
     fails = []
@@ -505,22 +620,400 @@ def phase_kernels(torch, gp, ref, tf, pk):
     edge_fails, edge_seen = k1_checks(torch, dict(pack=pk, gp=gp, tf=tf))
     log(f"  K1 edge checks, launches by body: {edge_seen}")
     fails += edge_fails
-    quant = k1_quant_times(torch, gp, ref, tf, gen)
     if fails:
         raise AssertionError(f"kernel disagrees with its plain version: {fails}")
-    return table, main_err, quant
+    return table, main_err
 
 
-def k1_quant_times(torch, gp, ref, tf, gen) -> dict:
-    """K1's quantized bodies (PR 11's mma_quant) at olmo-1b's decode shapes
-    (M=4), int8 tiles with tile scales and int4 tiles with col scales (bk
-    128, bn 64): device ms and events per shape, weighted into one decode
-    forward (113 calls), beside the byte bound of the narrow tiles and
-    their scales and the plain version. Each call must take mma_quant. No
-    single PyTorch call computes a GEMM against scaled int tiles."""
+# The quantized TMA bodies (gemm_quant.cuh) at their edges: rows on both
+# sides of the decode body's 16 and across the prefill body's 128-row
+# tiles; K 700 with bk 64 (11 k-tiles, the last box partly padding).
+KQ_EDGE_ROWS = (1, 4, 16, 17, 160, 512)
+KQ_FORMATS = [(qd, gran, lay) for qd in ("int8", "int4")
+              for gran in ("tile", "col") for lay in ("row", "col")]
+
+
+def kq_body(rows):
+    """The quantized TMA body for bf16 / f16 A against aligned int tiles."""
+    return "tc_stream_q" if rows <= 16 else "wgmma_q"
+
+
+def kq_full_range(torch, gen, shape, qd):
+    """int8 values over the whole range of ``qd`` (int4: -8 ... 7, int8:
+    -128 ... 127), the extremes included: the quantizer clips to +-7 /
+    +-127, so only tiles drawn like this hold -8 and -128."""
+    lo, hi = (-8, 8) if qd == "int4" else (-128, 128)
+    return torch.randint(lo, hi, shape, generator=gen, device=DEVICE,
+                         dtype=torch.int8)
+
+
+class KqJudge:
+    """Holds quantized K1 / K2 / K3 calls to their plain versions and to the
+    body the route names, for kq_checks and kq_served. A freed NaN block of
+    the output's size lies where each output is allocated (an element the
+    kernel does not store shows); rows past the counts must be exactly 0;
+    2e-2 / 1e-3. ``reach`` gets each case's tag -> its attributes (kernel,
+    int type, scale, k-tiles a column, splits, dtype, body) for the planted
+    faults."""
+
+    def __init__(self, torch, ks, quiet, reach):
+        self.torch, self.ks, self.quiet = torch, ks, quiet
+        self.reach = {} if reach is None else reach
+        gg = ks["gg"]
+        self.k2fn, self.k3fn = gg.gemm_grouped_packed_ragged, gg.gemm_grouped_packed
+        fns = (ks["gp"].gemm_packed_fused_a, self.k2fn, self.k3fn)
+        self.fails = []
+        self.seen = {f.__name__: dict.fromkeys(f.variants, 0) for f in fns}
+        self.worst = {}  # "wrapper body" -> the largest error of its passing cases
+
+    def check(self, tag, fn, body, args, plain, out_shape, counts=None,
+              attrs=None, **kw):
+        torch = self.torch
+        poison = torch.full(out_shape, math.nan, device=DEVICE,
+                            dtype=kw.get("out_dtype") or args[0].dtype)
+        del poison
+        before = dict(fn.variants)
+        self.reach[tag] = dict(attrs or {}, body=body)
+        try:
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            self.fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return
+        ran = [v for v, c in fn.variants.items() if c != before[v]]
+        for v in ran:
+            self.seen[fn.__name__][v] += fn.variants[v] - before[v]
+        ok, err = close(got, plain(*args, **kw), 2e-2, 1e-3)
+        zeros = True
+        if counts is not None:
+            mask = self.ks["ref"].ragged_row_mask(
+                args[0].shape[2], counts.clamp(0, args[0].shape[2]))
+            zeros = not bool(got[~mask].any())
+        ok = ok and zeros and ran == [body]
+        if not ok:
+            self.fails.append(tag)
+        else:
+            key = f"{fn.__name__} {body}"
+            self.worst[key] = max(self.worst.get(key, 0.0), err)
+        if not ok or not self.quiet:
+            log(f"  check {tag} [{'+'.join(ran)}; want {body}]: max_abs_err="
+                f"{err:.3e}{'' if counts is None else f', zeros past counts {zeros}'}"
+                f" (rtol=2e-2, atol=1e-3) {'ok' if ok else 'FAIL'}")
+
+    def k1(self, tag, body, a, bp, n, sc, fmt, **kw):
+        gp = self.ks["gp"]
+        m, k = a.shape
+        kb = bp.shape[1]
+        splits = (gp.tc_stream_split(kb, -(-n // 64))[0]
+                  if body == "tc_stream_q" else 1)
+        self.check(tag, gp.gemm_packed_fused_a, body, (a, bp, n),
+                   gp.gemm_packed_fused_a_plain, (m, n),
+                   attrs=dict(kernel="K1", qd=fmt.dtype, gran=fmt.scale and
+                              fmt.scale.granularity, kb=kb, splits=splits,
+                              dtype=str(a.dtype)), b_scales=sc, b_format=fmt, **kw)
+
+    def k2(self, tag, body, a, bp, n, counts, sc, fmt, b2p=None, sc2=None,
+           live=True, **kw):
+        gp, gg = self.ks["gp"], self.ks["gg"]
+        e, s, c, k = a.shape
+        kb = bp.shape[2]
+        splits = (gp.tc_stream_split(kb, e * s * -(-n // 64))[0]
+                  if body == "tc_stream_q" else 1)
+        attrs = dict(kernel="K2", qd=fmt.dtype, gran=fmt.scale and
+                     fmt.scale.granularity, kb=kb, splits=splits,
+                     dtype=str(a.dtype), live=live)
+        kw.update(b2_packed=b2p, b_scales=sc, b2_scales=sc2, b_format=fmt)
+        if counts is None:
+            self.check(tag, self.k3fn, body, (a[:, 0], bp, n),
+                       gg.gemm_grouped_packed_plain, (e, c, n), attrs=attrs, **kw)
+        else:
+            self.check(tag, self.k2fn, body, (a, bp, n, counts),
+                       gg.gemm_grouped_packed_ragged_plain, (e, s, c, n),
+                       counts=counts, attrs=attrs, **kw)
+
+    def result(self) -> tuple:
+        self.seen["max_abs_err_by_body"] = self.worst
+        return self.fails, self.seen
+
+
+def kq_checks(torch, ks, quiet=False, reach=None) -> tuple:
+    """Both quantized TMA bodies of K1 (tc_stream_q, wgmma_q) and of K2 / K3
+    against their plain versions, each call held to the body the route
+    names: int8 / int4 tiles over their whole range (-8 and -128 included)
+    with random tile or col scales, row and col layouts; K1 at M 1 / 4 /
+    16 / 17 / 160 / 512, K 700 (bk 64: 11 k-tiles, split at decode) and an
+    unsplit decode (N 17000: 266 stripes), gelu + bias, every epilogue with
+    bias, c, alpha and beta at M 4 and 512, f16, unscaled int8 tiles, and a
+    misaligned A on the earlier mma_quant; K2 at C 1 / 8 / 16 / 17 / 160 / 300
+    over counts 0, partial, C, > C and negative (E 3, S 2), the pair with B
+    != B2 and their own scales, gelu + bias, an unsplit decode (E 8, S 2,
+    N 2048), every segment dead, K3, and a misaligned A on the earlier
+    mma_sync. A freed NaN block of the output's size lies where each output
+    is allocated (an element the kernel does not store shows); rows past
+    the counts must be exactly 0. bf16 / f16 output 2e-2 / 1e-3 (f32 sums
+    in other orders, one rounding). ``reach``, when given, gets each case's
+    tag -> its attributes (kernel, int type, scale, k-tiles a column,
+    splits, body) for the planted faults. Returns (failed tags, launches by
+    body of each wrapper)."""
+    ref, tf = ks["ref"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    bf16 = torch.bfloat16
+    judge = KqJudge(torch, ks, quiet, reach)
+    k1_check, k2_check = judge.k1, judge.k2
+
+    def randn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEVICE) * std
+
+    def fmt_of(qd, gran, lay, bk):
+        scale = dict(scale=tf.ScaleSpec(granularity=gran)) if gran else {}
+        return tf.TileFormat(bk=bk, bn=64, layout=lay, dtype=qd, **scale)
+
+    def scales_of(lead, nb, kb, gran):
+        shape = lead + ((nb,) if gran == "col" else (nb, kb))
+        return torch.rand(shape, generator=gen, device=DEVICE) * 1e-2 + 1e-3
+
+    def k1_operands(k, n, qd, gran, lay, bk=64):
+        q = kq_full_range(torch, gen, (k, n), qd)
+        bp = ref.pack_b_ref(q, tf.TileFormat(bk=bk, bn=64, layout=lay, dtype=qd))
+        sc = scales_of((), *bp.shape[:2], gran) if gran else None
+        return bp, sc, fmt_of(qd, gran, lay, bk)
+
+    def k2_operands(e, k, n, qd, gran, lay, bk=64):
+        q = kq_full_range(torch, gen, (e, k, n), qd)
+        bp = ref.pack_b_grouped_ref(q, tf.TileFormat(bk=bk, bn=64, layout=lay,
+                                                     dtype=qd))
+        sc = scales_of((e,), *bp.shape[1:3], gran) if gran else None
+        return bp, sc, fmt_of(qd, gran, lay, bk)
+
+    def a_view(*shape, dtype=bf16, offset=0):
+        """[..., K] view, row stride a multiple of 8, NaN past K."""
+        k = shape[-1]
+        buf = torch.full(shape[:-1] + (-(-k // 8) * 8 + 8 + offset,), math.nan,
+                         device=DEVICE)
+        buf[..., offset:offset + k] = randn(*shape)
+        return buf.to(dtype)[..., offset:offset + k]
+
+    # -- K1 ----------------------------------------------------------------
+    k, n = 700, 200
+    bias = randn(n)
+    for qd, gran, lay in KQ_FORMATS:
+        bp, sc, fmt = k1_operands(k, n, qd, gran, lay)
+        for m in KQ_EDGE_ROWS:
+            k1_check(f"K1 {qd}:{gran} {lay} M={m} K={k} N={n} gelu+bias",
+                     kq_body(m), a_view(m, k), bp, n, sc, fmt, epilogue="gelu",
+                     bias=bias)
+        bp, sc, fmt = k1_operands(k, 17000, qd, gran, lay)
+        k1_check(f"K1 {qd}:{gran} {lay} M=4 K={k} N=17000 (unsplit)",
+                 "tc_stream_q", a_view(4, k), bp, 17000, sc, fmt)
+    bp, sc, fmt = k1_operands(2048, 2048, "int8", "col", "row", bk=128)
+    c_in, bias2 = randn(512, 2048), randn(2048)
+    for m in (4, 512):
+        for epi in EPIS:
+            k1_check(f"K1 int8:col M={m} K=2048 N=2048 {epi}+bias, c, alpha, "
+                     f"beta", kq_body(m), a_view(m, 2048), bp, 2048, sc, fmt,
+                     c=c_in[:m], alpha=1.5, beta=0.5, bias=bias2, epilogue=epi)
+    for qd, gran in (("int4", "tile"), ("int8", None)):
+        bp, sc, fmt = k1_operands(2048, 256, qd, gran, "row", bk=128)
+        for m in (4, 200):
+            k1_check(f"K1 {qd}:{gran} f16 M={m} K=2048 N=256", kq_body(m),
+                     a_view(m, 2048, dtype=torch.float16), bp, 256, sc, fmt)
+    bp, sc, fmt = k1_operands(300, n, "int8", "tile", "row", bk=128)
+    for m in (4, 37):
+        k1_check(f"K1 int8:tile A offset 5 (misaligned) M={m}", "mma_quant",
+                 a_view(m, 300, offset=5), bp, n, sc, fmt, epilogue="silu")
+
+    # -- K2 / K3 ---------------------------------------------------------------
+    e, s = 3, 2
+    gbias = randn(e, n)
+    for qd, gran, lay in KQ_FORMATS:
+        (bp, sc, fmt), (b2p, sc2, _) = (k2_operands(e, k, n, qd, gran, lay),
+                                        k2_operands(e, k, n, qd, gran, lay))
+        for c in K2_EDGE_C:
+            counts = torch.tensor([[0, c], [c // 2, 1], [c + 7, -2]],
+                                  dtype=torch.int32, device=DEVICE)
+            a = a_view(e, s, c, k)
+            k2_check(f"K2 {qd}:{gran} {lay} pair C={c} K={k} N={n}", kq_body(c),
+                     a, bp, n, counts, sc, fmt, b2p, sc2, epilogue="silu_gate")
+            if c in (8, 160):
+                k2_check(f"K2 {qd}:{gran} {lay} gelu+bias C={c}", kq_body(c),
+                         a, bp, n, counts, sc, fmt, epilogue="gelu", bias=gbias)
+                k2_check(f"K3 {qd}:{gran} {lay} pair M={c}", kq_body(c),
+                         a_view(e, 1, c, k), bp, n, None, sc, fmt, b2p, sc2,
+                         epilogue="silu_gate")
+    for qd, gran in (("int8", "tile"), ("int4", "col")):
+        (bp, sc, fmt), (b2p, sc2, _) = (k2_operands(8, 2048, 2048, qd, gran,
+                                                    "row", bk=128),
+                                        k2_operands(8, 2048, 2048, qd, gran,
+                                                    "row", bk=128))
+        counts8 = torch.tensor([[2, 0], [8, 1], [0, 0], [3, 5], [8, 8], [0, 1],
+                                [4, 0], [1, 2]], dtype=torch.int32, device=DEVICE)
+        k2_check(f"K2 {qd}:{gran} pair unsplit E=8 S=2 C=8 K=2048 N=2048",
+                 "tc_stream_q", a_view(8, 2, 8, 2048), bp, 2048, counts8, sc,
+                 fmt, b2p, sc2, epilogue="silu_gate")
+        for c in (8, 160):
+            dead = torch.zeros((8, 2), dtype=torch.int32, device=DEVICE)
+            k2_check(f"K2 {qd}:{gran} pair every segment dead C={c}", kq_body(c),
+                     a_view(8, 2, c, 2048), bp, 2048, dead, sc, fmt, b2p, sc2,
+                     live=False, epilogue="silu_gate")
+    bp, sc, fmt = k2_operands(e, 300, n, "int8", "tile", "row", bk=128)
+    for c in (8, 40):
+        counts = torch.tensor([[0, c], [c // 2, 1], [c + 7, -2]],
+                              dtype=torch.int32, device=DEVICE)
+        k2_check(f"K2 int8:tile A offset 5 (misaligned) C={c}", "mma_sync",
+                 a_view(e, s, c, 300, offset=5), bp, n, counts, sc, fmt,
+                 epilogue="gelu", bias=gbias)
+    return judge.result()
+
+
+def kq_library(torch, a, q_nat, scales_kn, qd, gran, bk):
+    """The one-call yardstick for K1's quantized bodies, where the card's
+    torch has it: ``torch._weight_int8pack_mm`` (int8 weights [N, K], one
+    scale a column) for int8 tiles with col scales, ``torch._weight_int4pack_mm``
+    (tinygemm: uint4 = q + 8, zero 0, one bf16 scale a (k-group of bk,
+    column)) for int4. Returns (call, its description) or (None, why not);
+    the layout conversion happens here, outside any timing."""
+    n = q_nat.shape[1]
+    try:
+        if qd == "int8" and gran == "col":
+            w = q_nat.t().contiguous()
+            sc = scales_kn[0].to(a.dtype).contiguous()
+            fn = torch._weight_int8pack_mm
+            fn(a, w, sc)
+            return (lambda: fn(a, w, sc)), "torch._weight_int8pack_mm"
+        if qd == "int4":
+            u = (q_nat.t().to(torch.int32) + 8)          # [N, K] in 0 ... 15
+            packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+            w = torch._convert_weight_to_int4pack(packed.contiguous(), 8)
+            kg = q_nat.shape[0] // bk
+            sz = torch.zeros((kg, n, 2), dtype=torch.bfloat16, device=a.device)
+            sz[..., 0] = scales_kn.reshape(kg, bk, n)[:, 0].to(torch.bfloat16)
+            fn = torch._weight_int4pack_mm
+            fn(a, w, bk, sz)
+            return (lambda: fn(a, w, bk, sz)), (
+                f"torch._weight_int4pack_mm (group {bk}, bf16 scales)")
+    except Exception as exc:  # the op is absent or refuses these operands
+        return None, f"none on this card's torch ({type(exc).__name__}: {exc})"[:200]
+    return None, "none: no single PyTorch call for int8 tiles with tile scales"
+
+
+def forced_route(mod, attr, body):
+    """A context in which ``mod.attr`` (a route function) names ``body``
+    for every call: how the earlier bodies are reached at shapes the route
+    sends to the new ones."""
+    real = getattr(mod, attr)
+
+    class Forced:
+        def __enter__(self):
+            setattr(mod, attr, lambda *a, **k: body)
+
+        def __exit__(self, *exc):
+            setattr(mod, attr, real)
+    return Forced()
+
+
+KQ_OLD = {"K1": "mma_quant", "K2": "mma_sync"}  # the earlier quantized bodies
+# The served quantized formats: the planner's bk 128, bn 64, row tiles.
+KQ_SERVED = (("int8", "tile"), ("int4", "col"))
+
+
+def kq_envelopes(torch) -> dict:
+    """mixtral-8x22b's expert envelopes, (C, counts [E]): decode (4 tokens
+    routed top-2 over uniform experts) and prefill (512 tokens, skewed)."""
+    cpu_gen = torch.Generator().manual_seed(3)
+    return {"decode": (8, route_counts(torch, cpu_gen, 4, [1.0] * MIX_E, 8)),
+            "prefill": (160, route_counts(torch, cpu_gen, 512,
+                                          [0, 3, 2.5, 1, 2, 0.4, 1, 2], 160))}
+
+
+def kq_served(torch, ks, quiet=False, reach=None) -> tuple:
+    """K1's and K2 / K3's quantized bodies held to their plain versions at
+    the shapes the served paths give them (kq_times' shapes): K1 at
+    olmo-1b's four (K, N) at M 4 and 512 (the LM head at M 4 only), K2 and
+    K3 at mixtral-8x22b's gate/up pair (B != B2, silu gate) and down at the
+    decode (C 8) and prefill (C 160) envelopes; int8 tiles with tile scales
+    and int4 tiles with col scales (bk 128, bn 64, row); the new body and
+    the earlier one (forced through the route). The tiles hold the whole
+    int range (-8 and -128 included) and each scale is drawn over a 16x
+    range around a size that keeps outputs near 1: the quantizer's scales
+    at random init are nearly uniform, and a scale taken from the wrong
+    tile or applied twice would hide in them. KqJudge's tolerance and zero
+    check. Returns (failed tags, launches by body)."""
+    gp, ref, tf = ks["gp"], ks["ref"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    judge = KqJudge(torch, ks, quiet, reach)
+    bf16 = torch.bfloat16
+
+    def operands(lead, k, n, qd, gran):
+        q = kq_full_range(torch, gen, lead + (k, n), qd)
+        pack = ref.pack_b_grouped_ref if lead else ref.pack_b_ref
+        bp = pack(q, tf.TileFormat(bk=128, bn=64, dtype=qd))
+        del q
+        nb, kb = bp.shape[len(lead):len(lead) + 2]
+        size = 2.0 / (math.sqrt(k) * (74.0 if qd == "int8" else 4.6))
+        shape = lead + ((nb,) if gran == "col" else (nb, kb))
+        sc = size * torch.exp2(torch.rand(shape, generator=gen, device=DEVICE)
+                               * 4 - 2)
+        return bp, sc, tf.TileFormat(bk=128, bn=64, dtype=qd,
+                                     scale=tf.ScaleSpec(granularity=gran))
+
+    for qd, gran in KQ_SERVED:
+        for (k, n), cnt in OLMO_SHAPES.items():
+            bp, sc, fmt = operands((), k, n, qd, gran)
+            for m in (4, 512):
+                if m == 512 and cnt is None:
+                    continue  # the LM head runs at the last positions only
+                a = torch.randn((m, k), generator=gen, device=DEVICE).to(bf16)
+                tag = f"K1 {qd}:{gran} served M={m} K={k} N={n}"
+                judge.k1(tag, kq_body(m), a, bp, n, sc, fmt)
+                with forced_route(gp, "fused_a_body", KQ_OLD["K1"]):
+                    judge.k1(f"{tag} (earlier body)", KQ_OLD["K1"], a, bp, n, sc,
+                             fmt)
+            del bp, sc
+        for name, k, n, pair in (("gate_up", MIX_D, MIX_F, True),
+                                 ("down", MIX_F, MIX_D, False)):
+            (bp, sc, fmt), (b2p, sc2, _) = (
+                operands((MIX_E,), k, n, qd, gran),
+                operands((MIX_E,), k, n, qd, gran) if pair else (None, None, None))
+            epi = "silu_gate" if pair else "none"
+            for env, (c, counts_h) in kq_envelopes(torch).items():
+                counts = counts_h.reshape(MIX_E, 1).to(DEVICE)
+                a = torch.randn((MIX_E, 1, c, k), generator=gen,
+                                device=DEVICE).to(bf16)
+                for body, forced in ((kq_body(c), None), (KQ_OLD["K2"], KQ_OLD["K2"])):
+                    tail = "" if forced is None else " (earlier body)"
+                    ctx = (forced_route(ks["gg"], "grouped_body", forced)
+                           if forced else contextlib.nullcontext())
+                    with ctx:
+                        judge.k2(f"K2 {qd}:{gran} served {name} {env} C={c}{tail}",
+                                 body, a, bp, n, counts, sc, fmt, b2p, sc2,
+                                 epilogue=epi)
+                        judge.k2(f"K3 {qd}:{gran} served {name} {env} C={c}{tail}",
+                                 body, a, bp, n, None, sc, fmt, b2p, sc2,
+                                 epilogue=epi)
+                del a
+            del bp, b2p, sc, sc2
+            torch.cuda.empty_cache()
+    return judge.result()
+
+
+def kq_times(torch, ks) -> dict:
+    """K1's and K2 / K3's quantized bodies timed where the served paths run
+    them: K1 at olmo-1b's shapes at decode (M 4, 113 calls a forward) and
+    prefill (M 512, the 112 projections), int8 tiles with tile scales and
+    int4 tiles with col scales (bk 128, bn 64, row, the planner's); K2 and
+    K3 at mixtral-8x22b's expert shapes at the decode (C 8) and prefill (C
+    160) envelopes. Each shape: the new body and the old one (the earlier
+    mma_quant / mma_sync, forced through the route for the call) in
+    device time (torch.profiler) and CUDA events, the plain version, the
+    bound on the narrow tiles' bytes (and scales), and the one-call library
+    yardstick where the card's torch has one. Weights round-robin over
+    copies of at least 128 MB so that they come from HBM."""
+    gp, gg, ref, tf = ks["gp"], ks["gg"], ks["ref"], ks["tf"]
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
     layers = 16  # olmo-1b
     out = {}
-    for qd, gran in (("int8", "tile"), ("int4", "col")):
+    for qd, gran in KQ_SERVED:
         qf = tf.TileFormat(bk=128, bn=64, dtype=qd,
                            scale=tf.ScaleSpec(granularity=gran))
         rows = []
@@ -532,33 +1025,159 @@ def k1_quant_times(torch, gp, ref, tf, gen) -> dict:
             packs = [(q, s)] + [ref.pack_b_ref(torch.randn(
                 (k, n), generator=gen, device=DEVICE) * 0.02, qf)
                 for _ in range(copies - 1)]
-            a = torch.randn((4, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            q_nat = ref.unpack_b_ref(q, k, n, fmt=qf)
+            sc_kn = (s.repeat_interleave(64)[:n].expand(k, n) if gran == "col"
+                     else s.repeat_interleave(64, 0).repeat_interleave(128, 1)
+                     .t()[:k, :n])
+            for m in (4, 512):
+                if m == 512 and cnt is None:
+                    continue  # the LM head runs at the last positions only
+                a = torch.randn((m, k), generator=gen, device=DEVICE).to(torch.bfloat16)
 
-            def call(i):
-                qq, ss = packs[i % copies]
-                gp.gemm_packed_fused_a(a, qq, n, b_scales=ss, b_format=qf)
-            before = dict(gp.gemm_packed_fused_a.variants)
-            call(0)
-            ran = [v for v, c in gp.gemm_packed_fused_a.variants.items()
-                   if c != before[v]]
-            if ran != ["mma_quant"]:
-                raise AssertionError(f"K1 {qd}:{gran} M=4 K={k} N={n} took "
-                                     f"{ran}, not mma_quant")
-            t_b, by = bound_ms(4, k, n, 2, nbytes, 2, H100_BF16_FLOPS)
-            rows.append(dict(k=k, n=n, calls=cnt * layers if cnt else 1,
-                             ms=time_ms(call, 10), device_ms=device_ms(call, 10),
-                             plain_ms=time_ms(lambda i: gp.gemm_packed_fused_a_plain(
-                                 a, q, n, b_scales=s, b_format=qf), 2),
-                             bound_ms=t_b, bound_by=by))
+                def call(i, a=a, n=n):
+                    qq, ss = packs[i % copies]
+                    gp.gemm_packed_fused_a(a, qq, n, b_scales=ss, b_format=qf)
+                before = dict(gp.gemm_packed_fused_a.variants)
+                call(0)
+                ran = [v for v, c in gp.gemm_packed_fused_a.variants.items()
+                       if c != before[v]]
+                if ran != [kq_body(m)]:
+                    raise AssertionError(f"K1 {qd}:{gran} M={m} K={k} N={n} "
+                                         f"took {ran}, not {kq_body(m)}")
+                reps = 10 if m == 4 else 4
+                row = dict(m=m, k=k, n=n, calls=(cnt or 1) * layers if cnt else 1,
+                           body=kq_body(m), ms=time_ms(call, reps),
+                           device_ms=device_ms(call, reps),
+                           plain_ms=time_ms(lambda i: gp.gemm_packed_fused_a_plain(
+                               a, q, n, b_scales=s, b_format=qf), 2))
+                with forced_route(gp, "fused_a_body", KQ_OLD["K1"]):
+                    row["old_device_ms"] = device_ms(call, reps)
+                    row["old_ms"] = time_ms(call, reps)
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    m, k, n, 2, nbytes, 2, H100_BF16_FLOPS)
+                lib, row["library"] = kq_library(torch, a, q_nat, sc_kn, qd, gran,
+                                                 128)
+                if lib is not None:
+                    got = lib()
+                    want = gp.gemm_packed_fused_a_plain(a, q, n, b_scales=s,
+                                                        b_format=qf)
+                    row["library_rel_err"] = float(
+                        (got.float() - want.float()).norm() / want.float().norm())
+                    row["library_ms"] = time_ms(lambda i: lib(), reps)
+                    row["library_device_ms"] = device_ms(lambda i: lib(), reps)
+                else:
+                    row["library_ms"] = row["library_device_ms"] = None
+                rows.append(row)
+                log(f"  K1 {qd}:{gran} M={m} K={k} N={n}: {row['body']} device "
+                    f"{row['device_ms']:.4f} ms (events {row['ms']:.4f}), old "
+                    f"mma_quant device {row['old_device_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.4f} ({row['bound_by']}), plain "
+                    f"{row['plain_ms']:.4f}; library {row['library']}"
+                    + (f" device {row['library_device_ms']:.4f} (rel err "
+                       f"{row['library_rel_err']:.2e})" if lib else ""))
             del packs
-        fwd = {key: sum(r[key] * r["calls"] for r in rows)
-               for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
-        out[f"{qd}:{gran}"] = dict(fwd, shapes=rows, body="mma_quant")
-        log(f"  K1 {qd}:{gran} tiles, one olmo-1b decode forward (113 calls, "
-            f"M=4): device {fwd['device_ms']:.4f} ms, events {fwd['ms']:.4f}, "
-            f"bound {fwd['bound_ms']:.4f} (bytes of the narrow tiles and "
-            f"scales), plain {fwd['plain_ms']:.4f}")
+        for m, label in ((4, "decode"), (512, "prefill")):
+            sel = [r for r in rows if r["m"] == m]
+            fwd = {key: sum(r[key] * r["calls"] for r in sel)
+                   for key in ("ms", "device_ms", "old_ms", "old_device_ms",
+                               "plain_ms", "bound_ms")}
+            libs = [r["library_device_ms"] for r in sel]
+            fwd["library_device_ms"] = (None if None in libs else
+                                        sum(r["library_device_ms"] * r["calls"]
+                                            for r in sel))
+            libs = [r["library_ms"] for r in sel]
+            fwd["library_ms"] = (None if None in libs else
+                                 sum(r["library_ms"] * r["calls"] for r in sel))
+            fwd["library"] = sel[0]["library"]
+            fwd["calls"] = sum(r["calls"] for r in sel)
+            out[f"K1 {qd}:{gran} {label}"] = dict(fwd, shapes=sel,
+                                                  body=kq_body(m))
+            log(f"  K1 {qd}:{gran}, one olmo-1b {label} forward ({fwd['calls']} "
+                f"calls, M={m}): {kq_body(m)} device {fwd['device_ms']:.4f} ms "
+                f"(events {fwd['ms']:.4f}), old mma_quant device "
+                f"{fwd['old_device_ms']:.4f}, bound {fwd['bound_ms']:.4f}, plain "
+                f"{fwd['plain_ms']:.4f}, library device {fwd['library_device_ms']}")
+
+    envelopes = kq_envelopes(torch)
+    for qd, gran in KQ_SERVED:
+        qf = tf.TileFormat(bk=128, bn=64, dtype=qd,
+                           scale=tf.ScaleSpec(granularity=gran))
+        for name, k, n, pair in (("gate_up", MIX_D, MIX_F, True),
+                                 ("down", MIX_F, MIX_D, False)):
+            stacks = [ref.pack_b_grouped_ref(torch.randn(
+                (MIX_E, k, n), generator=gen, device=DEVICE) * 0.02, qf)
+                for _ in range(2 if pair else 1)]
+            (bp, sc), (b2p, sc2) = stacks[0], (stacks[-1] if pair else (None, None))
+            kw = dict(b_format=qf, b_scales=sc, b2_packed=b2p, b2_scales=sc2,
+                      epilogue="silu_gate" if pair else "none")
+            b_bytes = bp[0].numel() + sc[0].numel() * 4
+            for env, (c, counts_h) in envelopes.items():
+                counts = counts_h.reshape(MIX_E, 1).to(DEVICE)
+                a = torch.randn((MIX_E, 1, c, k), generator=gen,
+                                device=DEVICE).to(torch.bfloat16)
+                a3 = a.reshape(MIX_E, c, k)
+
+                def k2_call(i):
+                    gg.gemm_grouped_packed_ragged(a, bp, n, counts, **kw)
+
+                def k3_call(i):
+                    gg.gemm_grouped_packed(a3, bp, n, **kw)
+                before = dict(gg.gemm_grouped_packed_ragged.variants)
+                k2_call(0)
+                ran = [v for v, x in gg.gemm_grouped_packed_ragged.variants.items()
+                       if x != before[v]]
+                if ran != [kq_body(c)]:
+                    raise AssertionError(f"K2 {qd}:{gran} {name} C={c} took {ran}")
+                reps = 5 if env == "decode" else 3
+                row = dict(contraction=name, envelope=env, c=c, k=k, n=n,
+                           counts=counts_h.tolist(), body=kq_body(c),
+                           k2_ms=time_ms(k2_call, reps),
+                           k2_device_ms=device_ms(k2_call, reps),
+                           k3_ms=time_ms(k3_call, reps),
+                           k3_device_ms=device_ms(k3_call, reps),
+                           k2_plain_ms=time_ms(
+                               lambda i: gg.gemm_grouped_packed_ragged_plain(
+                                   a, bp, n, counts, **kw), 2))
+                with forced_route(gg, "grouped_body", KQ_OLD["K2"]):
+                    row["k2_old_device_ms"] = device_ms(k2_call, reps)
+                    row["k3_old_device_ms"] = device_ms(k3_call, reps)
+                row["k2_bound_ms"], row["k2_bound_by"] = grouped_bound_ms(
+                    counts_h, MIX_E, c, k, n, b_bytes, pair)
+                row["k3_bound_ms"], row["k3_bound_by"] = grouped_bound_ms(
+                    None, MIX_E, c, k, n, b_bytes, pair)
+                row["library_ms"] = None
+                out.setdefault(f"K2 {qd}:{gran}", []).append(row)
+                log(f"  K2 {qd}:{gran} {name} {env} C={c} ({row['body']}): device "
+                    f"{row['k2_device_ms']:.4f} ms (events {row['k2_ms']:.4f}), old "
+                    f"mma_sync device {row['k2_old_device_ms']:.4f}, bound "
+                    f"{row['k2_bound_ms']:.4f} ({row['k2_bound_by']}), plain "
+                    f"{row['k2_plain_ms']:.4f}; K3 device {row['k3_device_ms']:.4f} "
+                    f"(old {row['k3_old_device_ms']:.4f}, bound "
+                    f"{row['k3_bound_ms']:.4f})")
+            del stacks, bp, b2p, kw
+            torch.cuda.empty_cache()
     return out
+
+
+def phase_quant_kernels(torch, ks) -> tuple:
+    """Phase 1's quantized part: kq_checks (the edges), kq_served (the
+    served shapes), then kq_times. Returns (the timings, the checks'
+    launches by body)."""
+    fails, seen = kq_checks(torch, ks, quiet=True)
+    log(f"  quantized TMA bodies' edge checks: {len(fails)} failed; launches by "
+        f"body {seen}")
+    served_fails, served_seen = kq_served(torch, ks, quiet=True)
+    log(f"  quantized bodies at the served shapes: {len(served_fails)} failed; "
+        f"launches by body {served_seen}")
+    fails += served_fails
+    if fails:
+        raise AssertionError(f"quantized kernels disagree with their plain "
+                             f"versions: {fails}")
+    worst = seen["max_abs_err_by_body"]
+    for key, err in served_seen.pop("max_abs_err_by_body").items():
+        worst[key] = max(worst.get(key, 0.0), err)
+    seen["served_shapes"] = served_seen
+    return kq_times(torch, ks), seen
 
 
 def route_counts(torch, gen, tokens, probs, cap):
@@ -1421,10 +2040,17 @@ def k5_times(torch, pk, tf) -> tuple:
         reps = 5 if e else 20
         call = (lambda i: fn(xs[i % copies], fmt))
         t_k = time_ms(call, reps)
-        t_dev, kept = launch_ms(call, reps)
+        t_dev, kept, lost = launch_ms(call, reps)
         t_lib = time_ms(library, reps)
-        t_lib_dev, kept_lib = launch_ms(library, reps)
-        t_gen_dev, kept_gen = launch_ms(general, max(2, reps // 4))
+        t_lib_dev, kept_lib, lost_lib = launch_ms(library, reps)
+        t_gen_dev, kept_gen, lost_gen = launch_ms(general, max(2, reps // 4))
+        if lost:
+            t_dev = backed_fallback(call, reps, f"{tag} kernel", lost)
+        if lost_lib:
+            t_lib_dev = backed_fallback(library, reps, f"{tag} torch copy", lost_lib)
+        if lost_gen:
+            t_gen_dev = backed_fallback(general, max(2, reps // 4),
+                                        f"{tag} general", lost_gen)
         t_plain = time_ms(lambda i: plain(xs[i % copies], fmt), max(2, reps // 4))
         bound = 2 * nbytes / H100_HBM_BYTES * 1e3
         rows.append(dict(kernel="pack_b_grouped" if e else "pack_b", e=e, k=k, n=n,
@@ -1872,6 +2498,32 @@ def check_grouped_sass(path) -> str:
     op in grouped_fma (f32 in full f32, int8 on i32) or grouped_reduce."""
     return check_sass_functions(path, {"grouped_wgmma": "HGMMA", "grouped_stream": "HMMA"},
                                 ("grouped_fma", "grouped_reduce"))
+
+
+# The quantized TMA bodies' functions, by a piece of their names, and the
+# opcodes each must issue: a TMA load and mma.sync at decode, a TMA load
+# and wgmma at prefill.
+QUANT_SASS = {"gemm_packed_fused_a": {"quant_stream": ("UTMALDG", "HMMA"),
+                                      "quant_wgmma": ("UTMALDG", "HGMMA")},
+              "gemm_grouped_packed": {"grouped_quant_stream": ("UTMALDG", "HMMA"),
+                                      "grouped_quant_wgmma": ("UTMALDG", "HGMMA")}}
+
+
+def check_quant_sass(path, want) -> str:
+    """Per function of a library: every function whose name holds a tag of
+    ``want`` issues each of its opcodes (whatever their suffixes), and each
+    tag names at least one function."""
+    import re
+    funcs = sass_by_function(path, lambda line: re.findall(
+        r"\b(?:HMMA|HGMMA|IMMA|UTMALDG)\b", line))
+    found = {tag: [ops for n, ops in funcs.items() if tag in n] for tag in want}
+    bad = [tag for tag, ops in found.items()
+           if not ops or not all(op in o for o in ops for op in want[tag])]
+    if bad:
+        raise AssertionError(f"{path.name}: quantized functions failing their "
+                             f"SASS check {bad}: {found}")
+    return ", ".join(f"{len(ops)} {tag} ({'+'.join(want[tag])})"
+                     for tag, ops in found.items())
 
 
 def check_k7_sass(path) -> str:
@@ -2421,13 +3073,21 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
             step(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = {}
+    dev, records, launched = {}, 0, 0
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
         if t > 0:
             dev[ev.key] = t
+            if on_device and not ev.key.startswith(("Memcpy", "Memset")):
+                records += ev.count
+        elif not on_device and "LaunchKernel" in ev.key:
+            launched += ev.count
+    # A kernel record the profiler lost would read as idle: the kernels it
+    # kept against the launch calls it saw on the host.
+    kept = f"{records}/{launched}" if launched else f"{records}/not seen"
     busy = sum(dev.values())
     per_kernel = {label: sum(t for name, t in dev.items() if tag in name)
                   / steps_p / 1e3 for label, tag in kernel_tags.items()}
@@ -2440,7 +3100,7 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
         f"{100 * busy_ms / ms_decode:.1f}% of the unprofiled forward "
         f"({100 * busy_ms / ms_step:.1f}% of the generate step), "
         + ", ".join(f"{label} {ms:.3f} ms/step" for label, ms in per_kernel.items())
-        + f", {len(dev)} kernel names")
+        + f", {len(dev)} kernel names, kernel records kept {kept} launches")
     for name, t in top:
         log(f"    {t / steps_p / 1e3:8.3f} ms/step  {name[:90]}")
     return dict(generate_ms=ms_gen, generate_1_step_ms=ms_gen1,
@@ -2448,7 +3108,8 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
                 model_prefill_ms=ms_prefill, model_decode_ms=ms_decode,
                 decode_device_busy_share=busy_ms / ms_decode,
                 generate_device_busy_share=busy_ms / ms_step,
-                decode_device_ms={k: v for k, v in per_kernel.items()})
+                decode_device_ms={k: v for k, v in per_kernel.items()},
+                decode_kernel_records=kept)
 
 
 # The raw prefill's kernels in a profile: K5's three bodies ("k5_"), K1's
@@ -2762,10 +3423,83 @@ def compare_logits(torch, got, want):
     return rel, float(diff.abs().max()), same
 
 
+def mixtral_prefill_check(torch, gp, gg, engine, prompt, cfg) -> dict:
+    """mixtral-8x22b's prefill logits on the kernels against the plain
+    versions on the card (the gate of phases 3 and 3b). Returns the kernel
+    run's logits, the errors, the expert-choice flips and the routing."""
+    from repro_torch.models import moe
+    # Each layer's routing is recorded (the experts each token chose). The
+    # plain run computes its own routing, whose choices are compared with
+    # the kernel run's; its logits are compared twice: free (its own
+    # routing) and pinned (the kernel run's routing replayed, so that only
+    # the expert products differ).
+    real_route = moe.route
+    runs = {"kernel": [], "free": [], "pinned": []}
+
+    def recording(run, replay=None):
+        def fn(cfg_, w, x):
+            out = real_route(cfg_, w, x)
+            runs[run].append(out)
+            return out if replay is None else replay[len(runs[run]) - 1]
+        return fn
+
+    tok_t = prompt.to(DEVICE)
+    try:
+        moe.route = recording("kernel")
+        logits_k, _ = engine._prefill(tok_t)
+        with plain_kernels(gp, gg):
+            moe.route = recording("free")
+            logits_f, _ = engine._prefill(tok_t)
+            moe.route = recording("pinned", replay=runs["kernel"])
+            logits_p, _ = engine._prefill(tok_t)
+    finally:
+        moe.route = real_route
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("non-finite logits")
+
+    def flips(run):
+        """(token, layer) pairs whose chosen experts differ from the
+        kernel run's."""
+        return sum(int(((a[0].sum(-1) > 0) != (b[0].sum(-1) > 0)).any(-1).sum())
+                   for a, b in zip(runs["kernel"], runs[run]))
+    n_choices = prompt.numel() * cfg.num_layers
+    flips_free, flips_pinned = flips("free"), flips("pinned")
+    rel_f, err_f, same_f = compare_logits(torch, logits_k, logits_f)
+    rel_p, err_p, same_p = compare_logits(torch, logits_k, logits_p)
+    # Error analysis. Pinned: the two runs differ only in the rounding of
+    # bf16 activations after each projection (2^-8 relative), summed in
+    # other orders, over 4 layers; olmo-1b's 16 layers measure 1.9e-2 to
+    # 2.4e-2 on an H100, so the limit is 5e-2 relative (Frobenius), as for
+    # olmo-1b. A wrong kernel gives errors of order 1. Free: a token whose
+    # two best router logits are within those rounding differences (~1e-2
+    # of logits of scale ~1.6) picks another expert, which changes about
+    # half of its MoE output; if that token is a last position, its logits
+    # move by a few tenths. The free run is held to 0.5, which still
+    # catches a wrong kernel (uncorrelated logits differ by about 1.4).
+    log(f"  expert choices (token, layer) that differ from the kernel run: "
+        f"free plain run {flips_free} of {n_choices}, pinned plain run's own "
+        f"router {flips_pinned} of {n_choices}")
+    log(f"  prefill logits kernel vs plain, routing pinned: rel_fro={rel_p:.3e} "
+        f"(limit 5e-2), max_abs_err={err_p:.3e}, same argmax {same_p}/4; "
+        f"routing free: rel_fro={rel_f:.3e} (limit 0.5), max_abs_err="
+        f"{err_f:.3e}, same argmax {same_f}/4; |logits|max="
+        f"{float(logits_k.abs().max()):.3f}")
+    if rel_p > 5e-2 or rel_f > 0.5:
+        raise AssertionError("served logits disagree with the plain versions")
+    counts = [r[3]["counts"].tolist() for r in runs["kernel"]]
+    dropped = [int(r[3]["dropped"]) for r in runs["kernel"]]
+    log(f"  prefill routing per layer: counts {counts}, dropped {dropped}")
+    del runs
+    return dict(logits=logits_k, rel_p=rel_p, rel_f=rel_f, flips_free=flips_free,
+                n_choices=n_choices, counts=counts, dropped=dropped)
+
+
 def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     """mixtral-8x22b at its published widths, 4 of 56 layers, served through
-    the packed path: K1 for attention and the LM head, K2 for the experts."""
-    from repro_torch.models import moe
+    the packed path: K1 for attention and the LM head, K2 for the experts.
+    Returns (load launches, launches of the counted run, timings, the
+    kernel run's prefill logits)."""
     cfg = dataclasses.replace(cfgs.get_config("mixtral-8x22b"),
                               num_layers=MIXTRAL_LAYERS,
                               compute_dtype="bfloat16")
@@ -2846,69 +3580,10 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     check_tokens(tokens, cfg)
 
     # -- logits against the plain versions on the card ---------------------
-    # Each layer's routing is recorded (the experts each token chose). The
-    # plain run computes its own routing, whose choices are compared with
-    # the kernel run's; its logits are compared twice: free (its own
-    # routing) and pinned (the kernel run's routing replayed, so that only
-    # the expert products differ).
-    real_route = moe.route
-    runs = {"kernel": [], "free": [], "pinned": []}
-
-    def recording(run, replay=None):
-        def fn(cfg_, w, x):
-            out = real_route(cfg_, w, x)
-            runs[run].append(out)
-            return out if replay is None else replay[len(runs[run]) - 1]
-        return fn
-
-    tok_t = prompt.to(DEVICE)
-    try:
-        moe.route = recording("kernel")
-        logits_k, _ = engine._prefill(tok_t)
-        with plain_kernels(gp, gg):
-            moe.route = recording("free")
-            logits_f, _ = engine._prefill(tok_t)
-            moe.route = recording("pinned", replay=runs["kernel"])
-            logits_p, _ = engine._prefill(tok_t)
-    finally:
-        moe.route = real_route
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(logits_k).all()):
-        raise AssertionError("non-finite logits")
-
-    def flips(run):
-        """(token, layer) pairs whose chosen experts differ from the
-        kernel run's."""
-        return sum(int(((a[0].sum(-1) > 0) != (b[0].sum(-1) > 0)).any(-1).sum())
-                   for a, b in zip(runs["kernel"], runs[run]))
-    n_choices = prompt.numel() * cfg.num_layers
-    flips_free, flips_pinned = flips("free"), flips("pinned")
-    rel_f, err_f, same_f = compare_logits(torch, logits_k, logits_f)
-    rel_p, err_p, same_p = compare_logits(torch, logits_k, logits_p)
-    # Error analysis. Pinned: the two runs differ only in the rounding of
-    # bf16 activations after each projection (2^-8 relative), summed in
-    # other orders, over 4 layers; olmo-1b's 16 layers measure 1.9e-2 to
-    # 2.4e-2 on an H100, so the limit is 5e-2 relative (Frobenius), as for
-    # olmo-1b. A wrong kernel gives errors of order 1. Free: a token whose
-    # two best router logits are within those rounding differences (~1e-2
-    # of logits of scale ~1.6) picks another expert, which changes about
-    # half of its MoE output; if that token is a last position, its logits
-    # move by a few tenths. The free run is held to 0.5, which still
-    # catches a wrong kernel (uncorrelated logits differ by about 1.4).
-    log(f"  expert choices (token, layer) that differ from the kernel run: "
-        f"free plain run {flips_free} of {n_choices}, pinned plain run's own "
-        f"router {flips_pinned} of {n_choices}")
-    log(f"  prefill logits kernel vs plain, routing pinned: rel_fro={rel_p:.3e} "
-        f"(limit 5e-2), max_abs_err={err_p:.3e}, same argmax {same_p}/4; "
-        f"routing free: rel_fro={rel_f:.3e} (limit 0.5), max_abs_err="
-        f"{err_f:.3e}, same argmax {same_f}/4; |logits|max="
-        f"{float(logits_k.abs().max()):.3f}")
-    if rel_p > 5e-2 or rel_f > 0.5:
-        raise AssertionError("served logits disagree with the plain versions")
-    counts = [r[3]["counts"].tolist() for r in runs["kernel"]]
-    dropped = [int(r[3]["dropped"]) for r in runs["kernel"]]
-    log(f"  prefill routing per layer: counts {counts}, dropped {dropped}")
-    del runs
+    check = mixtral_prefill_check(torch, gp, gg, engine, prompt, cfg)
+    rel_p, rel_f, flips_free = check["rel_p"], check["rel_f"], check["flips_free"]
+    n_choices, counts, dropped = (check["n_choices"], check["counts"],
+                                  check["dropped"])
 
     timings = serve_timings(torch, engine, prompt, STEPS,
                             {**K1_KERNEL_TAGS, **K2_KERNEL_TAGS})
@@ -2919,6 +3594,167 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
                    prefill_counts=counts, prefill_dropped=dropped,
                    load_ms=t_load * 1e3, k5_load_launches_by_body=load_bodies)
     del engine
+    torch.cuda.empty_cache()
+    return load, launches, timings, check["logits"]
+
+
+# The quantized served cells: olmo-1b with phase 2's weights as int8 (tile
+# scales) and int4 (col scales), mixtral-8x22b with phase 3's as int8.
+OLMO_QUANT = ("int8", "int4:col")
+MIXTRAL_QUANT = "int8"
+# The quantized bodies in a profile, by a piece of their names (K1's
+# decode and prefill bodies, K2's, the split reductions after them).
+KQ_KERNEL_TAGS = {"K1 tc_stream_q": "::quant_stream", "K1 wgmma_q": "::quant_wgmma",
+                  "splitk_reduce": "splitk_reduce",
+                  "K2 tc_stream_q": "grouped_quant_stream",
+                  "K2 wgmma_q": "grouped_quant_wgmma", "K2 reduce": "grouped_reduce",
+                  "earlier quantized bodies": "fused_a_mma"}
+
+
+def quant_load(torch, counters, serve, model, params, quantize, wrappers):
+    """Engine construction with ``quantize`` (load-time quantizing in plain
+    torch, then K5), counted and timed. Returns (engine, load launches, its
+    launches by body, the load's ms)."""
+    counters.reset()
+    torch.cuda.synchronize()
+    t_load = time.perf_counter()
+    engine = serve.Engine(model, params, serve.ServeConfig(
+        max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16",
+        quantize=quantize), device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_load
+    load = counters.read()
+    if load != counters.only(**wrappers):
+        raise AssertionError(f"load-time launch counts {load} (want {wrappers})")
+    return engine, load, {name: launches_by_body(counters, name)
+                          for name in wrappers}, t_load * 1e3
+
+
+def phase_serve_quant(torch, gp, counters, serve, packed_run, quantize):
+    """olmo-1b at full width served with phase 2's bf16 weights quantized at
+    load (``ServeConfig(pack_weights=True, quantize=...)``): every K1
+    launch on the quantized TMA bodies (wgmma_q at prefill, tc_stream_q for
+    the prefill's LM head and at decode, nothing on the earlier bodies), prefill
+    logits against the plain versions on the same quantized weights on the
+    card (the gate), and against phase 2's float logits (quantization
+    error, reported). Returns (load launches, launches of the counted run,
+    timings)."""
+    model, params, float_logits, prompt = packed_run
+    cfg = model.cfg
+    per_forward = 7 * cfg.num_layers + 1
+    engine, load, load_bodies, load_ms = quant_load(
+        torch, counters, serve, model, params, quantize,
+        dict(pack_b=per_forward))
+    log(f"  olmo-1b {quantize}: Engine construction (quantize + pack, "
+        f"synchronized) {load_ms:.1f} ms; load launches {load}; K5 by body "
+        f"{load_bodies}; {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    counters.reset()
+    t0 = time.perf_counter()
+    tokens = engine.generate({"tokens": prompt}, max_new_tokens=STEPS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = counters.read()
+    bodies = launches_by_body(counters)
+    want_bodies = dict(tc_stream_q=1 + per_forward * STEPS,
+                       wgmma_q=7 * cfg.num_layers)
+    log(f"  generate {PROMPT[0]}x{PROMPT[1]} + {STEPS} steps: {t_gen * 1e3:.1f} ms; "
+        f"launches {launches}; K1 by body {bodies} (want {want_bodies})")
+    if launches != counters.only(gemm_packed_fused_a=per_forward * (STEPS + 1)):
+        raise AssertionError(f"launch counts {launches}")
+    if bodies != want_bodies:
+        raise AssertionError(f"K1 launches by body {bodies}")
+    check_tokens(tokens, cfg)
+    logits_k, _ = engine.prefill_request(prompt[0])
+    with plain_kernels(gp, None):
+        logits_p, _ = engine.prefill_request(prompt[0])
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(logits_k).all()):
+        raise AssertionError("non-finite logits")
+    rel, max_err, same_tok = compare_logits(torch, logits_k, logits_p)
+    rel_q, err_q, same_q = compare_logits(torch, logits_k, float_logits)
+    scale = float(float_logits.float().abs().max())
+    # The gate is phase 2's: bf16 activations rounded in other orders over
+    # 16 layers, 5e-2 relative (Frobenius) and the same greedy token.
+    log(f"  prefill logits kernel vs plain (same quantized weights): rel_fro="
+        f"{rel:.3e} (limit 5e-2), max_abs_err={max_err:.3e}, same argmax "
+        f"{same_tok}/1; against phase 2's float logits: rel_fro={rel_q:.3e}, "
+        f"max_abs_err={err_q:.3e} = {err_q / scale:.3e} of the logit scale "
+        f"{scale:.3f}, same argmax {same_q}/1 (reported)")
+    if rel > 5e-2 or same_tok != 1:
+        raise AssertionError("served logits disagree with the plain version")
+    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS)
+    timings.update(rel_fro=rel, rel_fro_vs_float=rel_q,
+                   max_err_vs_float_of_scale=err_q / scale,
+                   first_generate_ms=t_gen * 1e3, k1_launches_by_body=bodies,
+                   load_ms=load_ms, k5_load_launches_by_body=load_bodies)
+    del engine
+    return load, launches, timings
+
+
+def phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
+                        float_logits):
+    """mixtral-8x22b (4 of 56 layers, published widths) with phase 3's
+    weights drawn again from its seed and quantized at load: K1 on
+    wgmma_q / tc_stream_q, K2 on wgmma_q at prefill and tc_stream_q at
+    decode, nothing on the earlier bodies; prefill logits against the plain
+    versions on the same quantized weights (phase 3's gate) and against
+    phase 3's float logits (reported). Returns (load launches, launches of
+    the counted run, timings)."""
+    cfg = dataclasses.replace(cfgs.get_config("mixtral-8x22b"),
+                              num_layers=MIXTRAL_LAYERS,
+                              compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    model = models.build(cfg, device=DEVICE)
+    params = model.init(0)
+    engine, load, load_bodies, load_ms = quant_load(
+        torch, counters, serve, model, params, MIXTRAL_QUANT,
+        dict(pack_b=4 * cfg.num_layers + 1, pack_b_grouped=3 * cfg.num_layers))
+    del params
+    torch.cuda.empty_cache()
+    log(f"  mixtral-8x22b {MIXTRAL_QUANT}: Engine construction (quantize + "
+        f"pack, synchronized) {load_ms:.1f} ms; load launches {load}; K5 by "
+        f"body {load_bodies}; peak {torch.cuda.max_memory_allocated() / 1e9:.1f} "
+        f"GB, packed {torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
+    want_k1 = (4 * cfg.num_layers + 1) * (STEPS + 1)
+    want_k2 = 2 * cfg.num_layers * (STEPS + 1)
+    counters.reset()
+    t0 = time.perf_counter()
+    tokens = engine.generate({"tokens": prompt}, max_new_tokens=STEPS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = counters.read()
+    bodies = launches_by_body(counters)
+    bodies_k2 = launches_by_body(counters, "gemm_grouped_packed_ragged")
+    want_bodies = dict(tc_stream_q=1 + (4 * cfg.num_layers + 1) * STEPS,
+                       wgmma_q=4 * cfg.num_layers)
+    want_bodies_k2 = dict(tc_stream_q=2 * cfg.num_layers * STEPS,
+                          wgmma_q=2 * cfg.num_layers)
+    log(f"  generate 4x128 + {STEPS} steps: {t_gen * 1e3:.1f} ms; launches "
+        f"{launches} (want K1 {want_k1}, K2 {want_k2}); K1 by body {bodies} "
+        f"(want {want_bodies}); K2 by body {bodies_k2} (want {want_bodies_k2})")
+    if launches != counters.only(gemm_packed_fused_a=want_k1,
+                                 gemm_grouped_packed_ragged=want_k2):
+        raise AssertionError(f"launch counts {launches}")
+    if bodies != want_bodies or bodies_k2 != want_bodies_k2:
+        raise AssertionError(f"launches by body {bodies}, {bodies_k2}")
+    check_tokens(tokens, cfg)
+    check = mixtral_prefill_check(torch, gp, gg, engine, prompt, cfg)
+    rel_q, err_q, same_q = compare_logits(torch, check["logits"], float_logits)
+    scale = float(float_logits.float().abs().max())
+    log(f"  prefill logits against phase 3's float logits: rel_fro={rel_q:.3e}, "
+        f"max_abs_err={err_q:.3e} = {err_q / scale:.3e} of the logit scale "
+        f"{scale:.3f}, same argmax {same_q}/4 (reported)")
+    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS)
+    timings.update(rel_fro_pinned=check["rel_p"], rel_fro_free=check["rel_f"],
+                   expert_choice_flips_free=check["flips_free"],
+                   rel_fro_vs_float=rel_q, max_err_vs_float_of_scale=err_q / scale,
+                   first_generate_ms=t_gen * 1e3, k1_launches_by_body=bodies,
+                   k2_launches_by_body=bodies_k2, load_ms=load_ms,
+                   k5_load_launches_by_body=load_bodies,
+                   prefill_counts=check["counts"])
+    del engine, check
     torch.cuda.empty_cache()
     return load, launches, timings
 
@@ -3055,9 +3891,10 @@ def sdpa_yardstick(torch, ref, q, k, v, window, reps):
     where Sq == Skv and there is no window, else an explicit boolean mask of
     the right-aligned positions. Tries the flash, cuDNN, memory-efficient
     and math backends in turn (math only where its f32 scores fit) and
-    times the first that takes the call, by CUDA events and by
-    torch.profiler's kernel time (``launch_ms``). Returns (ms, device ms,
-    backend, output, what the others said)."""
+    times the first that takes the call, by CUDA events, by stream-backed
+    events (``backed_ms``) and by torch.profiler (``launch_ms``). Returns
+    (ms, device ms, the profiler's (ms, kept, why not), backend, output,
+    what the others said)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     b, sq, h, _ = q.shape
@@ -3083,11 +3920,11 @@ def sdpa_yardstick(torch, ref, q, k, v, window, reps):
                         qt, kt, vt, enable_gqa=True, **kw)
                 out = call(0).transpose(1, 2)
                 torch.cuda.synchronize()
-                return (time_ms(call, reps), launch_ms(call, reps)[0],
-                        backend.name, out, refused)
+                return (time_ms(call, reps), backed_ms(call, reps),
+                        launch_ms(call, reps), backend.name, out, refused)
         except RuntimeError as exc:
             refused.append(f"{backend.name}: {str(exc).splitlines()[0][:120]}")
-    return None, None, None, None, refused
+    return None, None, (None, 0, None), None, None, refused
 
 
 # The body each phase-6 shape must take: the TMA + wgmma prefill body, the
@@ -3103,9 +3940,11 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
     which must be the one ``attention_body`` names), checked against the
     plain version by ``attention_verdict`` (rows that see no key excepted:
     none here), then timed beside its bound, the plain version and SDPA,
-    K4 and SDPA both by CUDA events and by torch.profiler's kernel time
-    (``launch_ms``: K4 is one launch a call). Returns (launches, rows, max
-    abs err)."""
+    K4 and SDPA both by CUDA events, by stream-backed events (``backed_ms``,
+    the device time: late in the process the profiler loses records) and
+    by torch.profiler (``launch_ms``: K4 is one launch a call; null with
+    the reason where it lost a record). Returns (launches, rows, max abs
+    err)."""
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     total = {name: 0 for name in counters.fns}
     rows, max_err, fails = [], 0.0, []
@@ -3147,19 +3986,22 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
         reps = 20 if t_b < 0.1 else 5
         def kernel(i):
             return ops.attention(*sets[i % copies], causal=True, window=window)
-        t_k, (t_dev, kept) = time_ms(kernel, reps), launch_ms(kernel, reps)
+        t_k, t_dev = time_ms(kernel, reps), backed_ms(kernel, reps)
+        t_prof, kept, lost = launch_ms(kernel, reps)
         t_p = time_ms(lambda i: fa.flash_attention_plain(
             *sets[i % copies], causal=True, window=window), 1 if t_b > 1 else 3)
         del sets
-        t_l, t_l_dev, backend, lib_out, refused = sdpa_yardstick(
-            torch, ref, q, k, v, window, reps)
+        t_l, t_l_dev, (t_l_prof, kept_l, lost_l), backend, lib_out, refused = (
+            sdpa_yardstick(torch, ref, q, k, v, window, reps))
         lib_err = (None if lib_out is None else
                    float((lib_out.float() - want.float()).abs().max()))
         rows.append(dict(tag=tag, model=cfg.name, what=what, b=b, sq=sq,
                          skv=skv, h=h, hkv=hkv, d=d, window=window, body=body,
-                         ms=t_k, device_ms=t_dev, device_records=f"{kept}/{reps}",
+                         ms=t_k, device_ms=t_dev, profiler_ms=t_prof,
+                         profiler_records=f"{kept}/{reps}", profiler_lost=lost,
                          plain_ms=t_p, bound_ms=t_b,
                          bound_by=by, library_ms=t_l, library_device_ms=t_l_dev,
+                         library_profiler_ms=t_l_prof, library_profiler_lost=lost_l,
                          library_backend=backend,
                          library_refused=refused, library_max_abs_err=lib_err,
                          **errs, launches=launches["flash_attention"]))
@@ -3169,9 +4011,10 @@ def phase_attention(torch, fa, ops, counters, ref, cfgs, shapes):
             f"probe {errs['probe_max_abs_err']:.2e} / norm "
             f"{errs['probe_norm_err']:.2e} "
             f"{'ok' if ok else 'FAIL ' + errs['failed']}; {body}: kernel "
-            f"{t_k:.4f} ms (device {t_dev:.4f}, {kept}/{reps} records), bound {t_b:.4f} "
-            f"ms ({by}), plain {t_p:.4f} ms, SDPA "
-            + (f"{t_l:.4f} ms (device {t_l_dev:.4f}; {backend}, max_abs_err "
+            f"{t_k:.4f} ms (device {t_dev:.4f}; profiler {fmt_ms(t_prof, lost)}), "
+            f"bound {t_b:.4f} ms ({by}), plain {t_p:.4f} ms, SDPA "
+            + (f"{t_l:.4f} ms (device {t_l_dev:.4f}; profiler "
+               f"{fmt_ms(t_l_prof, lost_l)}; {backend}, max_abs_err "
                f"{lib_err:.2e})" if t_l is not None else "none")
             + (f"; refused: {refused}" if refused else ""))
         del q, k, v, out, want, want_probe, lib_out
@@ -3277,14 +4120,71 @@ GEMM_FAULTS = [
 ]
 
 
-def start_gemm_faults(build, faults=GEMM_FAULTS) -> list:
+
+def kq_new(r):
+    """A kq_checks case on one of the quantized TMA bodies with a live row."""
+    return r["body"] in ("tc_stream_q", "wgmma_q") and r.get("live", True)
+
+
+# Faults that ``--planted-faults`` plants in copies of K1's and K2's sources
+# (name, kernel, file, edits, which kq_checks cases it reaches by their
+# attributes): the tile scale of the next k-tile, the col scale applied to
+# every split's partial as well as in the reduction, int4's two nibbles of
+# a byte swapped, and int4's -8 read as -7 (the range taken as the
+# quantizer's [-7, 7]). kq_checks must fail each at every case it reaches.
+QUANT_FAULTS = [
+    ("K1: the tile scale of the next k-tile", "gemm_packed_fused_a",
+     "gemm_quant.cuh",
+     [("  return ep.scales[static_cast<long long>(j) * Kb + kk];",
+       "  return ep.scales[static_cast<long long>(j) * Kb + min(kk + 1, Kb - 1)];")],
+     lambda r: r["kernel"] == "K1" and r["gran"] == "tile" and r["kb"] > 1
+     and kq_new(r)),
+    ("K1: the col scale applied once per split", "gemm_packed_fused_a",
+     "gemm_quant.cuh",
+     [("        ws[(static_cast<long long>(sp) * ep.M + r) * ep.N + gn] = v;",
+       "        ws[(static_cast<long long>(sp) * ep.M + r) * ep.N + gn] = "
+       "ep.scale_mode == 2 ? v * ep.scales[j] : v;")],
+     lambda r: r["kernel"] == "K1" and r["gran"] == "col" and r["splits"] > 1
+     and kq_new(r)),
+    ("K1: int4's high and low nibbles swapped", "gemm_packed_fused_a",
+     "gemm_quant.cuh", [("NIB_LO = 0, NIB_HI = 4;", "NIB_LO = 4, NIB_HI = 0;")],
+     lambda r: r["kernel"] == "K1" and r["qd"] == "int4" and kq_new(r)),
+    ("K1: int4's -8 read as -7 (bf16)", "gemm_packed_fused_a", "gemm_quant.cuh",
+     [("    return bsub((y & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);",
+       "    const uint32_t v = bsub((y & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);\n"
+       "    const __nv_bfloat162 h = __hmax2(*reinterpret_cast<const __nv_bfloat162*>"
+       "(&v), __float2bfloat162_rn(-7.0f));\n"
+       "    return *reinterpret_cast<const uint32_t*>(&h);")],
+     lambda r: r["kernel"] == "K1" and r["qd"] == "int4"
+     and r["dtype"] == "torch.bfloat16" and kq_new(r)),
+    ("K2: the tile scale of the next k-tile", "gemm_grouped_packed",
+     "gemm_grouped_packed.cu",
+     [("    return (which ? scales2 : scales)[(static_cast<long long>(e) * Nb + j) "
+       "* Kb + kk];",
+       "    return (which ? scales2 : scales)[(static_cast<long long>(e) * Nb + j) "
+       "* Kb + min(kk + 1, Kb - 1)];")],
+     lambda r: r["kernel"] == "K2" and r["gran"] == "tile" and r["kb"] > 1
+     and kq_new(r)),
+    ("K2: the col scale applied once per split", "gemm_grouped_packed",
+     "gemm_grouped_packed.cu",
+     [("          ws[(static_cast<long long>(sp) * NB + b) * total + at] = "
+       "sum[b][h][x];",
+       "          ws[(static_cast<long long>(sp) * NB + b) * total + at] = "
+       "p.scale_mode == 2 ? sum[b][h][x] * (b ? p.scales2 : p.scales)"
+       "[static_cast<long long>(e) * p.Nb + j] : sum[b][h][x];")],
+     lambda r: r["kernel"] == "K2" and r["gran"] == "col" and r["splits"] > 1
+     and kq_new(r)),
+]
+
+def start_gemm_faults(build, faults=GEMM_FAULTS, prefix="fault") -> list:
     """Start one nvcc a copy of each kernel with a fault of ``faults``
     (name, kernel, target, edits; by default ``GEMM_FAULTS``): the source
-    and every header copied, the fault applied to its copy of the target.
-    Returns the jobs, (name, kernel, process, library, log)."""
+    and every header copied, the fault applied to its copy of the target,
+    in a directory of its own (``prefix`` tells the lists apart). Returns
+    the jobs, (name, kernel, process, library, log)."""
     jobs = []
     for i, (name, kernel, target, edits) in enumerate(faults):
-        out_dir = build.BUILD_DIR / "planted" / f"{kernel}_fault{i}"
+        out_dir = build.BUILD_DIR / "planted" / f"{kernel}_{prefix}{i}"
         out_dir.mkdir(parents=True, exist_ok=True)
         for f in list(build.CSRC.glob("*.cuh")) + [build.CSRC / f"{kernel}.cu"]:
             text = f.read_text()
@@ -3403,15 +4303,85 @@ def planted_pack(torch, ks, jobs) -> tuple:
     return results, wrong
 
 
+
+def planted_quant(torch, ks, jobs) -> tuple:
+    """kq_checks and kq_served against K1 and K2 as built and each copy of
+    ``QUANT_FAULTS`` that ``jobs`` builds (each copy replaces its kernel's
+    entry point for the run): as built must pass every case; each fault
+    must fail every case its reach names, at the edges and at the served
+    shapes. Returns (results, wrong)."""
+    gp, gg = ks["gp"], ks["gg"]
+    entry = {"gemm_packed_fused_a": ("gemm_packed_fused_a_launch", gp._ARGTYPES,
+                                     gp),
+             "gemm_grouped_packed": ("gemm_grouped_packed_launch", gg._ARGTYPES,
+                                     gg)}
+    t0 = time.perf_counter()
+    runs = [("as built", None, None, None)]
+    for (name, kernel, proc, lib, log_path), fault in zip(jobs, QUANT_FAULTS):
+        if proc.wait() != 0:
+            raise RuntimeError(f"fault '{name}' did not build:\n"
+                               + log_path.read_text()[-4000:])
+        fn = getattr(ctypes.CDLL(str(lib)), entry[kernel][0])
+        fn.argtypes, fn.restype = entry[kernel][1], ctypes.c_int
+        runs.append((name, kernel, fn, fault[4]))
+    log(f"  built {len(jobs)} faulty copies of K1 / K2's quantized bodies "
+        f"({time.perf_counter() - t0:.1f} s more waiting for them)")
+    as_built = {k: mod._kernel for k, (_, _, mod) in entry.items()}
+    results, wrong = [], []
+    try:
+        for name, kernel, fn, reaches in runs:
+            if fn is not None:
+                entry[kernel][2]._kernel = lambda fn=fn: fn
+            reach = {}
+            fails, _ = kq_checks(torch, ks, quiet=True, reach=reach)
+            served_fails, _ = kq_served(torch, ks, quiet=True, reach=reach)
+            fails += served_fails
+            if fn is not None:
+                entry[kernel][2]._kernel = as_built[kernel]
+            named = [] if fn is None else [t for t, r in reach.items() if reaches(r)]
+            missed = [t for t in named if t not in fails]
+            ok = not fails if fn is None else bool(named) and not missed
+            results.append(dict(kernel=name, checks="quantized", reached=len(named),
+                                failed_checks=len(fails), missed=missed, ok=ok))
+            if not ok:
+                wrong.append(f"{name} (quantized checks)")
+            log(f"  phase 1 quantized checks, {name}: {len(fails)} of {len(reach)} "
+                f"cases failed" + (f" (it reaches {len(named)}, all must fail; "
+                                   f"missed {missed[:4]})" if fn is not None
+                                   else " (all must pass)")
+                + f" {'ok' if ok else 'WRONG'}"
+                + (f"; first {fails[:3]}" if fails and fn is None else ""))
+    finally:
+        for k, (_, _, mod) in entry.items():
+            mod._kernel = as_built[k]
+    return results, wrong
+
+def planted_quant_only(torch, build, ks) -> int:
+    """``python3 chip_smoke.py --planted-faults quantized``: the quantized
+    part of ``planted_faults`` alone (QUANT_FAULTS judged by kq_checks and
+    kq_served). Exits 0 when the kernels as built pass everywhere and each
+    fault fails at every case it reaches."""
+    jobs = start_gemm_faults(build, [f[:4] for f in QUANT_FAULTS],
+                             prefix="quant_fault")
+    results, wrong = planted_quant(torch, ks, jobs)
+    log(json.dumps({"planted_faults_quantized": results, "ok": not wrong}))
+    if wrong:
+        log(f"chip_smoke: the checks judged these as not expected: {wrong}")
+        return 1
+    return 0
+
+
 def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
     """``python3 chip_smoke.py --planted-faults``: shows that phase 6's
     check catches a wrong K4 and phase 1's a wrong K1, K2, K5, K6, K7 or
     K8. Starts one nvcc for each copy of K4's source with a fault of
     ``K4_FAULTS`` (under ``build/kernels/planted/``), for each GEMM copy of
-    ``GEMM_FAULTS`` and each K5 copy of ``K5_FAULTS``, all at once; then
+    ``GEMM_FAULTS``, each K5 copy of ``K5_FAULTS`` and each quantized copy
+    of ``QUANT_FAULTS``, all at once; then
     runs K4 as built and each faulty copy through the wrapper at A1-A6 and
     judges each output as phase 6 does, and the same for K1 / K2 / K6-K8
-    (planted_gemm) and K5 (planted_pack). Exits 0 when the kernels as built
+    (planted_gemm), K5 (planted_pack) and the quantized bodies (planted_quant).
+    Exits 0 when the kernels as built
     pass everywhere and each fault fails at every shape it reaches."""
     text = (build.CSRC / "flash_attention.cu").read_text()
     out_dir = build.BUILD_DIR / "planted"
@@ -3434,7 +4404,10 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
                 stderr=subprocess.STDOUT), lib, log_path))
     gemm_jobs = start_gemm_faults(build)
     pack_jobs = start_gemm_faults(build, [(name, "pack", "pack.cu", edits)
-                                          for name, edits, _ in K5_FAULTS])
+                                          for name, edits, _ in K5_FAULTS],
+                                  prefix="k5_fault")
+    quant_jobs = start_gemm_faults(build, [f[:4] for f in QUANT_FAULTS],
+                                   prefix="quant_fault")
     kernels = {"as built": fa._kernel()}
     for name, proc, lib, log_path in jobs:
         if proc.wait() != 0:
@@ -3444,8 +4417,9 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
         fn.argtypes, fn.restype = fa._ARGTYPES, ctypes.c_int
         kernels[name] = fn
     log(f"  built K4 and {len(jobs)} faulty copies in "
-        f"{time.perf_counter() - t0:.1f} s ({len(gemm_jobs)} GEMM and "
-        f"{len(pack_jobs)} K5 copies building beside them)")
+        f"{time.perf_counter() - t0:.1f} s ({len(gemm_jobs)} GEMM, "
+        f"{len(pack_jobs)} K5 and {len(quant_jobs)} quantized copies building "
+        f"beside them)")
     reach = {name: r for name, _, r in K4_FAULTS}
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     results, wrong = [], []
@@ -3478,13 +4452,14 @@ def planted_faults(torch, build, fa, cfgs, shapes, ks) -> int:
         fa._kernel = as_built
     results_68, wrong_68 = planted_gemm(torch, ks, gemm_jobs)
     results_k5, wrong_k5 = planted_pack(torch, ks, pack_jobs)
+    results_q, wrong_q = planted_quant(torch, ks, quant_jobs)
     log(f"  fault run {time.perf_counter() - t0:.1f} s")
+    wrong_all = wrong + wrong_68 + wrong_k5 + wrong_q
     log(json.dumps({"planted_faults": results, "planted_faults_gemm": results_68,
                     "planted_faults_k5": results_k5,
-                    "ok": not wrong and not wrong_68 and not wrong_k5}))
-    if wrong or wrong_68 or wrong_k5:
-        log(f"chip_smoke: the checks judged these as not expected: "
-            f"{wrong + wrong_68 + wrong_k5}")
+                    "planted_faults_quantized": results_q, "ok": not wrong_all}))
+    if wrong_all:
+        log(f"chip_smoke: the checks judged these as not expected: {wrong_all}")
         return 1
     return 0
 
@@ -3542,10 +4517,83 @@ def served_attention_ab(torch, cfgs, shapes, other_path) -> int:
     return 0
 
 
+def quant_summary(quant_t, quant_seen, quant_cells, src, card) -> list:
+    """The summary line's entries of the quantized TMA bodies: launched by
+    this run's quantized served cells, timed by phase 1 (int8 tiles with
+    tile scales the headline, int4 tiles with col scales beside it)."""
+    kernels = []
+
+    def body_launches(kernel, body):
+        by_cell = {cell: t[f"{kernel}_launches_by_body"].get(body, 0)
+                   for cell, t in quant_cells.items()
+                   if f"{kernel}_launches_by_body" in t}
+        return sum(by_cell.values()), {c: v for c, v in by_cell.items() if v}
+
+    def quant_entry(name, source, replaces, kernel, body, times, alt, work,
+                    max_err):
+        total, cells = body_launches(kernel, body)
+        rows = times["shapes"] if isinstance(times, dict) else times
+        kernels.append(dict(
+            name=name, route="cuda", source=src + source, replaces=replaces,
+            launches=total, launches_by_path=cells, max_abs_err=max_err,
+            ms=times["ms"], device_ms=times["device_ms"],
+            old_body_device_ms=times["old_device_ms"], plain_ms=times["plain_ms"],
+            bound_ms=times["bound_ms"],
+            bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                      else "operations"),
+            library_ms=times["library_ms"],
+            library_device_ms=times.get("library_device_ms"),
+            library=times["library"], int4_col=alt, work=work, card=card))
+
+    def grouped_quant(fmt_key, env):
+        rows = [r for r in quant_t[fmt_key] if r["envelope"] == env]
+        out = {key: MIXTRAL_LAYERS * sum(r[k] for r in rows) for key, k in (
+            ("ms", "k2_ms"), ("device_ms", "k2_device_ms"),
+            ("old_device_ms", "k2_old_device_ms"), ("plain_ms", "k2_plain_ms"),
+            ("bound_ms", "k2_bound_ms"), ("k3_device_ms", "k3_device_ms"),
+            ("k3_old_device_ms", "k3_old_device_ms"),
+            ("k3_bound_ms", "k3_bound_ms"))}
+        out.update(library_ms=None, library_device_ms=None,
+                   library="none: no single PyTorch call computes a grouped "
+                           "GEMM against scaled int8 / int4 tiles",
+                   shapes=[dict(r, bound_by=r["k2_bound_by"]) for r in rows])
+        return out
+    qerr = quant_seen["max_abs_err_by_body"]
+    k1_dec, k1_pre = "olmo-1b decode forward (113 calls, M=4)", (
+        "the 112 projections of an olmo-1b prefill forward (M=512)")
+    quant_entry("gemm_packed_fused_a tc_stream_q", "gemm_quant.cuh",
+                "src/repro/kernels/gemm_packed.py:162", "k1", "tc_stream_q",
+                quant_t["K1 int8:tile decode"], quant_t["K1 int4:col decode"],
+                "int8 tiles, tile scales: one " + k1_dec,
+                qerr.get("gemm_packed_fused_a tc_stream_q"))
+    quant_entry("gemm_packed_fused_a wgmma_q", "gemm_quant.cuh",
+                "src/repro/kernels/gemm_packed.py:162", "k1", "wgmma_q",
+                quant_t["K1 int8:tile prefill"], quant_t["K1 int4:col prefill"],
+                "int8 tiles, tile scales: " + k1_pre,
+                qerr.get("gemm_packed_fused_a wgmma_q"))
+    mix_dec = (f"one decode forward of {MIXTRAL_LAYERS}-layer mixtral-8x22b "
+               f"({2 * MIXTRAL_LAYERS} calls, E=8 C=8)")
+    quant_entry("gemm_grouped_packed_ragged tc_stream_q", "gemm_grouped_packed.cu",
+                "src/repro/kernels/gemm_grouped.py:284", "k2", "tc_stream_q",
+                grouped_quant("K2 int8:tile", "decode"),
+                grouped_quant("K2 int4:col", "decode"),
+                "int8 tiles, tile scales: " + mix_dec,
+                qerr.get("gemm_grouped_packed_ragged tc_stream_q"))
+    quant_entry("gemm_grouped_packed_ragged wgmma_q", "gemm_grouped_packed.cu",
+                "src/repro/kernels/gemm_grouped.py:284", "k2", "wgmma_q",
+                grouped_quant("K2 int8:tile", "prefill"),
+                grouped_quant("K2 int4:col", "prefill"),
+                f"int8 tiles, tile scales: the {2 * MIXTRAL_LAYERS} expert calls "
+                f"of a {MIXTRAL_LAYERS}-layer mixtral-8x22b prefill (E=8 C=160)",
+                qerr.get("gemm_grouped_packed_ragged wgmma_q"))
+    kernels[-1]["quantized_cells"] = quant_cells
+    return kernels
+
+
 def main(argv) -> int:
-    if not (argv in ([], ["--planted-faults"])
+    if not (argv in ([], ["--planted-faults"], ["--planted-faults", "quantized"])
             or (len(argv) == 2 and argv[0] == "--served-attention")):
-        print("usage: python3 chip_smoke.py [--planted-faults | "
+        print("usage: python3 chip_smoke.py [--planted-faults [quantized] | "
               "--served-attention OTHER/layers.py]", file=sys.stderr)
         return 2
     try:
@@ -3584,11 +4632,18 @@ def main(argv) -> int:
         log("served attention: chunked_attention of another layers.py "
             "against this tree's, in turns")
         return served_attention_ab(torch, cfgs, shapes, argv[1])
+    if argv[1:] == ["quantized"]:
+        log("planted faults: K1 / K2's quantized bodies as built and with each "
+            "fault of QUANT_FAULTS, judged by phase 1's quantized checks (the "
+            "edges and the served shapes)")
+        return planted_quant_only(torch, build, dict(gp=gp, gg=gg, ref=ref, tf=tf))
     if argv:
         log("planted faults: K4 as built and with each fault of K4_FAULTS, "
             "judged by phase 6's check at A1-A6; K1 / K2 / K6-K8 as built "
-            "and with each fault of GEMM_FAULTS, and K5 with each of "
-            "K5_FAULTS, judged by phase 1's edge checks")
+            "and with each fault of GEMM_FAULTS, K5 with each of K5_FAULTS "
+            "and K1 / K2's quantized bodies with each of QUANT_FAULTS, judged "
+            "by phase 1's edge checks (the quantized ones also at the served "
+            "shapes)")
         return planted_faults(torch, build, fa, cfgs, shapes,
                               dict(pack=pk, gp=gp, gv=gv, gg=gg, gt=gt, ref=ref,
                                    tf=tf))
@@ -3614,11 +4669,17 @@ def main(argv) -> int:
         f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
     log(f"  gemm_grouped_packed SASS: "
         f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
+    for name, want in QUANT_SASS.items():
+        log(f"  {name} quantized TMA bodies' SASS: "
+            f"{check_quant_sass(paths[name], want)}")
     log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
     log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
     log(f"  pack SASS: {check_k5_sass(paths['pack'])}")
-    table, main_err, k1_quant = phase_kernels(torch, gp, ref, tf, pk)
+    timer_checks = [timer_check(torch, "phase 1, a fresh process")]
+    table, main_err = phase_kernels(torch, gp, ref, tf, pk)
     grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
+    quant_t, quant_seen = phase_quant_kernels(torch, dict(gp=gp, gg=gg, ref=ref,
+                                                          tf=tf))
     layered_rows, layered_err = phase_layered(
         torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
     attn_err = phase_attention_checks(torch, fa)
@@ -3633,8 +4694,27 @@ def main(argv) -> int:
 
     log(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
         f"published widths")
-    mix_load, mix_launches, mix_t = phase_mixtral(
+    mix_load, mix_launches, mix_t, mix_logits = phase_mixtral(
         torch, gp, gg, counters, cfgs, models, serve)
+    torch.cuda.empty_cache()
+
+    quant_paths, quant_cells = {}, {}
+    for quantize in OLMO_QUANT:
+        log(f"phase 3b: serve full-width olmo-1b, {quantize} weights "
+            f"(phase 2's values)")
+        load_q, run_q, quant_cells[f"olmo-1b {quantize}"] = phase_serve_quant(
+            torch, gp, counters, serve, packed_run, quantize)
+        quant_paths[f"olmo-1b {quantize}, load"] = load_q
+        quant_paths[f"olmo-1b {quantize}"] = run_q
+        torch.cuda.empty_cache()
+    log(f"phase 3c: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
+        f"{MIXTRAL_QUANT} weights (phase 3's seed)")
+    load_q, run_q, quant_cells[f"mixtral-8x22b {MIXTRAL_QUANT}"] = \
+        phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
+                            mix_logits)
+    quant_paths[f"mixtral-8x22b {MIXTRAL_QUANT}, load"] = load_q
+    quant_paths[f"mixtral-8x22b {MIXTRAL_QUANT}"] = run_q
+    del mix_logits
     torch.cuda.empty_cache()
 
     log("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
@@ -3650,6 +4730,7 @@ def main(argv) -> int:
 
     log("phase 6: long-context attention through ops.attention, full head "
         "width, bf16")
+    timer_checks.append(timer_check(torch, "phase 6, after the served profiles"))
     attn_launches, attn_rows, attn_main_err = phase_attention(
         torch, fa, ops, counters, ref, cfgs, shapes)
     from repro_torch.models import layers as model_layers
@@ -3661,7 +4742,7 @@ def main(argv) -> int:
                "mixtral-8x22b packed, load": mix_load,
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
-               "ops.attention": attn_launches}
+               "ops.attention": attn_launches, **quant_paths}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -3745,9 +4826,7 @@ def main(argv) -> int:
                     else "operations"),
           library_ms=agg["library_ms"], device_ms=agg["device_ms"],
           library_device_ms=agg["library_device_ms"], prefill_512=k1_prefill,
-          quantized_decode=dict(
-              k1_quant, library="none: no single PyTorch call computes a GEMM "
-                                "against scaled int8 / int4 tiles"),
+          quantized=quant_t,
           launches_by_body={
               "olmo-1b packed": serve_t["k1_launches_by_body"],
               "mixtral-8x22b packed": mix_t["k1_launches_by_body"],
@@ -3775,6 +4854,7 @@ def main(argv) -> int:
           launches_by_body={"strategy sweep": {v: c for v, c in sweep_variants[
               "gemm_grouped_packed"].items() if c}},
           work=grouped_work + "; every row live (no counts)", card=card)
+    kernels += quant_summary(quant_t, quant_seen, quant_cells, src, card)
     k5_keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
                "general_device_ms", "bound_ms")
     k5_library = ("torch's one-call strided copy, x.reshape(Kb, bk, Nb, bn).permute(2, "
@@ -3852,6 +4932,10 @@ def main(argv) -> int:
           bound_by="operations" if 2 * by_ops > attn_sum("bound_ms") else "bytes",
           library_ms=attn_sum("library_ms"),
           library_device_ms=attn_sum("library_device_ms"),
+          profiler_device_ms=attn_sum("profiler_ms"),
+          profiler_lost={r["tag"]: r["profiler_lost"] for r in attn_rows
+                         if r["profiler_lost"]}, timer_checks=timer_checks,
+          device_fallbacks=DEVICE_FALLBACKS,
           launches_by_body={r["tag"]: r["body"] for r in attn_rows},
           library="F.scaled_dot_product_attention(enable_gqa=True), backend "
                   "per shape",

@@ -7,8 +7,16 @@ tensors on ``device``, with the stacked ``[L, ...]`` layer leaves split
 into a list of per-layer dicts — the scan-stacked MoE leaves too: the
 router ``[L, d, E]`` becomes ``[d, E]`` and the expert stacks
 ``wg``/``wu``/``wo`` ``[L, E, K, N]`` become ``[E, K, N]`` in each layer's
-``"moe"`` dict. Raw weights only: the port packs them with its own packer
-(``ServeConfig(pack_weights=True)``). This module imports nothing of JAX.
+``"moe"`` dict.
+
+Packed leaves cross too, byte for byte: a tree the reference's
+``pack_model_params`` packed (float, or int8 / int4 tiles with their scale
+grids) carries its ``PackedWeight`` / ``GroupedPackedWeight`` leaves with
+numpy buffers; each becomes the port's packed weight of the same plan, its
+tiles and scales split per layer like any stacked leaf. The port then
+serves the reference's quantized bytes exactly (its own planner tiles
+differently, so packing the raw weights again would quantize them
+otherwise). This module imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.layered import GroupedPackedWeight, PackedWeight
+from repro_torch.core.planner import GemmPlan
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -32,11 +42,39 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _is_packed(x) -> bool:
+    """A packed leaf of the reference (duck-typed: tiles, scales, plan)."""
+    return all(hasattr(x, a) for a in ("packed", "scales", "plan", "k", "n"))
+
+
+def _plan(ref_plan) -> GemmPlan:
+    """The port's plan of the same tiles, layouts, types and scale."""
+    return GemmPlan(bm=ref_plan.bm, bk=ref_plan.bk, bn=ref_plan.bn,
+                    dtype=ref_plan.dtype, acc_dtype=ref_plan.acc_dtype,
+                    layout_a=ref_plan.layout_a, layout_b=ref_plan.layout_b,
+                    b_dtype=ref_plan.b_dtype, b_scale=ref_plan.b_scale)
+
+
+def _leaf(x, device, layer=None):
+    """A reference leaf (layer ``layer`` of a stacked one) -> the port's."""
+    def part(a):
+        a = np.asarray(a)
+        return _tensor(a if layer is None else a[layer], device)
+    if not _is_packed(x):
+        return part(x)
+    scales = None if x.scales is None else part(x.scales)
+    if hasattr(x, "e"):
+        return GroupedPackedWeight(packed=part(x.packed), e=x.e, k=x.k,
+                                   n=x.n, plan=_plan(x.plan), scales=scales)
+    return PackedWeight(packed=part(x.packed), k=x.k, n=x.n,
+                        plan=_plan(x.plan), scales=scales)
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """Reference params (numpy leaves) -> port params on ``device``."""
-    out = {k: _map(v, lambda x: _tensor(x, device))
+    """Reference params (numpy leaves, packed leaves with numpy buffers)
+    -> port params on ``device``."""
+    out = {k: _map(v, lambda x: _leaf(x, device))
            for k, v in tree.items() if k != "layers"}
-    stacked = _map(tree["layers"], lambda x: np.asarray(x))
-    out["layers"] = [_map(stacked, lambda x, i=i: _tensor(x[i], device))
+    out["layers"] = [_map(tree["layers"], lambda x, i=i: _leaf(x, device, i))
                      for i in range(cfg.num_layers)]
     return out

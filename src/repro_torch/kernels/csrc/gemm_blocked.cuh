@@ -462,26 +462,30 @@ fma_stream(OpA A, OpB B, int K, Epilogue ep, int tiles_n, int splits, int kchunk
   }
 }
 
-// The split-K partial sums added in split order, then the store epilogue.
+// The split-K partial sums added in split order, then the store epilogue
+// (output column n's col scale is that of tile column n / col_bn).
 template <typename Acc>
-__global__ void splitk_reduce(const Acc* ws, int splits, Epilogue ep) {
+__global__ void splitk_reduce(const Acc* ws, int splits, Epilogue ep, int col_bn) {
   const long long total = static_cast<long long>(ep.M) * ep.N;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
        i += static_cast<long long>(gridDim.x) * blockDim.x) {
     Acc v = static_cast<Acc>(0);
     for (int s = 0; s < splits; ++s) v += ws[s * total + i];
-    ep.store(static_cast<float>(v), static_cast<int>(i / ep.N), static_cast<int>(i % ep.N), 0);
+    const int n = static_cast<int>(i % ep.N);
+    ep.store(static_cast<float>(v), static_cast<int>(i / ep.N), n, n / col_bn);
   }
 }
 
 // Launches splitk_reduce over the [splits, M, N] workspace; returns the
-// CUDA error of the launch.
+// CUDA error of the launch. `col_bn`: the width of a col scale's tile
+// column (the default: no col scale).
 template <typename Acc>
-int reduce_splits(const Acc* ws, int splits, const Epilogue& ep, cudaStream_t s) {
+int reduce_splits(const Acc* ws, int splits, const Epilogue& ep, cudaStream_t s,
+                  int col_bn = 0x7fffffff) {
   const long long total = static_cast<long long>(ep.M) * ep.N;
   const long long blocks = (total + 255) / 256;
   splitk_reduce<Acc><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(ws, splits,
-                                                                                     ep);
+                                                                                     ep, col_bn);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,9 +47,18 @@
 //    m64n64k16 wgmma; the pair keeps two accumulator sets (B and B2 of
 //    one 64-column tile) over one A box; a consumer warpgroup whose 64
 //    rows all lie at or past the count loads and multiplies nothing.
+//  * tc_stream_q / wgmma_q (bf16 / f16 A against int8 / int4 tiles with
+//    tile, col or no scales, bn 64, bk a multiple of 64, TMA-aligned
+//    operands): gemm_quant.cuh's bodies over the same A map and segment
+//    walk. Decode: grouped_quant_stream, grouped_stream's ring and split
+//    with the weight boxes widened in registers, each k-tile's partial
+//    times its stream's tile scale. Above: grouped_quant_wgmma, the
+//    widened weights as wgmma's register operand against 64 rows of a
+//    segment; a tile with no live row loads nothing.
 //  * mma_sync (grouped_mma, PR 12's tensor-core body: bf16 / f16 A against
 //    float tiles of other geometries or alignments, or against int8 / int4
-//    tiles): mma.sync m16n8k16 with f32 accumulators, B slices staged
+//    tiles the quantized TMA bodies do not take): mma.sync m16n8k16 with
+//    f32 accumulators, B slices staged
 //    k-contiguous per column for ldmatrix, int tiles widened exactly on the
 //    way. Decode blocks (C <= 16) are 16 x 16 with four warps splitting
 //    each slice's k-steps; prefill blocks 32 x 64.
@@ -58,7 +67,7 @@
 // The TPU kernel's sublane rule (decode-shaped segments to a masked
 // fallback) does not apply: every segment runs here.
 
-#include "gemm_wgmma.cuh"
+#include "gemm_quant.cuh"
 
 namespace {
 
@@ -933,16 +942,312 @@ int launch_tma(int body, const Grouped& p, int E, int a_dt, int int_acc, int spl
                                  kt_chunk, wsf, s);
 }
 
+// ---------------------------------------------------------------------------
+// tc_stream_q and wgmma_q: gemm_quant.cuh's quantized bodies over segments
+// ---------------------------------------------------------------------------
+
+enum GroupedQuantBody { G_TC_STREAM_Q = 5, G_WGMMA_Q = 6 };
+
+// Decode (C <= 16): grouped_stream with int8 / int4 weight boxes widened in
+// registers (quant_box_mma: warp w multiplies its 16 columns of each of
+// the NB streams' boxes). Each k-tile's partial joins the sum times its
+// stream's tile scale (scale_mode 1) or as it is; one split stores
+// through the epilogue, more write their partials of rows < count to ws
+// [splits, NB, E*S*C, N] for grouped_reduce, which applies the col scales.
+template <typename T, bool I4, bool COL, int NB>
+__global__ void __launch_bounds__(TS_THREADS)
+grouped_quant_stream(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                     const __grid_constant__ CUtensorMap tb2, Grouped p, AMap am, int splits,
+                     int kt_chunk, float* ws, long long total) {
+  constexpr int STAGE = TS_A_BYTES + NB * QBox<I4>::BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[QS_STAGES];
+  const int j = blockIdx.x % p.Nb, sp = (blockIdx.x / p.Nb) % splits;
+  const int g = blockIdx.x / p.Nb / splits, e = g / p.S;
+  const int count = p.live_rows(g);
+  if (count == 0) {  // a dead segment loads nothing; its zeros are stored once
+    if (splits == 1) p.store_zeros(g, 0, BOX * j, 16, BOX, TS_THREADS);
+    return;
+  }
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, nbox = p.bk / BOX;
+  if (tid == 0) {
+    for (int s = 0; s < QS_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int kt0 = sp * kt_chunk, kt1 = min(p.Kb, kt0 + kt_chunk);
+  const int steps = ring_steps(kt1 - kt0, p.bk);
+  auto issue = [&](int st) {  // one thread: k-box st into its slot
+    const int slot = st % QS_STAGES, kk = kt0 + st / nbox, kbox = st % nbox;
+    uint8_t* base = smem + slot * STAGE;
+    mbar_expect_tx(&full[slot], STAGE);
+    tma_load_a(base, &ta, &full[slot], am, kk * p.bk + kbox * BOX, 0, g % p.S, e);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      int c0, c1;
+      quant_box<I4, COL>((e * p.Nb + j) * p.Kb + kk, kbox, p.bk, c0, c1);
+      tma_load(base + TS_A_BYTES + b * QBox<I4>::BYTES, stream_map(tb, tb2, b), &full[slot], c0,
+               c1);
+    }
+  };
+  if (tid == 0) {
+    for (int st = 0; st < steps && st < QS_STAGES; ++st) issue(st);
+  }
+  float sum[NB][2][4], part[NB][2][4];
+  zero_acc<NB>(sum);
+  zero_acc<NB>(part);
+  for (int st = 0; st < steps; ++st) {
+    const int slot = st % QS_STAGES;
+    mbar_wait(&full[slot], (st / QS_STAGES) & 1);
+    const uint8_t* base = smem + slot * STAGE;
+    quant_box_mma<T, I4, COL, NB>(base, base + TS_A_BYTES, warp, lane, part);
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0 && st + QS_STAGES < steps) issue(st + QS_STAGES);
+    if ((st + 1) % nbox == 0) {  // k-tile kk done: its scaled partials join the sums
+      const int kk = kt0 + st / nbox;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float s = p.scale_mode == 1 ? p.tile_scale(b, e, j, kk) : 1.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            sum[b][h][x] += part[b][h][x] * s;
+            part[b][h][x] = 0.0f;
+          }
+      }
+    }
+  }
+  // c0, c1: row lane / 4, positions 2t, 2t + 1 of n8 tile h; c2, c3: row + 8.
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = lane / 4 + (x / 2) * 8;
+      const int gn = j * BOX + 16 * warp + qcol<COL>(8 * h + 2 * (lane % 4) + x % 2);
+      if (splits == 1) {
+        p.store(g, e, count, r, gn, j, sum[0][h][x], sum[NB - 1][h][x]);
+      } else if (r < count && gn < p.N) {
+        const long long at = (static_cast<long long>(g) * p.C + r) * p.N + gn;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          ws[(static_cast<long long>(sp) * NB + b) * total + at] = sum[b][h][x];
+        }
+      }
+    }
+}
+
+// C > 16: persistent blocks over tiles (segment g, 64-row m-tile tm,
+// column tile tn), m-tiles fastest. Producer warp 8 loads the m-tile's
+// 64-row A box (nothing for a tile with no live row) and two weight boxes a
+// stage: stripes 2tn and 2tn + 1 of B, or for the pair stripe tn of B and
+// of B2. Consumer warpgroup wg widens weight box wg and multiplies it by
+// the 64 rows (quant_wgmma_tile, wgmma with the weights in registers),
+// each k-tile's partial times its stream's tile scale. The pair's up
+// stream (warpgroup 1) hands its sums to warpgroup 0 through shared memory
+// for the silu-gate store; rows at or past the count are stored as 0.
+template <typename T, bool I4, bool COL, int NB>
+__global__ void __launch_bounds__(QW_THREADS, 1)
+grouped_quant_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+                    const __grid_constant__ CUtensorMap tb2, Grouped p, AMap am, int tiles_m,
+                    int tiles_n, int tiles) {
+  constexpr int STAGE = QwRing<I4>::STAGE;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[QW_STAGES], empty[QW_STAGES];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* xch = reinterpret_cast<float*>(smem + QW_STAGES * STAGE);  // [32][128], the pair only
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int steps = ring_steps(p.Kb, p.bk), nbox = p.bk / BOX;
+  if (tid == 0) {
+    for (int s = 0; s < QW_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Tile -> (g, tm, tn); whether the m-tile holds a live row.
+  auto live_tile = [&](int tile, int& g, int& tm, int& tn) {
+    tm = tile % tiles_m;
+    tn = (tile / tiles_m) % tiles_n;
+    g = tile / tiles_m / tiles_n;
+    return p.live_rows(g) > tm * BOX;
+  };
+  // Weight box h of column tile tn: its stripe.
+  auto stripe = [&](int tn, int h) { return NB == 2 ? tn : 2 * tn + h; };
+
+  if (warp == 8) {  // producer
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int g, tm, tn;
+        const bool live = live_tile(tile, g, tm, tn);
+        const int e = g / p.S, s = g % p.S;
+        for (int st = 0; st < (live ? steps : 0); ++st) {
+          const int kk = st / nbox, kbox = st - kk * nbox;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE);
+          uint8_t* base = smem + stage * STAGE;
+          tma_load_a(base, &ta, &full[stage], am, kk * p.bk + kbox * BOX, tm * BOX, s, e);
+          for (int h = 0; h < 2; ++h) {
+            int c0, c1;
+            quant_box<I4, COL>((e * p.Nb + min(stripe(tn, h), p.Nb)) * p.Kb + kk, kbox, p.bk, c0,
+                               c1);
+            tma_load(base + QW_A_BYTES + h * QBox<I4>::BYTES, stream_map(tb, tb2, NB == 2 ? h : 0),
+                     &full[stage], c0, c1);
+          }
+          if (++stage == QW_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: weight box wg
+    const int wg = warp / 4, wl = warp % 4;
+    int stage = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int g, tm, tn;
+      const bool live = live_tile(tile, g, tm, tn);
+      const int e = g / p.S, j = stripe(tn, wg), which = NB == 2 ? wg : 0;
+      float total[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) total[x] = 0.0f;
+      if (live) {
+        quant_wgmma_tile<T, I4, COL>(smem, full, empty, stage, phase, steps, nbox, wg, lane,
+                                     total, [&](int kk) {
+                                       return p.scale_mode != 1 ? 1.0f
+                                              : j < p.Nb ? p.tile_scale(which, e, j, kk)
+                                                         : 0.0f;
+                                     });
+      }
+      const int count = p.live_rows(g);
+      if (NB == 2) {  // the up stream's sums to warpgroup 0, then the pair's store
+        if (wg == 1) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) xch[x * 128 + tid % 128] = total[x];
+        }
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        if (wg == 0) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int gn = j * BOX + 16 * wl + qcol<COL>(qw_pos(x, lane));
+            p.store(g, e, count, tm * BOX + qw_row(x, lane), gn, j, total[x],
+                    xch[x * 128 + tid]);
+          }
+        }
+        asm volatile("bar.sync 2, 256;\n" ::: "memory");
+      } else {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int gn = j * BOX + 16 * wl + qcol<COL>(qw_pos(x, lane));
+          p.store(g, e, count, tm * BOX + qw_row(x, lane), gn, j, total[x], 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// grouped_quant_wgmma over G segments x tiles_m x tiles_n tiles (one block
+// an SM at most), or grouped_quant_stream over G x splits x Nb blocks with
+// grouped_reduce after it when it splits. Returns the CUDA error of the
+// launches.
+template <typename T, bool I4, bool COL, int NB>
+int launch_grouped_quant(int body, const CUtensorMap& ta, const CUtensorMap& tb,
+                         const CUtensorMap& tb2, const Grouped& p, const AMap& am, int G,
+                         int splits, int kt_chunk, float* ws, cudaStream_t s) {
+  if (body == G_WGMMA_Q) {
+    constexpr int SMEM = QwRing<I4>::SMEM + (NB == 2 ? 32 * 128 * 4 : 0);
+    static bool raised = false;
+    if (!raised) {
+      cudaFuncSetAttribute(grouped_quant_wgmma<T, I4, COL, NB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      raised = true;
+    }
+    const int tiles_m = (p.C + BOX - 1) / BOX, tiles_n = NB == 2 ? p.Nb : (p.Nb + 1) / 2;
+    const long long tiles = static_cast<long long>(G) * tiles_m * tiles_n;
+    if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    grouped_quant_wgmma<T, I4, COL, NB><<<grid_for(tiles, sm_count()), QW_THREADS, SMEM, s>>>(
+        ta, tb, tb2, p, am, tiles_m, tiles_n, static_cast<int>(tiles));
+    return static_cast<int>(cudaGetLastError());
+  }
+  constexpr int SMEM = QS_STAGES * (TS_A_BYTES + NB * QBox<I4>::BYTES) + 1024;
+  static bool raised = false;
+  if (!raised) {
+    cudaFuncSetAttribute(grouped_quant_stream<T, I4, COL, NB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    raised = true;
+  }
+  const long long blocks = static_cast<long long>(G) * splits * p.Nb;
+  const long long total = static_cast<long long>(G) * p.C * p.N;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  grouped_quant_stream<T, I4, COL, NB><<<static_cast<int>(blocks), TS_THREADS, SMEM, s>>>(
+      ta, tb, tb2, p, am, splits, kt_chunk, ws, total);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || splits == 1) return err;
+  const long long rblocks = (total + 255) / 256;
+  grouped_reduce<NB><<<static_cast<int>(rblocks < 4096 ? rblocks : 4096), 256, 0, s>>>(
+      ws, splits, total, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tc_stream_q (C <= 16) and wgmma_q: bf16 / f16 A against int8 / int4
+// tiles (tile, col or no scales); cudaErrorInvalidValue for what they do
+// not take.
+int launch_quant(int body, const Grouped& p, int E, int a_dt, int int_acc, int splits,
+                 int kt_chunk, void* ws, cudaStream_t s) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  const bool quant_pair = (a_dt == DT_BF16 || a_dt == DT_F16) && !int_acc &&
+                          (p.b_dt == DT_I8 || p.b_dt == DT_I4);
+  if (!quant_pair || p.bn != BOX || p.bk % BOX != 0 || !aligned16(p.A) || !aligned16(p.B) ||
+      (p.B2 != nullptr && !aligned16(p.B2)) || p.lda % 8 != 0 || p.sa_s % 8 != 0 ||
+      p.sa_e % 8 != 0 || p.lda < p.K || p.sa_s <= 0 || p.sa_e <= 0 ||
+      (body == G_TC_STREAM_Q && (p.C > 16 || !valid_tile_split(p.Kb, splits, kt_chunk, ws)))) {
+    return invalid;
+  }
+  CUtensorMap ta, tb, tb2;
+  AMap am;
+  const int G = E * p.S;
+  const long long tiles = 1LL * E * p.Nb * p.Kb;
+  if (!make_grouped_a_map(&ta, &am, p.A, a_dt, E, p.S, p.C, p.K, p.sa_e, p.sa_s, p.lda,
+                          body == G_WGMMA_Q ? BOX : 16) ||
+      !make_quant_b_map(&tb, p.B, p.b_dt, p.col_layout, tiles, p.bk, p.bn) ||
+      !make_quant_b_map(&tb2, p.B2 != nullptr ? p.B2 : p.B, p.b_dt, p.col_layout, tiles, p.bk,
+                        p.bn)) {
+    return invalid;
+  }
+  float* wsf = static_cast<float*>(ws);
+  return quant_dispatch(p.b_dt, p.col_layout, [&](auto i4, auto col) {
+    constexpr bool I4 = decltype(i4)::value, COL = decltype(col)::value;
+    if (a_dt == DT_BF16) {
+      return p.B2 != nullptr
+          ? launch_grouped_quant<__nv_bfloat16, I4, COL, 2>(body, ta, tb, tb2, p, am, G, splits,
+                                                            kt_chunk, wsf, s)
+          : launch_grouped_quant<__nv_bfloat16, I4, COL, 1>(body, ta, tb, tb2, p, am, G, splits,
+                                                            kt_chunk, wsf, s);
+    }
+    return p.B2 != nullptr
+        ? launch_grouped_quant<__half, I4, COL, 2>(body, ta, tb, tb2, p, am, G, splits, kt_chunk,
+                                                   wsf, s)
+        : launch_grouped_quant<__half, I4, COL, 1>(body, ta, tb, tb2, p, am, G, splits, kt_chunk,
+                                                   wsf, s);
+  });
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). A is [E, S, C, K] with element
 // strides sa_e, sa_s, lda and unit column stride; counts is [E * S] int32
 // or null (K3: every row live); b2 / scales2 the silu-gate partner (or
 // null). `variant` picks the body (0 fma, 1 / 2 mma_sync decode / prefill,
-// 3 wgmma, 4 tc_stream; the caller checks eligibility, see gemm_grouped.py
-// grouped_body); BM / BN / KC are the fma body's block shape; tc_stream
-// cuts Kb into `splits` chunks of `kchunk` packed k-tiles, its partials in
-// `ws` (f32 [splits, streams, E*S*C, N]) when splits > 1. Returns
+// 3 wgmma, 4 tc_stream, 5 tc_stream_q, 6 wgmma_q; the caller checks
+// eligibility, see gemm_grouped.py grouped_body); BM / BN / KC are the fma
+// body's block shape; tc_stream and tc_stream_q cut Kb into `splits`
+// chunks of `kchunk` packed k-tiles, their partials in `ws` (f32 [splits,
+// streams, E*S*C, N]) when splits > 1. Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for what
 // the body does not take. `stream` is the caller's cudaStream_t.
 extern "C" int gemm_grouped_packed_launch(
@@ -968,6 +1273,9 @@ extern "C" int gemm_grouped_packed_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == G_WGMMA || variant == G_TC_STREAM) {
     return launch_tma(variant, p, E, a_dt, int_acc, splits, kchunk, ws, s);
+  }
+  if (variant == G_TC_STREAM_Q || variant == G_WGMMA_Q) {
+    return launch_quant(variant, p, E, a_dt, int_acc, splits, kchunk, ws, s);
   }
   return (b2 != nullptr) ? launch_blocks<2>(p, E, a_dt, BM, BN, KC, int_acc, variant, s)
                          : launch_blocks<1>(p, E, a_dt, BM, BN, KC, int_acc, variant, s);

@@ -39,13 +39,23 @@
 //    int8 tiles and i32 accumulators): gemm_blocked.cuh's CUDA-core bodies
 //    with split-K, as K8's packed variant runs them; no tensor-core
 //    instruction for f32, which the reference accumulates in full f32.
-//  * mma_quant / fma_quant (every other pair: int8 / int4 tiles with tile
-//    or col scales under 16-bit or f32 A, int4 under int8 A, mixed float
-//    types): the quantized bodies below, fused_a_mma (mma.sync m16n8k16,
-//    int tiles widened exactly to the activation type in shared memory) and
-//    fused_a_fma (scalar FMAs on shared-memory tiles).
+//  * tc_stream_q / wgmma_q (bf16 / f16 A against int8 / int4 tiles, with
+//    tile, col or no scales, bn 64, bk a multiple of 64, A TMA-aligned):
+//    gemm_quant.cuh's bodies. The narrow tiles come through TMA as stored
+//    and each warp widens what it multiplies in registers. Decode (M <= 16):
+//    quant_stream, mma.sync on a ring of (A box, weight box) stages, Kb
+//    split on whole k-tiles as tc_stream splits it, each k-tile's partial
+//    times its tile scale, the splits reduced in order with the col scale
+//    in the reduction's epilogue. Above: quant_wgmma, the widened weights as
+//    wgmma's register operand against 64 activation rows from shared
+//    memory, 64 x 128 output tiles.
+//  * mma_quant / fma_quant (every other pair: int8 / int4 tiles under f32
+//    A, int4 under int8 A, mixed float types, other geometries or a
+//    misaligned A): the quantized bodies below, fused_a_mma (mma.sync
+//    m16n8k16, int tiles widened exactly to the activation type in shared
+//    memory) and fused_a_fma (scalar FMAs on shared-memory tiles).
 
-#include "gemm_wgmma.cuh"
+#include "gemm_quant.cuh"
 
 namespace {
 
@@ -338,7 +348,9 @@ enum FusedBody {
   F_WGMMA = 3,
   F_TC_STREAM = 4,
   F_MMA_GENERAL = 5,
-  F_FMA = 6
+  F_FMA = 6,
+  F_TC_STREAM_Q = 7,
+  F_WGMMA_Q = 8
 };
 
 // tc_stream (M <= 16) and wgmma: natural A and the packed B stack through
@@ -377,6 +389,38 @@ int launch_tma(int body, const void* a, long long lda, int M, int K, const void*
   return reduce_splits(wsf, splits, ep, s);
 }
 
+// tc_stream_q (M <= 16) and wgmma_q: natural A through a 2-D tensor map,
+// the int8 / int4 stack through its byte view; cudaErrorInvalidValue for
+// what they do not take.
+template <typename T>
+int launch_quant(int body, const void* a, int a_dt, long long lda, int M, int K, const void* b,
+                 int b_dt, int b_col, int Nb, int Kb, int bk, int bn, const Epilogue& ep,
+                 int splits, int kt_chunk, void* ws, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (bn != BOX || bk % BOX != 0 || !aligned16(a) || !aligned16(b) || lda % 8 != 0 || lda < K ||
+      !make_quant_b_map(&tb, b, b_dt, b_col, 1LL * Nb * Kb, bk, bn) ||
+      !make_tensor_map(&ta, a, a_dt, M, K, body == F_WGMMA_Q ? BOX : 16, lda)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (body == F_WGMMA_Q) {
+    const int tiles_m = (M + BOX - 1) / BOX, tiles_n = (Nb + 1) / 2;
+    return quant_dispatch(b_dt, b_col, [&](auto i4, auto col) {
+      return launch_quant_wgmma<T, decltype(i4)::value, decltype(col)::value>(
+          ta, tb, Kb, bk, Nb, tiles_m, tiles_n, ep, s);
+    });
+  }
+  if (M > 16 || !valid_tile_split(Kb, splits, kt_chunk, ws)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* wsf = static_cast<float*>(ws);
+  const int err = quant_dispatch(b_dt, b_col, [&](auto i4, auto col) {
+    return launch_quant_stream<T, decltype(i4)::value, decltype(col)::value>(
+        ta, tb, Kb, bk, Nb, splits, kt_chunk, wsf, ep, s);
+  });
+  if (err != 0 || splits == 1) return err;
+  return reduce_splits(wsf, splits, ep, s, BOX);
+}
+
 // mma_general: blocked_mma over natural A and any float tile geometry.
 template <typename T>
 int launch_general(const void* a, long long lda, int M, int K, const void* b, int b_col, int Kb,
@@ -394,8 +438,9 @@ int launch_general(const void* a, long long lda, int M, int K, const void* b, in
 // the quantized bodies fma_quant and mma_quant decode / prefill (BM / BN /
 // KC the fma body's block shape), 3 wgmma, 4 tc_stream (`splits` chunks of
 // `kchunk` packed k-tiles), 5 mma_general, 6 fma_tiled / fma_stream (the
-// FmaPlan `fma_body`, `fma_tile`, `splits`, `kchunk` in elements of k);
-// `ws` the split-K workspace ([splits, M, N] of the accumulator type).
+// FmaPlan `fma_body`, `fma_tile`, `splits`, `kchunk` in elements of k),
+// 7 tc_stream_q (split as tc_stream), 8 wgmma_q; `ws` the split-K
+// workspace ([splits, M, N] of the accumulator type).
 // Returns the CUDA error after the launches, or cudaErrorInvalidValue for
 // what the body does not take. `stream` is the caller's cudaStream_t.
 extern "C" int gemm_packed_fused_a_launch(
@@ -432,6 +477,21 @@ extern "C" int gemm_packed_fused_a_launch(
                                   splits, kchunk, ws, s);
       }
       return invalid;
+    case F_TC_STREAM_Q:
+    case F_WGMMA_Q: {
+      const bool quant_pair = (b_dt == DT_I8 || b_dt == DT_I4) && !int_acc &&
+                              (scale_mode == 0 || scales != nullptr);
+      if (!quant_pair) return invalid;
+      if (a_dt == DT_BF16) {
+        return launch_quant<__nv_bfloat16>(body, a, a_dt, lda, M, K, b, b_dt, col_layout, Nb, Kb,
+                                           bk, bn, ep, splits, kchunk, ws, s);
+      }
+      if (a_dt == DT_F16) {
+        return launch_quant<__half>(body, a, a_dt, lda, M, K, b, b_dt, col_layout, Nb, Kb, bk, bn,
+                                    ep, splits, kchunk, ws, s);
+      }
+      return invalid;
+    }
     case F_MMA_GENERAL:
       if (!float_pair) return invalid;
       if (a_dt == DT_BF16) {

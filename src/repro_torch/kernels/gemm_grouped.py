@@ -36,9 +36,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import (EPILOGUE_CODES, acc_dtype_for, cdiv,
                                         kernel_epilogue_name)
 from repro_torch.kernels.gemm_packed import (_A_DTYPES, _B_DTYPES, _BM_CHOICES,
-                                             _DT, _OUT_DTYPES, FMA, TC_BOX,
-                                             _pick_bn, pick_variant,
-                                             tc_stream_split)
+                                             _DT, _OUT_DTYPES, FMA,
+                                             SPLIT_BODIES, TC_BOX, _pick_bn,
+                                             pick_variant, tc_stream_split)
 from repro_torch.kernels.ref import grouped_fused_acc_ref, ragged_row_mask
 
 MAX_SEGMENTS = 65535  # the kernel's segment grid axis (gridDim.z)
@@ -57,10 +57,13 @@ _ARGTYPES = [
 ]
 
 # The bodies by name (the ``.variants`` keys): the TMA bodies (codes 4 and
-# 3 of the CUDA source), PR 12's mma.sync body (1 decode, 2 prefill tiles,
-# by pick_variant) and its scalar-FMA body (0).
-GROUPED_BODIES = ("tc_stream", "wgmma", "mma_sync", "fma")
-_BODY_CODE = {"fma": 0, "wgmma": 3, "tc_stream": 4}
+# 3 of the CUDA source), the quantized TMA bodies (5 and 6), the first
+# port's mma.sync body (1 decode, 2 prefill tiles, by pick_variant) and its
+# scalar-FMA body (0).
+GROUPED_BODIES = ("tc_stream", "wgmma", "tc_stream_q", "wgmma_q", "mma_sync",
+                  "fma")
+_BODY_CODE = {"fma": 0, "wgmma": 3, "tc_stream": 4, "tc_stream_q": 5,
+              "wgmma_q": 6}
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,15 +176,22 @@ def grouped_body(a_dtype: torch.dtype, fmt: TileFormat, c: int, *,
     * bf16 / f16 A against unscaled tiles of the same type with bn 64 and
       bk a multiple of 64, on aligned operands: ``tc_stream`` up to 16
       rows, ``wgmma`` above;
+    * bf16 / f16 A against int8 / int4 tiles (tile, col or no scales) of
+      the same geometry on aligned operands: ``tc_stream_q`` up to 16 rows,
+      ``wgmma_q`` above;
     * every other pair keeps PR 12's bodies as :func:`pick_variant` picks
       them: ``mma_sync`` (bf16 / f16 A against float tiles of other
-      geometries or alignments, or int8 / int4 tiles) and ``fma`` (f32 A,
-      int8 A with i32 accumulators, mixed float types).
+      geometries or alignments, or int8 / int4 tiles of other geometries
+      or under a misaligned A) and ``fma`` (f32 A, int8 A with i32
+      accumulators, mixed float types).
     """
     a_dt = dtype_name(a_dtype)
-    if (a_dt in ("bfloat16", "float16") and not scaled and fmt.dtype == a_dt
-            and tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0):
-        return "tc_stream" if c <= 16 else "wgmma"
+    tma_tiles = tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0
+    if a_dt in ("bfloat16", "float16") and tma_tiles:
+        if not scaled and fmt.dtype == a_dt:
+            return "tc_stream" if c <= 16 else "wgmma"
+        if fmt.dtype in ("int8", "int4"):
+            return "tc_stream_q" if c <= 16 else "wgmma_q"
     return "fma" if pick_variant(a_dtype, fmt, c) == FMA else "mma_sync"
 
 
@@ -257,7 +267,7 @@ def launch_args(a, b_packed, n, counts, *, b2_packed, bm, b_scales,
     body = grouped_body(a.dtype, fmt, c, scaled=b_scales is not None,
                         tma_ok=grouped_tma_aligned(a, b_packed, b2_packed))
     ws, splits, chunk = None, 1, 0
-    if body == "tc_stream":
+    if body in SPLIT_BODIES:
         # The split depends on shapes only: the counts stay on the device.
         splits, chunk = tc_stream_split(kb, e * s * nb)
         if splits > 1:

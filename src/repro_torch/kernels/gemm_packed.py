@@ -2,7 +2,7 @@
 epilogue fused into the store:
 
   * ``gemm_packed_fused_a`` (K1) — natural-layout A against a packed B
-    (float, or int8 / int4 tiles with scales, dequantized in the kernel).
+    (float, or int8 / int4 tiles with scales, widened in the kernel).
     CUDA kernel ``csrc/gemm_packed_fused_a.cu``, plain torch version
     :func:`gemm_packed_fused_a_plain`; :func:`fused_a_body` picks its body
     per call, and ``.variants`` counts the launches by body.
@@ -62,10 +62,14 @@ FMA, MMA_DECODE, MMA_PREFILL = 0, 1, 2
 # K1's bodies by name (the ``.variants`` keys) and their codes in the CUDA
 # source (enum FusedBody; mma_quant is 1 or 2 by its tile variant, fma_*
 # one code with the FmaPlan choosing the body).
-FUSED_BODIES = ("tc_stream", "wgmma", "mma_general", "fma_stream",
-                "fma_tiled", "mma_quant", "fma_quant")
+FUSED_BODIES = ("tc_stream", "wgmma", "tc_stream_q", "wgmma_q",
+                "mma_general", "fma_stream", "fma_tiled", "mma_quant",
+                "fma_quant")
 _BODY_CODE = {"fma_quant": 0, "wgmma": 3, "tc_stream": 4, "mma_general": 5,
-              "fma_tiled": 6, "fma_stream": 6}
+              "fma_tiled": 6, "fma_stream": 6, "tc_stream_q": 7,
+              "wgmma_q": 8}
+# The bodies that cut Kb into splits (tc_stream_split) and reduce them.
+SPLIT_BODIES = ("tc_stream", "tc_stream_q")
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,19 +157,27 @@ def fused_a_body(a_dtype: torch.dtype, fmt: TileFormat, m: int, *,
       for bn 64 and bk a multiple of 64 on aligned operands, ``tc_stream``
       up to 16 rows and ``wgmma`` above; ``mma_general`` (blocked_mma) for
       any other geometry or alignment;
+    * bf16 / f16 A against int8 / int4 tiles (tile, col or no scales) of
+      the same geometry on aligned operands: the quantized TMA bodies,
+      ``tc_stream_q`` up to 16 rows and ``wgmma_q`` above;
     * f32 A against f32 tiles, int8 A against unscaled int8 tiles:
       ``fma_stream`` up to 16 rows, ``fma_tiled`` above (CUDA cores);
-    * every other pair (int8 / int4 tiles with scales, int4 under int8 A,
-      mixed float types): the quantized bodies ``mma_quant`` / ``fma_quant``.
+    * every other pair (quantized tiles of other geometries or under a
+      misaligned or f32 A, int4 under int8 A, mixed float types): the
+      quantized bodies ``mma_quant`` / ``fma_quant``.
     """
     a_dt = dtype_name(a_dtype)
+    tma_tiles = tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0
     if not scaled and fmt.dtype == a_dt:
         if a_dt in ("bfloat16", "float16"):
-            if tma_ok and fmt.bn == TC_BOX and fmt.bk % TC_BOX == 0:
+            if tma_tiles:
                 return "tc_stream" if m <= 16 else "wgmma"
             return "mma_general"
         if a_dt in ("float32", "int8"):
             return "fma_stream" if m <= gt.STREAM_ROWS else "fma_tiled"
+    if (a_dt in ("bfloat16", "float16") and fmt.dtype in ("int8", "int4")
+            and tma_tiles):
+        return "tc_stream_q" if m <= 16 else "wgmma_q"
     return "fma_quant" if pick_variant(a_dtype, fmt, m) == FMA else "mma_quant"
 
 
@@ -225,7 +237,7 @@ def launch_args(a, b_packed, n, c, *, bm, alpha, beta, b_scales, out,
     body = fused_a_body(a.dtype, fmt, m, scaled=b_scales is not None,
                         tma_ok=tma_aligned(a, b_packed))
     ws = None
-    if body == "tc_stream":
+    if body in SPLIT_BODIES:
         splits, chunk = tc_stream_split(kb, cdiv(n, fmt.bn))
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32,
@@ -284,17 +296,22 @@ def gemm_packed_fused_a(a: torch.Tensor, b_packed: torch.Tensor, n: int,
                          f"{a.device}")
     fmt, out_dtype = _resolve(a, b_packed, layout_b, b_scales, b_format, c,
                               out_dtype)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        return _launch(a, b_packed, n, c, bm=bm, alpha=alpha, beta=beta,
+                       b_scales=b_scales, out_dtype=out_dtype,
+                       epilogue=epilogue, bias=bias, fmt=fmt, stream=stream)
+
+
+def _launch(a, b_packed, n, c, *, out_dtype, **kw) -> torch.Tensor:
+    """Allocate [M, n], launch the kernel on it on ``kw["stream"]`` and
+    count the launch by body (no launch for M = 0)."""
     out = torch.empty((a.shape[0], n), dtype=out_dtype, device=a.device)
     if a.shape[0] == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        args, keep, body = launch_args(a, b_packed, n, c, bm=bm, alpha=alpha,
-                                       beta=beta, b_scales=b_scales, out=out,
-                                       epilogue=epilogue, bias=bias, fmt=fmt,
-                                       stream=stream)
-        rc = _kernel()(*args)
-        del keep
+    args, keep, body = launch_args(a, b_packed, n, c, out=out, **kw)
+    rc = _kernel()(*args)
+    del keep
     if rc != 0:
         raise RuntimeError(f"gemm_packed_fused_a launch failed ({body}): "
                            f"CUDA error {rc}")

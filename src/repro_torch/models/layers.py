@@ -39,7 +39,9 @@ def pack_model_params(cfg: ModelConfig, params: dict, *, dtype=None,
     GroupedPackedWeight, and ``head_packed`` holds the packed LM head
     ([d_model, vocab], from the tied embedding or the head table).
     ``quantize`` ("int8" | "int4", optional ":col") quantizes all of them,
-    the expert stacks included."""
+    the expert stacks included. Leaves that are packed already (for
+    example carried across from the reference by ``interop``) stay as
+    they are, ``head_packed`` included."""
     compute = torch_dtype(dtype or cfg.compute_dtype)
 
     def walk(tree, in_moe=False):
@@ -64,10 +66,11 @@ def pack_model_params(cfg: ModelConfig, params: dict, *, dtype=None,
         return out
 
     out = walk(params)
-    table = (params["embed"]["table"] if cfg.tie_embeddings
-             else params["head"]["table"])
-    out["head_packed"] = PackedWeight.pack(table.t().to(compute),
-                                           quantize=quantize)
+    if "head_packed" not in out:
+        table = (params["embed"]["table"] if cfg.tie_embeddings
+                 else params["head"]["table"])
+        out["head_packed"] = PackedWeight.pack(table.t().to(compute),
+                                               quantize=quantize)
     if not cfg.tie_embeddings:
         out.pop("head", None)  # the packed head replaces the raw table
     return out

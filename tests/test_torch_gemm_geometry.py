@@ -224,10 +224,12 @@ BF16, F16, F32, I8 = torch.bfloat16, torch.float16, torch.float32, torch.int8
     (F32, "float32", None, 17, 128, 64, True, "fma_tiled"),
     (I8, "int8", None, 4, 64, 32, True, "fma_stream"),
     (I8, "int8", None, 33, 64, 32, False, "fma_tiled"),
-    # Everything else takes the quantized bodies.
-    (BF16, "int8", "tile", 4, 128, 64, True, "mma_quant"),
-    (BF16, "int4", "col", 512, 128, 64, True, "mma_quant"),
-    (F16, "int8", None, 64, 128, 64, True, "mma_quant"),
+    # 16-bit A against int8 / int4 tiles of that geometry: the quantized
+    # TMA bodies (tests/test_torch_quant_geometry.py pins the rest) ...
+    (BF16, "int8", "tile", 4, 128, 64, True, "tc_stream_q"),
+    (BF16, "int4", "col", 512, 128, 64, True, "wgmma_q"),
+    (F16, "int8", None, 64, 128, 64, True, "wgmma_q"),
+    # ... and everything else the first port's quantized bodies.
     (F32, "int8", "tile", 4, 64, 64, True, "fma_quant"),
     (F32, "int4", "col", 512, 64, 64, True, "fma_quant"),
     (I8, "int4", None, 4, 64, 64, True, "fma_quant"),
@@ -332,11 +334,12 @@ def test_k1_f32_and_int8_take_the_cuda_core_plan(m, want, dtype):
 
 @pytest.mark.parametrize("m,code", [(4, gp.MMA_DECODE), (512, gp.MMA_PREFILL)])
 def test_k1_quantized_tiles_keep_the_first_bodies(m, code):
-    """int4 tiles with col scales under bf16 A: mma_quant, its decode or
-    prefill tiles by pick_variant."""
+    """int4 tiles with col scales under a bf16 A that TMA cannot read (its
+    base off 16 bytes): mma_quant, its decode or prefill tiles by
+    pick_variant (an aligned A takes tc_stream_q / wgmma_q)."""
     fmt = TileFormat(bk=128, bn=64, dtype="int4",
                      scale=ScaleSpec(granularity="col"))
-    args, body, _ = _k1_args(_a_view(m, 2048, 2048), 8192, fmt,
+    args, body, _ = _k1_args(_a_view(m, 2048, 2048, offset=5), 8192, fmt,
                              b_scales=torch.ones(128))
     assert body == "mma_quant" and args[BODY_ARG] == code
 

@@ -41,9 +41,9 @@ def _dt(name):
     (BF16, "bfloat16", None, 8, 128, 32, True, "mma_sync"),
     (BF16, "bfloat16", None, 160, 32, 64, True, "mma_sync"),
     (BF16, "bfloat16", None, 8, 32, 64, True, "fma"),
-    (BF16, "int8", "tile", 8, 128, 64, True, "mma_sync"),
-    (BF16, "int4", "col", 160, 128, 64, True, "mma_sync"),
-    (F16, "int8", None, 8, 128, 64, True, "mma_sync"),
+    (BF16, "int8", "tile", 8, 128, 64, True, "tc_stream_q"),
+    (BF16, "int4", "col", 160, 128, 64, True, "wgmma_q"),
+    (F16, "int8", None, 8, 128, 64, True, "tc_stream_q"),
     (F32, "float32", None, 8, 64, 64, True, "fma"),
     (F32, "int8", "tile", 160, 64, 64, True, "fma"),
     (I8, "int8", None, 8, 64, 64, True, "fma"),
@@ -53,8 +53,9 @@ def _dt(name):
 def test_grouped_body_follows_the_route_table(a_dtype, b_dtype, gran, c, bk,
                                               bn, tma_ok, want):
     """bf16 / f16 A against aligned unscaled tiles of its type with bn 64 and
-    bk % 64 == 0: tc_stream up to 16 rows a segment, wgmma above; every
-    other pair keeps PR 12's bodies as pick_variant chose them."""
+    bk % 64 == 0: tc_stream up to 16 rows a segment, wgmma above; against
+    int8 / int4 tiles of that geometry tc_stream_q / wgmma_q; every other
+    pair keeps the first port's bodies as pick_variant chose them."""
     scale = dict(scale=ScaleSpec(granularity=gran)) if gran else {}
     fmt = TileFormat(bk=bk, bn=bn, dtype=b_dtype, **scale)
     assert gg.grouped_body(a_dtype, fmt, c, scaled=gran is not None,
@@ -223,10 +224,11 @@ def test_permuted_a_passes_its_own_strides():
 
 @pytest.mark.parametrize("c,code", [(8, 1), (160, 2)])
 def test_quantized_tiles_keep_pr12_mma(c, code):
-    """int8 tiles with tile scales under bf16 A: mma_sync, its decode or
-    prefill tiles by pick_variant."""
+    """int8 tiles with tile scales under a bf16 A that TMA cannot read (its
+    base 8 bytes off 16): mma_sync, its decode or prefill tiles by
+    pick_variant (an aligned A takes tc_stream_q / wgmma_q)."""
     fmt = TileFormat(bk=128, bn=64, dtype="int8", scale=ScaleSpec())
-    a = torch.zeros(2, 1, c, 256, dtype=BF16)
+    a = torch.zeros(2, 1, c, 264, dtype=BF16)[..., 4:260]
     args, _, body = _args(a, 128, None, fmt=fmt,
                           b_scales=torch.ones(2, 2, 2))
     assert body == "mma_sync" and args[BODY_ARG] == code
