@@ -105,6 +105,23 @@ Phases (any failure exits non-zero and prints no result line):
      load's K5 packs: 112 tma_copy, the LM head tma_stage). The
      first prefill's logits are compared with the same weights run through
      the plain versions on the card.
+  2b. Serve the same olmo-1b (phase 2's bf16 weights, packed again at
+     load) through the serving stack: ``ContinuousScheduler`` (max_live 8,
+     block_size 16, max_len 256, bf16 cache) over its paged KV pool, on 24
+     requests from a seed (prompts of 16-128 tokens, budgets of 8-48 greedy
+     tokens, all at t = 0): (i) unpressured (128 blocks), (ii) a pool of
+     three quarters of (i)'s peak blocks, so that requests are preempted
+     and resumed, (iii) (i) with ``batch_step`` armed at hits 1-3 so that
+     bisection evicts exactly one row, (iv) (i) on the int8 pool. Each run
+     must close conservation and drain the pool, launch K1 only (113 a
+     forward: a prefill's projections on wgmma, every other launch on
+     tc_stream), and (ii)'s tokens and (iii)'s survivors must equal (i)'s
+     bit for bit. Then one batched step at 8 live rows: each row bitwise
+     the same row run with the others dead (the check), against the
+     batch-1 decode (reported only), the step, gather and scatter timed,
+     the device-busy share by torch.profiler; and the first 8 requests
+     through the scheduler and through the batch-1 ``StreamFrontend``
+     (tokens/s of each).
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
      8 KV heads x 128, d_ff 16384, 8 experts top-2, vocab 32768) with its
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
@@ -3276,6 +3293,328 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     return load, launches, timings, (model, params, logits_k, prompt)
 
 
+# Phase 2b: full-width olmo-1b through the continuous-batching scheduler.
+CONT_REQUESTS, CONT_PROMPT, CONT_BUDGET = 24, (16, 128), (8, 48)
+CONT_LIVE, CONT_BLOCK, CONT_SUBSET = 8, 16, 8
+
+
+def continuous_requests(serve, vocab, n=CONT_REQUESTS, seed=7):
+    """``n`` requests from ``seed``: prompts of CONT_PROMPT tokens, budgets
+    of CONT_BUDGET greedy tokens, every one arriving at t = 0."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    return [serve.Request(
+        request_id=i,
+        tokens=r.integers(0, vocab, int(r.integers(CONT_PROMPT[0],
+                                                   CONT_PROMPT[1] + 1))),
+        max_new_tokens=int(r.integers(CONT_BUDGET[0], CONT_BUDGET[1] + 1)))
+        for i in range(n)]
+
+
+class ForwardCount:
+    """The model's prefill / decode forwards, counted: an Engine built on
+    ``model`` calls these (prefills of more than 16 rows apart: their
+    projections take K1's wgmma body, every other forward tc_stream)."""
+
+    def __init__(self, model):
+        self.prefills = self.long_prefills = self.decodes = 0
+
+        def prefill(params, batch, **kw):
+            self.prefills += 1
+            self.long_prefills += int(batch["tokens"].shape[1] > 16)
+            return model.prefill(params, batch, **kw)
+
+        def decode(*args):
+            self.decodes += 1
+            return model.decode(*args)
+        self.model = dataclasses.replace(model, prefill=prefill, decode=decode)
+
+    def reset(self):
+        self.prefills = self.long_prefills = self.decodes = 0
+
+
+def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
+                   fault=None, record=None, **cfg):
+    """Serve ``reqs`` (all at t = 0) through a fresh ContinuousScheduler,
+    counted: conservation and a drained pool, K1 the only kernel, every
+    launch on tc_stream or wgmma (113 a forward: 112 projections and the LM
+    head; a prefill's projections on wgmma). ``fault`` arms batch_step at
+    those hits; ``record`` (a dict) gets each decoded token's logits row by
+    (request id, step). Returns what the run measured."""
+    from repro_torch.core import health
+    from repro_torch.testing import faults
+    health.clear_serve()
+    counters.reset()
+    fwd.reset()
+    cs = serve.ContinuousScheduler(engine, serve.ContinuousConfig(
+        queue_capacity=len(reqs), max_live=CONT_LIVE, block_size=CONT_BLOCK,
+        max_retries=1, **cfg))
+    if record is not None:
+        commit = cs._commit_rows
+
+        def commit_rows(done, rows, logits_b):
+            for row in rows:
+                slot = cs._live[row]
+                record[slot.req.request_id, len(slot.emitted)] = logits_b[row].clone()
+            commit(done, rows, logits_b)
+        cs._commit_rows = commit_rows
+    peak = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with (faults.inject("batch_step", nth=fault) if fault
+          else contextlib.nullcontext()):
+        for r in reqs:
+            if cs.submit(r) is not None:
+                raise AssertionError(f"{label}: request {r.request_id} shed")
+        while cs._queue or cs._live:
+            cs.step()
+            peak = max(peak, cs.kv.alloc.used_count)
+        cs.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, bodies = counters.read(), launches_by_body(counters)
+    s = cs.stats()
+    events = {}
+    for rec in engine.serve_report()["requests"].values():
+        for e in rec["events"]:
+            name = e["event"] + (":" + e["detail"].split(":")[0]
+                                 if e["event"] == "bisect" else "")
+            events[name] = events.get(name, 0) + 1
+    health.clear_serve()
+    per_forward = 7 * engine.model.cfg.num_layers + 1
+    want = per_forward * (fwd.prefills + fwd.decodes)
+    want_bodies = {"wgmma": (per_forward - 1) * fwd.long_prefills,
+                   "tc_stream": want - (per_forward - 1) * fwd.long_prefills}
+    want_bodies = {k: v for k, v in want_bodies.items() if v}
+    tokens = {rid: res.tokens.tolist() for rid, res in cs.results.items()}
+    n_tok = sum(len(t) for t in tokens.values())
+    out = dict(label=label, wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+               prefills=fwd.prefills, decode_steps=fwd.decodes, peak_blocks=peak,
+               kv_blocks=cs.kv.alloc.capacity, pool_bytes=cs.kv.pool_bytes(),
+               stats=s, events=events, k1_launches=launches["gemm_packed_fused_a"],
+               k1_launches_by_body=bodies)
+    log(f"  {label}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; "
+        f"{fwd.prefills} prefills, {fwd.decodes} batched steps, peak "
+        f"{peak}/{cs.kv.alloc.capacity} KV blocks, pool {cs.kv.pool_bytes()} "
+        f"bytes; completed {s['completed']} evicted {s['evicted']} preempted "
+        f"{s['preempted']} resumed {s['resumed']} retries {s['retries']}; "
+        f"events {events}; K1 {launches['gemm_packed_fused_a']} by body {bodies} "
+        f"(want {want}, {want_bodies})")
+    closed = (s["offered"] == s["admitted"] == len(reqs)
+              and s["admitted"] == s["completed"] + s["evicted"] + s["deadline_miss"]
+              and s["queued"] == s["live"] == s["preempted_open"] == 0
+              and len(tokens) == len(reqs))
+    if not closed:
+        raise AssertionError(f"{label}: conservation does not close: {s}")
+    if cs.kv.alloc.free_count != cs.kv.alloc.capacity \
+            or not cs.kv.accounting_consistent():
+        raise AssertionError(f"{label}: KV pool not drained")
+    if launches != counters.only(gemm_packed_fused_a=want):
+        raise AssertionError(f"{label}: launch counts {launches}")
+    if bodies != want_bodies:
+        raise AssertionError(f"{label}: K1 launches by body {bodies}")
+    return out, tokens, launches
+
+
+def phase_serve_continuous(torch, counters, serve, packed_run):
+    """Full-width olmo-1b (phase 2's bf16 weights, packed) served through
+    ContinuousScheduler(max_live 8, block_size 16) on max_len 256, bf16
+    cache: runs (i) unpressured, (ii) a pool of three quarters of (i)'s peak
+    blocks (preemption), (iii) (i) with batch_step armed so that bisection
+    evicts one row, (iv) (i) on the int8 pool. Returns (load launches, the
+    runs' launches summed, the phase's measurements)."""
+    from repro_torch.core import health
+    from repro_torch.testing import faults
+    model, params = packed_run[:2]
+    cfg = model.cfg
+    fwd = ForwardCount(model)
+    counters.reset()
+    t0 = time.perf_counter()
+    engine = serve.Engine(fwd.model, params, serve.ServeConfig(
+        max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    load, load_bodies = counters.read(), launches_by_body(counters, "pack_b")
+    log(f"  Engine (packed, max_len {MAX_LEN}, bf16 cache) in "
+        f"{time.perf_counter() - t0:.2f} s; load launches {load}, K5 by body "
+        f"{load_bodies}")
+    if load != counters.only(pack_b=7 * cfg.num_layers + 1) or load_bodies != \
+            dict(tma_copy=7 * cfg.num_layers, tma_stage=1):
+        raise AssertionError(f"load-time launch counts {load} {load_bodies}")
+    reqs = continuous_requests(serve, cfg.vocab_size)
+    faults.reset()
+    health.clear_serve()
+
+    run_i, tok_i, launched = continuous_run(torch, serve, engine, counters, fwd,
+                                            reqs, "(i) unpressured")
+    total = dict(launched)
+    if run_i["stats"]["completed"] != len(reqs):
+        raise AssertionError("(i): not every request completed")
+    tight = (3 * run_i["peak_blocks"]) // 4
+    run_ii, tok_ii, launched = continuous_run(
+        torch, serve, engine, counters, fwd, reqs,
+        f"(ii) {tight} KV blocks", num_kv_blocks=tight)
+    total = {k: total[k] + launched[k] for k in total}
+    if run_ii["stats"]["preempted"] < 1 \
+            or run_ii["stats"]["resumed"] != run_ii["stats"]["preempted"]:
+        raise AssertionError("(ii): no preempt / resume under the tight pool")
+    if tok_ii != tok_i:
+        raise AssertionError("(ii): preempted streams differ from (i)'s")
+    run_iii, tok_iii, launched = continuous_run(
+        torch, serve, engine, counters, fwd, reqs,
+        "(iii) batch_step at hits 1, 2, 3", fault=(1, 2, 3))
+    total = {k: total[k] + launched[k] for k in total}
+    evicted = [rid for rid, t in tok_iii.items() if len(t) != len(tok_i[rid])]
+    if run_iii["events"].get("bisect:guilty") != 1 or len(evicted) != 1 \
+            or run_iii["stats"]["evicted"] != 1:
+        raise AssertionError(f"(iii): bisection did not evict exactly one row: "
+                             f"{run_iii['events']}")
+    for rid, toks in tok_iii.items():
+        if toks != tok_i[rid][:len(toks)] or (rid not in evicted
+                                             and toks != tok_i[rid]):
+            raise AssertionError(f"(iii): request {rid} differs from (i)")
+    run_iv, tok_iv, launched = continuous_run(
+        torch, serve, engine, counters, fwd, reqs, "(iv) int8 pool",
+        kv_quantize="int8")
+    total = {k: total[k] + launched[k] for k in total}
+    same = sum(a == b for rid in tok_i for a, b in zip(tok_i[rid], tok_iv[rid]))
+    run_iv["share_equal_to_i"] = same / run_i["tokens"]
+    log(f"  (iv) int8 pool: {same}/{run_i['tokens']} tokens equal to (i)'s "
+        f"({100 * same / run_i['tokens']:.1f}%); pool bytes bf16 "
+        f"{run_i['pool_bytes']}, int8 {run_iv['pool_bytes']} "
+        f"({run_iv['pool_bytes'] / run_i['pool_bytes']:.3f}x)")
+
+    # -- one batched step at 8 live rows: rows alone, batch-1, timings ------
+    cs = serve.ContinuousScheduler(engine, serve.ContinuousConfig(
+        queue_capacity=CONT_SUBSET, max_live=CONT_LIVE, block_size=CONT_BLOCK))
+    for r in reqs[:CONT_SUBSET]:
+        cs.submit(r)
+    for _ in range(3):
+        cs.step()
+    if len(cs._live) != CONT_LIVE:
+        raise AssertionError(f"{len(cs._live)} live rows, want {CONT_LIVE}")
+    import numpy as np
+    tokens = np.zeros((CONT_LIVE, 1), np.int64)
+    pos = np.zeros((CONT_LIVE,), np.int64)
+    for row, slot in cs._live.items():
+        tokens[row, 0] = slot.emitted[-1]
+        pos[row] = slot.req.tokens.shape[0] + len(slot.emitted) - 1
+    tables = cs.kv.device_tables()
+    logits, written = cs._step(tables, tokens, pos)
+    alone_equal, b1_equal, b1_max = 0, 0, 0.0
+    for row in range(CONT_LIVE):
+        alone, _ = cs._row_step(row, int(tokens[row, 0]), int(pos[row]))
+        alone_equal += bool(torch.equal(alone[row], logits[row]))
+        raw, _ = engine.decode_request(cs.kv.gather_slot(row),
+                                       torch.tensor([[int(tokens[row, 0])]]),
+                                       int(pos[row]))
+        b1_equal += bool(torch.equal(raw[0, 0], logits[row]))
+        b1_max = max(b1_max, float((raw[0, 0].float() - logits[row].float())
+                                   .abs().max()))
+    log(f"  one batched step, {CONT_LIVE} live rows at positions "
+        f"{pos.tolist()}: {alone_equal}/{CONT_LIVE} rows bitwise equal to the "
+        f"row alone (the others dead); against the batch-1 decode "
+        f"(decode_request on gather_slot, reported only): {b1_equal}/"
+        f"{CONT_LIVE} bitwise, largest |difference| {b1_max:.3e} "
+        f"(|logits| max {float(logits.abs().max()):.3f})")
+    if alone_equal != CONT_LIVE:
+        raise AssertionError("a batched row differs from the same row alone")
+
+    def step(i):
+        return cs._step(tables, tokens, pos)
+    step_ms = time_ms(step, 8)
+    step_busy = device_ms(step, 4, "phase 2b batched step")
+    gather_ms = time_ms(lambda i: cs.kv.gather(tables), 8)
+    scatter_ms = time_ms(lambda i: cs._commit_pool(written), 8)
+    t_host = time.perf_counter()
+    for i in range(8):
+        step(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_host) * 1e3 / 8
+    log(f"  batched step at {CONT_LIVE} rows: {step_ms:.3f} ms (events), "
+        f"{wall_ms:.3f} ms (host clock), device busy {step_busy:.3f} ms = "
+        f"{100 * step_busy / wall_ms:.1f}% of the host-clock step; gather "
+        f"{gather_ms:.3f} ms + scatter {scatter_ms:.3f} ms = "
+        f"{100 * (gather_ms + scatter_ms) / step_ms:.1f}% of the step")
+    cs.drain()
+
+    # -- batched against batch-1 on the same subset ------------------------
+    # Each decoded token's logits are kept on both sides (a device copy a
+    # token) to find where the two greedy streams part.
+    subset, rec_b, rec_1 = reqs[:CONT_SUBSET], {}, {}
+    sub_b, tok_b, _ = continuous_run(torch, serve, engine, counters, fwd,
+                                     subset, f"scheduler, first {CONT_SUBSET}",
+                                     record=rec_b)
+    health.clear_serve()
+    fe = serve.StreamFrontend(engine, serve.StreamConfig(
+        queue_capacity=CONT_SUBSET, max_live=CONT_LIVE))
+    sample = engine.sample_tokens
+
+    def sample_1(logits, rids, step):
+        if step:
+            rec_1[int(rids[0]), int(step)] = logits[0].clone()
+        return sample(logits, rids, step)
+    engine.sample_tokens = sample_1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in subset:
+        fe.submit(r)
+    fe.drain()
+    torch.cuda.synchronize()
+    fe_wall = time.perf_counter() - t0
+    engine.sample_tokens = sample
+    health.clear_serve()
+    fe_tok = {rid: res.tokens.tolist() for rid, res in fe.results.items()}
+    fe_n = sum(len(t) for t in fe_tok.values())
+    fe_same = sum(a == b for rid in fe_tok for a, b in zip(fe_tok[rid], tok_b[rid]))
+    if fe_n != sub_b["tokens"]:
+        raise AssertionError("the batch-1 front end emitted another count")
+    # Steps whose histories agree: are the two logits rows bitwise equal?
+    pairs = bitwise = ties = 0
+    parted = []
+    for rid, toks in fe_tok.items():
+        for step in range(1, len(toks)):
+            if toks[:step] != tok_b[rid][:step]:
+                break
+            a, b = rec_1[rid, step], rec_b[rid, step]
+            pairs += 1
+            if torch.equal(a, b):
+                bitwise += 1
+                ties += toks[step] != tok_b[rid][step]
+            else:
+                parted.append(dict(request=rid, step=step, max_abs_diff=float(
+                    (a.float() - b.float()).abs().max()),
+                    same_argmax=toks[step] == tok_b[rid][step]))
+    del rec_b, rec_1
+    log(f"  batch-1 against batched, steps with equal histories: {bitwise}/"
+        f"{pairs} logits rows bitwise equal ({ties} of them gave other "
+        f"tokens); first differing rows {parted[:4]}")
+    log(f"  batch-1 StreamFrontend, first {CONT_SUBSET} requests: {fe_n} tokens "
+        f"in {fe_wall:.2f} s = {fe_n / fe_wall:.1f} tokens/s; the scheduler "
+        f"{sub_b['tokens_per_s']:.1f} tokens/s = "
+        f"{sub_b['tokens_per_s'] * fe_wall / fe_n:.2f}x; greedy tokens equal "
+        f"{fe_same}/{fe_n} (reported only)")
+    del cs, fe, engine
+    out = dict(runs=[run_i, run_ii, run_iii, run_iv],
+               batched_step_ms=step_ms, batched_step_host_ms=wall_ms,
+               batched_step_device_busy_ms=step_busy,
+               device_busy_share=step_busy / wall_ms,
+               gather_ms=gather_ms, scatter_ms=scatter_ms,
+               gather_scatter_share=(gather_ms + scatter_ms) / step_ms,
+               rows_alone_equal=alone_equal, batch1_rows_equal=b1_equal,
+               batch1_max_abs_diff=b1_max, subset_scheduler=sub_b,
+               subset_frontend_tokens_per_s=fe_n / fe_wall,
+               batched_over_batch1=sub_b["tokens_per_s"] * fe_wall / fe_n,
+               frontend_equal_tokens=fe_same / fe_n,
+               frontend_rows_compared=pairs, frontend_rows_bitwise=bitwise,
+               frontend_rows_parted=parted[:8],
+               pool_bytes_bf16=run_i["pool_bytes"], k5_load_launches_by_body=load_bodies,
+               pool_bytes_int8=run_iv["pool_bytes"],
+               k1_launches_by_body={r["label"]: r["k1_launches_by_body"]
+                                    for r in (run_i, run_ii, run_iii, run_iv)})
+    return load, total, out
+
+
 def phase_serve_raw(torch, counters, ctr, serve, packed_run):
     """Full-width olmo-1b served with RAW bf16 weights through the default
     ``Engine(model, params)`` (``ServeConfig()``: no packing, f32 KV cache):
@@ -4692,6 +5031,16 @@ def main(argv) -> int:
         torch, gp, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
+    log("phase 2b: serve full-width olmo-1b through the continuous-batching "
+        "scheduler (paged KV pool, packed weights)")
+    t_phase = time.perf_counter()
+    cont_load, cont_launches, cont_t = phase_serve_continuous(
+        torch, counters, serve, packed_run)
+    cont_t["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"serve_continuous": cont_t, "card": card}))
+    log(f"  phase 2b took {cont_t['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
     log(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
         f"published widths")
     mix_load, mix_launches, mix_t, mix_logits = phase_mixtral(
@@ -4739,6 +5088,8 @@ def main(argv) -> int:
     log(json.dumps({"served_attention": served_attn, "card": card}))
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
+               "olmo-1b continuous, load": cont_load,
+               "olmo-1b continuous": cont_launches,
                "mixtral-8x22b packed, load": mix_load,
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
@@ -4827,8 +5178,11 @@ def main(argv) -> int:
           library_ms=agg["library_ms"], device_ms=agg["device_ms"],
           library_device_ms=agg["library_device_ms"], prefill_512=k1_prefill,
           quantized=quant_t,
+          continuous={k: v for k, v in cont_t.items()
+                      if k not in ("runs", "subset_scheduler")},
           launches_by_body={
               "olmo-1b packed": serve_t["k1_launches_by_body"],
+              "olmo-1b continuous": cont_t["k1_launches_by_body"],
               "mixtral-8x22b packed": mix_t["k1_launches_by_body"],
               "strategy sweep": {v: c for v, c in
                                  sweep_variants["gemm_packed_fused_a"].items() if c},
@@ -4870,6 +5224,7 @@ def main(argv) -> int:
              for key in k5_keys}, bound_by="bytes", body="tma_copy",
           launches_by_body={
               "olmo-1b packed, load": serve_t["k5_load_launches_by_body"],
+              "olmo-1b continuous, load": cont_t["k5_load_launches_by_body"],
               "mixtral-8x22b packed, load": mix_t["k5_load_launches_by_body"]["pack_b"],
               "strategy sweep": {name: nonzero(sweep_variants[name])
                                  for name in ("pack_a", "pack_b")},

@@ -16,6 +16,15 @@
     request's stream never depends on its batch neighbours. The streams
     differ from the reference's JAX threefry streams; greedy decoding
     (temperature 0) matches token for token.
+  * Two serving surfaces share the step programs: ``Engine.generate`` runs
+    a fixed-size static batch, while ``serve.frontend.StreamFrontend``
+    serves a request stream through the per-request step API
+    (``prefill_request`` / ``decode_request`` / ``sample_tokens``) with
+    admission control, deadlines, retry / shedding and per-request fault
+    isolation, and ``serve.scheduler.ContinuousScheduler`` moves every
+    live request into one batched decode step over a paged KV pool
+    (``serve.kv_cache``). ``health_report`` / ``serve_report`` read the
+    process-global registries of ``repro_torch.core.health``.
   * The engine runs on the card by default, and raises without one; pass
     ``device="cpu"`` to run on the CPU.
 """
@@ -27,6 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import health
 from repro_torch.core.contraction import ContractionSpec, dispatch, is_packed
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.core.epilogue import EPILOGUE_SPECS
@@ -143,6 +153,26 @@ class Engine:
     def _decode(self, caches, token: torch.Tensor, pos: torch.Tensor):
         return self.model.decode(self.params, caches, token, pos)
 
+    def health_report(self) -> Dict[str, dict]:
+        """The dispatch-health registry's degradation report: an empty dict
+        is healthy. Each entry records a ``(spec, lowering)``'s failure
+        count, classified cause, the fallback that took over and the last
+        failure's detail. The registry is process-global
+        (``repro_torch.core.health.HEALTH``): engines sharing a process
+        share the report."""
+        return health.health_report()
+
+    def serve_report(self) -> Dict[str, dict]:
+        """The request-lifecycle report of the stream front end and the
+        continuous scheduler: ``counters`` are the monotonic conservation
+        counters (offered = admitted + shed; every admitted request ends
+        exactly once as completed / evicted / deadline_miss), ``requests``
+        the retained per-request records (a bounded ring;
+        ``dropped_records`` counts what the ring dropped, never from the
+        counters), and ``dispatch_health`` the dispatch registry's bound
+        stats. Process-global (``repro_torch.core.health.SERVE``)."""
+        return health.serve_report()
+
     def _tokens(self, tokens) -> torch.Tensor:
         if not torch.is_tensor(tokens):
             tokens = torch.as_tensor(np.asarray(tokens))
@@ -152,15 +182,23 @@ class Engine:
                       step) -> torch.Tensor:
         """One token per row of ``logits`` [B, V]: argmax when greedy, else
         a draw from ``softmax(row / temperature)`` with the row's own
-        generator, seeded from (seed, request_ids[r], step[r])."""
+        generator, seeded from (seed, request_ids[r], step[r]). A row with
+        NaN / Inf logits (which only the opt-in numerics guard turns into
+        an eviction) takes its argmax, as the reference's Gumbel-argmax
+        draw lands on its first NaN, so an unguarded poisoned row yields a
+        token instead of failing every row sampled with it."""
         if self.cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         rids = np.asarray(request_ids, np.int64).reshape(-1)
         steps = np.broadcast_to(np.asarray(step, np.int64), rids.shape)
         probs = torch.softmax(logits.to(torch.float32) / self.cfg.temperature,
                               dim=-1)
+        finite = torch.isfinite(probs).all(dim=-1).tolist()
         out = []
         for r in range(probs.shape[0]):
+            if not finite[r]:
+                out.append(torch.argmax(logits[r]).reshape(1))
+                continue
             gen = torch.Generator(device=probs.device)
             gen.manual_seed(_mix64(self.cfg.seed, int(rids[r]), int(steps[r])))
             out.append(torch.multinomial(probs[r], 1, generator=gen))
