@@ -173,6 +173,27 @@ Phases (any failure exits non-zero and prints no result line):
      Then served attention alone: ``models.layers.chunked_attention`` (what
      the served models run) at olmo-1b's served prefill and decode and one
      prefill_32k sequence, timed.
+  7. Serve the other eight configs of the registry, one after another, each
+     freed before the next, at their published widths through
+     ``Engine(..., ServeConfig(pack_weights=True))`` with random f32 weights
+     from a seed packed in bf16 at load: qwen3-4b (qk-norm), phi3-mini
+     (head_dim 96), llama4-scout (16 experts top-1, untied head; 4 of 48
+     layers), command-r-plus (parallel block; 4 of 64 layers), mamba2-130m
+     (SSM), hymba-1.5b (attention and SSM averaged, window 1024),
+     paligemma-3b (256 patch embeddings as a bidirectional prefix) and
+     whisper-base (1500 frame embeddings through the encoder, cross
+     attention); depth is cut only where one card's memory forces it
+     (FAMILY_DEPTH). Prompt 2 x 64 tokens, 8 greedy steps. Each model:
+     the load's K5 launches, K1's (and llama4's K2's) launches by body
+     equal to the counts derived from its config (family_counts), finite
+     tokens, K1 on every distinct packed weight at the rows the path
+     gives it (2, the prefill's, whisper's 3000 encoder rows) and
+     llama4's K2 at its C 16 / 8 against the plain versions on the body
+     each must take, prefill logits within 5e-2 of the plain versions on
+     the same weights (llama4 as mixtral: routing pinned, and free), peak
+     memory and the card's line. Then, in a fresh process (late in this
+     one torch.profiler loses its records), each model's prefill ms and
+     decode ms/step (CUDA events) and its device busy time (torch.profiler).
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key, the diagonal tile taken as interior,
@@ -3041,6 +3062,37 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     return launches, rows, grows, variants
 
 
+def profile_kernels(torch, fn, reps) -> tuple:
+    """torch.profiler (CUPTI) over ``reps`` calls of ``fn(i)``, after one
+    unprofiled call: ({name: device us summed over the calls}, the kernel
+    records it kept against the launch calls it saw on the host, "kept /
+    launched" (a lost record would read as idle), the profiled wall ms a
+    call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    dev, records, launched = {}, 0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
+        if t > 0:
+            dev[ev.key] = t
+            if on_device and not ev.key.startswith(("Memcpy", "Memset")):
+                records += ev.count
+        elif not on_device and "LaunchKernel" in ev.key:
+            launched += ev.count
+    kept = f"{records}/{launched}" if launched else f"{records}/not seen"
+    return dev, kept, wall_ms
+
+
 def serve_timings(torch, engine, prompt, steps, kernel_tags):
     """Warm Engine.generate calls, the forwards alone, and a profile of the
     decode forward. ``kernel_tags`` maps a label to a substring of the CUDA
@@ -3067,9 +3119,9 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
         f"{b}); {b * 1e3 * steps / ms_gen:.1f} tokens/s over the whole call")
 
     # Model forwards alone (CUDA events): no sampling, no host copy.
-    tok_t = prompt.to(DEVICE)
-    ms_prefill = time_ms(lambda i: engine._prefill(tok_t), 3)
-    _, caches = engine._prefill(tok_t)
+    batch = {"tokens": prompt.to(DEVICE)}
+    ms_prefill = time_ms(lambda i: engine._prefill(batch), 3)
+    _, caches = engine._prefill(batch)
     tok = torch.zeros((b, 1), dtype=torch.long, device=DEVICE)
     pos0 = prompt.shape[1]
 
@@ -3081,38 +3133,15 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags):
         f"{ms_prefill:.2f} ms; decode {ms_decode:.3f} ms/step")
 
     # -- where a decode step's time goes (torch.profiler, CUPTI) ------------
-    from torch.profiler import ProfilerActivity, profile
     steps_p = 4
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(steps_p):
-            step(i)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev, records, launched = {}, 0, 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if t > 0:
-            dev[ev.key] = t
-            if on_device and not ev.key.startswith(("Memcpy", "Memset")):
-                records += ev.count
-        elif not on_device and "LaunchKernel" in ev.key:
-            launched += ev.count
-    # A kernel record the profiler lost would read as idle: the kernels it
-    # kept against the launch calls it saw on the host.
-    kept = f"{records}/{launched}" if launched else f"{records}/not seen"
-    busy = sum(dev.values())
+    dev, kept, wall_ms = profile_kernels(torch, step, steps_p)
     per_kernel = {label: sum(t for name, t in dev.items() if tag in name)
                   / steps_p / 1e3 for label, tag in kernel_tags.items()}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
     # The profiler slows the host (wall below); the busy share is taken
     # against the unprofiled step times measured above.
-    busy_ms = busy / steps_p / 1e3
-    log(f"  profile {steps_p} decode steps: wall {wall_us / steps_p / 1e3:.3f} ms/step "
+    busy_ms = sum(dev.values()) / steps_p / 1e3
+    log(f"  profile {steps_p} decode steps: wall {wall_ms:.3f} ms/step "
         f"(profiled), device busy {busy_ms:.3f} ms/step = "
         f"{100 * busy_ms / ms_decode:.1f}% of the unprofiled forward "
         f"({100 * busy_ms / ms_step:.1f}% of the generate step), "
@@ -3149,8 +3178,8 @@ def prefill_profile(torch, engine, prompt, prefill_ms, kernel_tags, k5_calls,
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import pack as pk
-    tok = prompt.to(DEVICE)
-    engine._prefill(tok)
+    batch = {"tokens": prompt.to(DEVICE)}
+    engine._prefill(batch)
     torch.cuda.synchronize()
     routed = pk.pack_body
     turns = []
@@ -3158,7 +3187,7 @@ def prefill_profile(torch, engine, prompt, prefill_ms, kernel_tags, k5_calls,
         if body == "general":
             pk.pack_body = lambda *args: "general"
         try:
-            turns.append((body, time_ms(lambda i: engine._prefill(tok), 5)))
+            turns.append((body, time_ms(lambda i: engine._prefill(batch), 5)))
         finally:
             pk.pack_body = routed
     ab = {body: [ms for b, ms in turns if b == body] for body in ("routed", "general")}
@@ -3166,7 +3195,7 @@ def prefill_profile(torch, engine, prompt, prefill_ms, kernel_tags, k5_calls,
         f"K5 forced onto general {ab['general']} ms")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(forwards):
-            engine._prefill(tok)
+            engine._prefill(batch)
         torch.cuda.synchronize()
     dev, counts = {}, {}
     for ev in prof.key_averages():
@@ -3782,15 +3811,15 @@ def mixtral_prefill_check(torch, gp, gg, engine, prompt, cfg) -> dict:
             return out if replay is None else replay[len(runs[run]) - 1]
         return fn
 
-    tok_t = prompt.to(DEVICE)
+    batch = {"tokens": prompt.to(DEVICE)}
     try:
         moe.route = recording("kernel")
-        logits_k, _ = engine._prefill(tok_t)
+        logits_k, _ = engine._prefill(batch)
         with plain_kernels(gp, gg):
             moe.route = recording("free")
-            logits_f, _ = engine._prefill(tok_t)
+            logits_f, _ = engine._prefill(batch)
             moe.route = recording("pinned", replay=runs["kernel"])
-            logits_p, _ = engine._prefill(tok_t)
+            logits_p, _ = engine._prefill(batch)
     finally:
         moe.route = real_route
     torch.cuda.synchronize()
@@ -3820,9 +3849,10 @@ def mixtral_prefill_check(torch, gp, gg, engine, prompt, cfg) -> dict:
         f"free plain run {flips_free} of {n_choices}, pinned plain run's own "
         f"router {flips_pinned} of {n_choices}")
     log(f"  prefill logits kernel vs plain, routing pinned: rel_fro={rel_p:.3e} "
-        f"(limit 5e-2), max_abs_err={err_p:.3e}, same argmax {same_p}/4; "
+        f"(limit 5e-2), max_abs_err={err_p:.3e}, same argmax {same_p}/"
+        f"{prompt.shape[0]}; "
         f"routing free: rel_fro={rel_f:.3e} (limit 0.5), max_abs_err="
-        f"{err_f:.3e}, same argmax {same_f}/4; |logits|max="
+        f"{err_f:.3e}, same argmax {same_f}/{prompt.shape[0]}; |logits|max="
         f"{float(logits_k.abs().max()):.3f}")
     if rel_p > 5e-2 or rel_f > 0.5:
         raise AssertionError("served logits disagree with the plain versions")
@@ -3935,6 +3965,448 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     del engine
     torch.cuda.empty_cache()
     return load, launches, timings, check["logits"]
+
+
+# Phase 7: the other eight configs of the registry, served at their
+# published widths through Engine(pack_weights=True). Depth (layers served
+# out of the config's) is the only cut, and only where one card's memory
+# forces it: llama4-scout's f32 init plus its packed copy is about 12.5 GB a
+# layer (16 experts), command-r-plus's about 9.4 GB (d_model 12288, d_ff
+# 33792) beside a 12.6 GB f32 embedding.
+FAMILY_DEPTH = {"qwen3-4b": None, "phi3-mini-3.8b": None,
+                "llama4-scout-17b-a16e": 4, "command-r-plus-104b": 4,
+                "mamba2-130m": None, "hymba-1.5b": None, "paligemma-3b": None,
+                "whisper-base": None}
+FAMILY_PROMPT, FAMILY_STEPS = (2, 64), 8
+FAMILY_SEED = 20  # config i's weights; its prompt FAMILY_SEED + i + 100
+
+
+def family_counts(cfg) -> dict:
+    """K1 launches of one forward derived from the config (``prefill``,
+    ``decode``: the LM head included once), K2's, and the dense weights
+    the load packs (``pack_b``: the LM head included) and expert stacks
+    (``pack_b_grouped``)."""
+    layers = cfg.num_layers
+    attn = 4 if cfg.has_attention else 0
+    ssm = 2 if cfg.has_ssm else 0
+    mlp = 0 if cfg.is_moe or not cfg.d_ff else (
+        3 if cfg.mlp_type in ("swiglu", "geglu") else 2)
+    per_layer = attn + ssm + mlp
+    out = dict(prefill=per_layer * layers + 1, decode=per_layer * layers + 1,
+               k2=2 * layers if cfg.is_moe else 0,
+               pack_b=per_layer * layers + 1,
+               pack_b_grouped=3 * layers if cfg.is_moe else 0)
+    if cfg.is_encoder_decoder:
+        # Encoder layers: attention + MLP; decoder layers: self attention,
+        # cross attention (q, o a step; its k, v from the encoder's output
+        # once, at prefill) and the MLP.
+        enc = cfg.encoder_layers * (4 + mlp)
+        out.update(prefill=enc + layers * (4 + 4 + mlp) + 1,
+                   decode=layers * (4 + 2 + mlp) + 1,
+                   pack_b=enc + layers * (4 + 4 + mlp) + 1)
+    return out
+
+
+def family_batch(torch, cfg, seed) -> dict:
+    """The prompt (2 x 64 tokens) and, where the model takes them, the stub
+    frontends' embeddings (paligemma's 256 patches, whisper's 1500 frames),
+    N(0, 1) in bf16 on the card, drawn from ``seed``."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    b, s = FAMILY_PROMPT
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen)}
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((b, cfg.num_patches, cfg.d_model),
+                                       generator=gen)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((b, cfg.encoder_seq, cfg.d_model),
+                                      generator=gen)
+    return {k: (v.to(torch.bfloat16) if v.is_floating_point() else v).to(DEVICE)
+            for k, v in batch.items()}
+
+
+def family_config(cfgs, serve, arch) -> tuple:
+    """(the published config, the served one: depth per FAMILY_DEPTH and
+    bf16 compute, its ServeConfig: packed weights, bf16 caches and room for
+    a VLM's prefix, the prompt and the steps; the prefix's length)."""
+    full = cfgs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=FAMILY_DEPTH[arch] or full.num_layers,
+                              compute_dtype="bfloat16")
+    prefix = cfg.num_patches if cfg.family == "vlm" else 0
+    scfg = serve.ServeConfig(max_len=prefix + FAMILY_PROMPT[1] + FAMILY_STEPS,
+                             pack_weights=True, cache_dtype="bfloat16")
+    return full, cfg, scfg, prefix
+
+
+def packed_weights(params) -> tuple:
+    """The distinct packed weights of a served tree: ({(K, N, format):
+    (the first key path holding one, the PackedWeight)}, {(E, K, N, format):
+    (path, the stack, its silu-gate partner or None)}) — an MoE subtree's
+    wg / wu as one pair, its wo alone."""
+    from repro_torch.core.layered import GroupedPackedWeight, PackedWeight
+    dense, stacks = {}, {}
+    # Depth first, in the tree's order, without a recursive closure (whose
+    # reference cycle would keep the weights alive until the next gc pass).
+    todo = [("", params)]
+    while todo:
+        path, tree = todo.pop()
+        items = (tree.items() if isinstance(tree, dict) else
+                 enumerate(tree) if isinstance(tree, list) else ())
+        subtrees = []
+        for key, w in items:
+            at = f"{path}.{key}" if path else str(key)
+            if isinstance(w, PackedWeight):
+                dense.setdefault((w.k, w.n, w.fmt), (at, w))
+            elif isinstance(w, GroupedPackedWeight):
+                if key == "wu":
+                    continue  # the partner of wg
+                pair = tree["wu"] if key == "wg" else None
+                stacks.setdefault((w.e, w.k, w.n, w.fmt, pair is not None),
+                                  (at, w, pair))
+            else:
+                subtrees.append((at, w))
+        todo.extend(reversed(subtrees))
+    return dense, stacks
+
+
+def served_shape_checks(torch, gp, gg, params, rows_k1, envelopes_k2,
+                        seed) -> tuple:
+    """K1 on each distinct packed [K, N] weight of the served tree (the
+    attention, cross-attention, MLP and SSM projections of every stack, the
+    encoder's included, and the LM head) at each row count of ``rows_k1``,
+    and K2 on each distinct expert stack (the gate/up pair with its silu
+    gate, the down projection) at each envelope C of ``envelopes_k2`` (one
+    group: every phase-7 prompt fits in one), with ragged counts (one
+    segment full, one empty, the rest drawn). Each call is held against its
+    plain version on the same inputs at phase 1's tolerances (bf16 output
+    2e-2 / 1e-3: f32 sums in other orders, one bf16 rounding), to the body
+    it must take (k1_body / k2_body), and, for K2, rows at or past a count
+    exactly 0. A is N(0, 1) in bf16, as a normed activation. Returns
+    (failed tags, one row a weight: shape, the bodies it took by rows or C,
+    the worst error)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    k1, k2 = gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged
+    dense, stacks = packed_weights(params)
+    fails, rows = [], []
+
+    def launch(fn, tag, call):
+        before = dict(fn.variants)
+        try:
+            got = call()
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a faulty kernel may fail its launch
+            fails.append(tag)
+            log(f"  check {tag}: {exc} FAIL")
+            return None, []
+        return got, [v for v, c in fn.variants.items() if c != before[v]]
+
+    def judge(tag, row, key, ok, err, ran, body):
+        ok = ok and ran == [body]
+        row["bodies"][key] = "+".join(ran)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if not ok:
+            fails.append(tag)
+            log(f"  check {tag} [{'+'.join(ran)}; want {body}]: max_abs_err="
+                f"{err:.3e} (rtol=2e-2, atol=1e-3) FAIL")
+
+    for (k, n, fmt), (path, w) in dense.items():
+        row = dict(kernel="K1", weight=path, k=k, n=n, bk=fmt.bk, bn=fmt.bn,
+                   padded_n=-(-n // fmt.bn) * fmt.bn, bodies={}, max_abs_err=0.0)
+        for m in rows_k1:
+            a = torch.randn((m, k), generator=gen, device=DEVICE).to(torch.bfloat16)
+            kw = dict(bm=w._clamp_bm(m), b_format=fmt)
+            tag = f"K1 {path} {k}x{n} M={m}"
+            got, ran = launch(k1, tag, lambda: k1(a, w.packed, n, **kw))
+            if got is None:
+                continue
+            ok, err = close(got, gp.gemm_packed_fused_a_plain(a, w.packed, n, **kw),
+                            2e-2, 1e-3)
+            judge(tag, row, f"m{m}", ok, err, ran, k1_body(m))
+            del a, got
+        rows.append(row)
+    for (e, k, n, fmt, _), (path, w, pair) in stacks.items():
+        row = dict(kernel="K2", weight=path + (" + wu, silu_gate" if pair else ""),
+                   e=e, k=k, n=n, bodies={}, max_abs_err=0.0)
+        for c in envelopes_k2:
+            a = torch.randn((e, 1, c, k), generator=gen, device=DEVICE).to(
+                torch.bfloat16)
+            counts = torch.randint(0, c + 1, (e, 1), generator=gen, device=DEVICE,
+                                   dtype=torch.int32)
+            counts[0], counts[-1] = c, 0
+            kw = dict(bm=w._clamp_bm(c), b_format=fmt)
+            if pair is not None:
+                kw.update(b2_packed=pair.packed, epilogue="silu_gate")
+            tag = f"K2 {row['weight']} E={e} {k}x{n} C={c}"
+            got, ran = launch(k2, tag, lambda: k2(a, w.packed, n, counts, **kw))
+            if got is None:
+                continue
+            ok, err = close(got, gg.gemm_grouped_packed_ragged_plain(
+                a, w.packed, n, counts, **kw), 2e-2, 1e-3)
+            live = torch.arange(c, device=DEVICE)[None, None, :] < counts[..., None]
+            ok = ok and not bool(got[~live].any())
+            judge(tag, row, f"c{c}", ok, err, ran, k2_body(c))
+            del a, got
+        rows.append(row)
+    return fails, rows
+
+
+def phase_family(torch, gp, gg, counters, cfgs, models, serve, arch, seed,
+                 card) -> tuple:
+    """One config at its published widths (depth cut per FAMILY_DEPTH),
+    random f32 weights from ``seed`` packed in bf16 at load, served through
+    ``Engine.generate`` (2 x 64 prompt, 8 greedy steps): launches counted
+    (K1 by body, K2 by body for an MoE), K1 and K2 against their plain
+    versions on every distinct packed weight at the rows the path gives
+    them (served_shape_checks), prefill logits against the plain versions
+    on the card. Returns (load launches, generate launches, results)."""
+    from repro_torch.models import moe
+    full, cfg, scfg, prefix = family_config(cfgs, serve, arch)
+    depth = cfg.num_layers
+    want = family_counts(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = models.build(cfg, device=DEVICE)
+    params = model.init(seed)
+    counters.reset()
+    t_load = time.perf_counter()
+    engine = serve.Engine(model, params, scfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_load
+    del params
+    torch.cuda.empty_cache()
+    load = counters.read()
+    load_bodies = {name: launches_by_body(counters, name)
+                   for name in ("pack_b", "pack_b_grouped")}
+    want_load = counters.only(pack_b=want["pack_b"],
+                              pack_b_grouped=want["pack_b_grouped"])
+    cut = ("full depth" if depth == full.num_layers else
+           f"{depth} of {full.num_layers} layers (depth the only cut, forced "
+           f"by memory)")
+    log(f"  {arch}: {cut}, d_model {cfg.d_model}, heads {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, family {cfg.family}"
+        + (f", ssm d_inner {cfg.d_inner} state {cfg.ssm_state_size} heads "
+           f"{cfg.ssm_num_heads}" if cfg.has_ssm else "")
+        + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+           if cfg.is_moe else "")
+        + (f", window {cfg.sliding_window}" if cfg.sliding_window else "")
+        + (f", parallel block" if cfg.parallel_block else "")
+        + f"; init + pack {time.perf_counter() - t0:.1f} s (load, synchronized, "
+        f"{t_load * 1e3:.1f} ms), peak {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+        f" GB, served {torch.cuda.memory_allocated() / 1e9:.1f} GB; load launches "
+        f"{ {k: v for k, v in load.items() if v} } (want pack_b "
+        f"{want['pack_b']}, pack_b_grouped {want['pack_b_grouped']}); K5 by body "
+        f"{load_bodies}")
+    if load != want_load:
+        raise AssertionError(f"{arch}: load-time launch counts {load}")
+    batch = family_batch(torch, cfg, seed + 100)
+
+    # -- the main path, counted -------------------------------------------
+    counters.reset()
+    t0 = time.perf_counter()
+    tokens = engine.generate(batch, max_new_tokens=FAMILY_STEPS)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = counters.read()
+    bodies = launches_by_body(counters)
+    bodies_k2 = launches_by_body(counters, "gemm_grouped_packed_ragged")
+    # Every projection of the prefill has more than 16 rows (wgmma); the
+    # prefill's LM head (2 last positions) and every decode step's
+    # contractions have 2 (tc_stream). Every shape is bk 128 x bn 64 tiles
+    # on 16-byte aligned operands, odd N (mamba2's in_proj 3352, hymba's
+    # 6496, the vocabularies) included: the TMA bodies take them.
+    want_bodies = dict(wgmma=want["prefill"] - 1,
+                       tc_stream=1 + want["decode"] * FAMILY_STEPS)
+    want_k1 = want["prefill"] + want["decode"] * FAMILY_STEPS
+    want_k2 = want["k2"] * (FAMILY_STEPS + 1)
+    want_bodies_k2, envelopes = {}, []
+    if cfg.is_moe:
+        tokens_pre = FAMILY_PROMPT[0] * FAMILY_PROMPT[1]
+        for rows, calls in ((tokens_pre, want["k2"]),
+                            (FAMILY_PROMPT[0], want["k2"] * FAMILY_STEPS)):
+            c = moe._capacity(min(moe.GROUP_SIZE, rows), cfg)
+            envelopes.append(c)
+            body = k2_body(c)
+            want_bodies_k2[body] = want_bodies_k2.get(body, 0) + calls
+    log(f"  generate {FAMILY_PROMPT[0]}x{FAMILY_PROMPT[1]}"
+        + (f" + {prefix} patches" if prefix else "")
+        + (f" + {cfg.encoder_seq} frames" if cfg.is_encoder_decoder else "")
+        + f" + {FAMILY_STEPS} steps: {t_gen * 1e3:.1f} ms; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (want K1 {want['prefill']} "
+        f"+ {want['decode']} x {FAMILY_STEPS} = {want_k1}, K2 {want_k2}); K1 by "
+        f"body {bodies} (want {want_bodies}); K2 by body {bodies_k2} (want "
+        f"{want_bodies_k2})")
+    if launches != counters.only(gemm_packed_fused_a=want_k1,
+                                 gemm_grouped_packed_ragged=want_k2):
+        raise AssertionError(f"{arch}: launch counts {launches}")
+    if bodies != want_bodies or bodies_k2 != want_bodies_k2:
+        raise AssertionError(f"{arch}: launches by body {bodies} / {bodies_k2}")
+    if tokens.shape != (FAMILY_PROMPT[0], FAMILY_STEPS) or tokens.min() < 0 \
+            or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"{arch}: bad tokens {tokens.shape}")
+    log(f"  tokens[0] = {tokens[0].tolist()}")
+
+    # -- K1 / K2 at the served shapes against their plain versions ---------
+    # The rows the path gives K1: 2 (decode, the prefill's LM head), the
+    # prefill's tokens (the VLM's prefix included) and whisper's encoder
+    # frames.
+    b, s = FAMILY_PROMPT
+    rows_k1 = sorted({b, b * (prefix + s)}
+                     | ({b * cfg.encoder_seq} if cfg.is_encoder_decoder else set()))
+    t0 = time.perf_counter()
+    shape_fails, shape_rows = served_shape_checks(
+        torch, gp, gg, engine.params, rows_k1, envelopes, seed + 200)
+    t_checks = time.perf_counter() - t0
+    odd = {f"{r['weight']} {r['k']}x{r['n']}": r for r in shape_rows
+           if r["kernel"] == "K1" and r["n"] % r["bn"]}
+    log(f"  served shapes vs plain ({t_checks:.1f} s): "
+        f"{sum(len(r['bodies']) for r in shape_rows)} calls on "
+        f"{len(shape_rows)} weights, worst max_abs_err "
+        f"{max(r['max_abs_err'] for r in shape_rows):.3e}, "
+        f"{'ok' if not shape_fails else f'{len(shape_fails)} FAIL'}")
+    for r in shape_rows:
+        shape = (f"E={r['e']} {r['k']}x{r['n']}" if r["kernel"] == "K2" else
+                 f"{r['k']}x{r['n']}" + (f" (N padded to {r['padded_n']} on bn "
+                                        f"{r['bn']})" if r["n"] % r["bn"] else ""))
+        log(f"    {r['kernel']} {r['weight']} {shape}: bodies {r['bodies']}, "
+            f"max_abs_err {r['max_abs_err']:.3e}")
+    if shape_fails:
+        raise AssertionError(f"{arch}: kernels disagree with their plain "
+                             f"versions at served shapes: {shape_fails}")
+
+    # -- prefill logits against the plain versions on the card -------------
+    if cfg.is_moe:
+        # Routing pinned (the gate) and free, expert-choice flips reported.
+        verdict = mixtral_prefill_check(torch, gp, gg, engine, batch["tokens"],
+                                        cfg)
+        logits_k = verdict.pop("logits")
+    else:
+        logits_k, _ = engine._prefill(batch)
+        with plain_kernels(gp, None):
+            logits_p, _ = engine._prefill(batch)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(logits_k).all()):
+            raise AssertionError(f"{arch}: non-finite logits")
+        rel, max_err, same = compare_logits(torch, logits_k, logits_p)
+        verdict = dict(rel_fro=rel, max_abs_err=max_err, same_argmax=same)
+        log(f"  prefill logits kernel vs plain: rel_fro={rel:.3e} (limit 5e-2), "
+            f"max_abs_err={max_err:.3e}, |logits|max="
+            f"{float(logits_p.abs().max()):.3f}, same argmax {same}/"
+            f"{FAMILY_PROMPT[0]}")
+        if rel > 5e-2:
+            raise AssertionError(f"{arch}: served logits disagree with the "
+                                 f"plain version")
+        del logits_p
+    del logits_k
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {arch}: peak {peak:.1f} GB; card {card}")
+    del engine, model, batch
+    torch.cuda.empty_cache()
+    return load, launches, dict(
+        arch=arch, layers=depth, published_layers=full.num_layers,
+        first_generate_ms=t_gen * 1e3, load_ms=t_load * 1e3, peak_gb=peak,
+        k1_launches_by_body=bodies, k2_launches_by_body=bodies_k2,
+        k1_per_forward=dict(prefill=want["prefill"], decode=want["decode"]),
+        k5_load_launches_by_body=load_bodies, served_shapes=shape_rows,
+        odd_n=odd, card=card, tokens0=tokens[0].tolist(), **verdict)
+
+
+FAMILY_TIMES_TAG = "phase 7 times: "
+
+
+def family_times_main() -> int:
+    """Phase 7's times, in a process of their own that phase_families
+    starts: late in the smoke's process torch.profiler loses its kernel
+    records (phase 6's timer check reads 0 of 5), so the device's busy time
+    is read in a fresh one. For each config of FAMILY_DEPTH, the weights
+    and prompt of phase 7 (same seeds): the prefill forward (2 calls) and a
+    decode step (4 steps) in CUDA events, then torch.profiler over 1
+    prefill forward and 1 decode step: device busy ms and its share of
+    the unprofiled forward, with the kernel records kept (the process's
+    first profile can miss the host's launch calls: on an H100 it has
+    counted 144 beside qwen3-4b's 7658 kernel records). Prints one line,
+    FAMILY_TIMES_TAG + a JSON object {arch: times}."""
+    import torch
+    from repro_torch import configs as cfgs
+    from repro_torch import models, serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for i, arch in enumerate(FAMILY_DEPTH):
+        t0 = time.perf_counter()
+        _, cfg, scfg, prefix = family_config(cfgs, serve, arch)
+        model = models.build(cfg, device=DEVICE)
+        engine = serve.Engine(model, model.init(FAMILY_SEED + i), scfg,
+                              device=DEVICE)
+        torch.cuda.empty_cache()
+        batch = family_batch(torch, cfg, FAMILY_SEED + i + 100)
+        ms_prefill = time_ms(lambda i: engine._prefill(batch), 2)
+        _, caches = engine._prefill(batch)
+        tok = torch.zeros((FAMILY_PROMPT[0], 1), dtype=torch.long, device=DEVICE)
+        pos0 = prefix + FAMILY_PROMPT[1]
+
+        def step(i):
+            pos = torch.full((FAMILY_PROMPT[0],), pos0 + i % FAMILY_STEPS,
+                             dtype=torch.long, device=DEVICE)
+            engine._decode(caches, tok, pos)
+        ms_decode = time_ms(step, FAMILY_STEPS // 2)
+        # One profiled call each: the profiler's processing of a call's
+        # records takes longer than the call (busy repeats within 1%).
+        dev_p, kept_p, _ = profile_kernels(torch, lambda i: engine._prefill(batch), 1)
+        dev_d, kept_d, _ = profile_kernels(torch, step, 1)
+        busy_p, busy_d = sum(dev_p.values()) / 1e3, sum(dev_d.values()) / 1e3
+        out[arch] = dict(prefill_ms=ms_prefill, decode_ms_per_step=ms_decode,
+                         prefill_busy_ms=busy_p, prefill_busy_share=busy_p / ms_prefill,
+                         prefill_records_kept=kept_p, decode_busy_ms=busy_d,
+                         decode_busy_share=busy_d / ms_decode,
+                         decode_records_kept=kept_d)
+        log(f"  {arch}: prefill {ms_prefill:.2f} ms, device busy {busy_p:.3f} ms "
+            f"({100 * busy_p / ms_prefill:.1f}%, records kept {kept_p}); decode "
+            f"{ms_decode:.3f} ms/step (batch {FAMILY_PROMPT[0]}), device busy "
+            f"{busy_d:.3f} ms ({100 * busy_d / ms_decode:.1f}%, records kept "
+            f"{kept_d}); {time.perf_counter() - t0:.1f} s")
+        del caches, engine, model, batch
+        torch.cuda.empty_cache()
+    log(FAMILY_TIMES_TAG + json.dumps(out))
+    return 0
+
+
+def phase_families(torch, gp, gg, counters, cfgs, models, serve, card) -> tuple:
+    """Phase 7: every config of FAMILY_DEPTH in turn, each freed before the
+    next; then their times in a fresh process (family_times_main). Returns
+    ({path: load launches, path: launches}, results, seconds)."""
+    paths, results = {}, {}
+    t_phase = time.perf_counter()
+    for i, arch in enumerate(FAMILY_DEPTH):
+        t0 = time.perf_counter()
+        load, launches, res = phase_family(torch, gp, gg, counters, cfgs,
+                                           models, serve, arch, FAMILY_SEED + i,
+                                           card)
+        res["seconds"] = time.perf_counter() - t0
+        paths[f"{arch} packed, load"] = load
+        paths[f"{arch} packed"] = launches
+        results[arch] = res
+    log("  times, in a fresh process (torch.profiler keeps its records there):")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.family_times_main())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = run.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(FAMILY_TIMES_TAG):
+            log(line)
+    times = [ln for ln in lines if ln.startswith(FAMILY_TIMES_TAG)]
+    if run.returncode != 0 or len(times) != 1:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 7's timing process failed (exit "
+                             f"{run.returncode})")
+    for arch, t in json.loads(times[0][len(FAMILY_TIMES_TAG):]).items():
+        results[arch].update(t)
+    log(f"  timing process {time.perf_counter() - t0:.1f} s; card {card}")
+    seconds = time.perf_counter() - t_phase
+    log(json.dumps({"families": results, "phase_s": seconds, "card": card}))
+    log(f"  phase 7 took {seconds:.1f} s")
+    return paths, results, seconds
 
 
 # The quantized served cells: olmo-1b with phase 2's weights as int8 (tile
@@ -5086,6 +5558,12 @@ def main(argv) -> int:
     served_attn = served_attention(torch, model_layers.chunked_attention, cfgs,
                                    shapes)
     log(json.dumps({"served_attention": served_attn, "card": card}))
+    torch.cuda.empty_cache()
+
+    log("phase 7: serve the other eight configs at published widths, packed "
+        "weights (" + ", ".join(FAMILY_DEPTH) + ")")
+    family_paths, families, families_s = phase_families(
+        torch, gp, gg, counters, cfgs, models, serve, card)
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "olmo-1b continuous, load": cont_load,
@@ -5093,7 +5571,7 @@ def main(argv) -> int:
                "mixtral-8x22b packed, load": mix_load,
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
-               "ops.attention": attn_launches, **quant_paths}
+               "ops.attention": attn_launches, **quant_paths, **family_paths}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -5186,7 +5664,10 @@ def main(argv) -> int:
               "mixtral-8x22b packed": mix_t["k1_launches_by_body"],
               "strategy sweep": {v: c for v, c in
                                  sweep_variants["gemm_packed_fused_a"].items() if c},
-              "olmo-1b raw": raw_t["k1_launches_by_body"]},
+              "olmo-1b raw": raw_t["k1_launches_by_body"],
+              **{f"{arch} packed": r["k1_launches_by_body"]
+                 for arch, r in families.items()}},
+          families=families, families_phase_s=families_s,
           work=decode_work, shapes=table, serve=serve_t, card=card)
     entry("gemm_grouped_packed_ragged", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
@@ -5197,7 +5678,9 @@ def main(argv) -> int:
           launches_by_body={
               "mixtral-8x22b packed": mix_t["k2_launches_by_body"],
               "strategy sweep": {v: c for v, c in sweep_variants[
-                  "gemm_grouped_packed_ragged"].items() if c}},
+                  "gemm_grouped_packed_ragged"].items() if c},
+              **{f"{arch} packed": r["k2_launches_by_body"]
+                 for arch, r in families.items() if r["k2_launches_by_body"]}},
           work=grouped_work, shapes=grouped_rows, serve=mix_t, card=card)
     entry("gemm_grouped_packed", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:112", ["gemm_grouped_packed"],
@@ -5228,7 +5711,9 @@ def main(argv) -> int:
               "mixtral-8x22b packed, load": mix_t["k5_load_launches_by_body"]["pack_b"],
               "strategy sweep": {name: nonzero(sweep_variants[name])
                                  for name in ("pack_a", "pack_b")},
-              "olmo-1b raw": raw_t["k5_launches_by_body"]},
+              "olmo-1b raw": raw_t["k5_launches_by_body"],
+              **{f"{arch} packed, load": r["k5_load_launches_by_body"]["pack_b"]
+                 for arch, r in families.items()}},
           library=k5_library,
           work="the 112 per-call pack_b of one raw-weight olmo-1b prefill forward "
                "(bf16, bk 128 bn 64, row)",
@@ -5241,7 +5726,11 @@ def main(argv) -> int:
           launches_by_body={
               "mixtral-8x22b packed, load":
                   mix_t["k5_load_launches_by_body"]["pack_b_grouped"],
-              "strategy sweep": nonzero(sweep_variants["pack_b_grouped"])},
+              "strategy sweep": nonzero(sweep_variants["pack_b_grouped"]),
+              **{f"{arch} packed, load":
+                 r["k5_load_launches_by_body"]["pack_b_grouped"]
+                 for arch, r in families.items()
+                 if r["k5_load_launches_by_body"]["pack_b_grouped"]}},
           library=k5_library,
           work=f"one mixtral-8x22b expert stack, E={MIX_E} x {MIX_D} x "
                f"{MIX_F} bf16", grouped_sweep=grouped_sweep, card=card)

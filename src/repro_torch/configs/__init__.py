@@ -1,8 +1,7 @@
 """Config registry of the port: ``get_config(arch_id)`` / ``reduced_config``.
 
-The port carries the configs it serves: the dense decoder olmo-1b and the
-MoE decoder mixtral-8x22b; later slices add the other families' configs
-beside them.
+The port carries its own copy of every config of the reference, field for
+field, registered in the reference's order (``ARCH_IDS`` is the same list).
 """
 from __future__ import annotations
 
@@ -12,11 +11,24 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import (SHAPES, InputShape,  # noqa: F401
                                         iter_cells, shape_applicability)
-from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
+from repro_torch.configs.command_r_plus_104b import CONFIG as _command_r_plus
+from repro_torch.configs.phi3_mini_3p8b import CONFIG as _phi3
+from repro_torch.configs.qwen3_4b import CONFIG as _qwen3
 from repro_torch.configs.olmo_1b import CONFIG as _olmo
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
+from repro_torch.configs.llama4_scout_17b_a16e import CONFIG as _llama4
+from repro_torch.configs.whisper_base import CONFIG as _whisper
+from repro_torch.configs.paligemma_3b import CONFIG as _paligemma
+from repro_torch.configs.hymba_1p5b import CONFIG as _hymba
+from repro_torch.configs.mamba2_130m import CONFIG as _mamba2
 
-_REGISTRY: Dict[str, ModelConfig] = {cfg.name: cfg
-                                     for cfg in (_olmo, _mixtral)}
+_REGISTRY: Dict[str, ModelConfig] = {
+    cfg.name: cfg
+    for cfg in (
+        _command_r_plus, _phi3, _qwen3, _olmo, _mixtral,
+        _llama4, _whisper, _paligemma, _hymba, _mamba2,
+    )
+}
 
 ARCH_IDS: List[str] = list(_REGISTRY)
 

@@ -4,8 +4,9 @@
 leaf already a numpy array (the caller converts, e.g. with
 ``jax.tree.map(np.asarray, params)``) and returns the port's parameters:
 tensors on ``device``, with the stacked ``[L, ...]`` layer leaves split
-into a list of per-layer dicts — the scan-stacked MoE leaves too: the
-router ``[L, d, E]`` becomes ``[d, E]`` and the expert stacks
+into a list of per-layer dicts (an encoder's layers too) — the
+scan-stacked MoE leaves as well: the router ``[L, d, E]`` becomes
+``[d, E]`` and the expert stacks
 ``wg``/``wu``/``wo`` ``[L, E, K, N]`` become ``[E, K, N]`` in each layer's
 ``"moe"`` dict.
 
@@ -70,11 +71,22 @@ def _leaf(x, device, layer=None):
                         plan=_plan(x.plan), scales=scales)
 
 
+def _layers(stacked: dict, n: int, device) -> list:
+    return [_map(stacked, lambda x, i=i: _leaf(x, device, i))
+            for i in range(n)]
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
     """Reference params (numpy leaves, packed leaves with numpy buffers)
-    -> port params on ``device``."""
+    -> port params on ``device``. An encoder-decoder's ``encoder`` subtree
+    splits its ``layers`` by ``cfg.encoder_layers`` the same way."""
     out = {k: _map(v, lambda x: _leaf(x, device))
-           for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(tree["layers"], lambda x, i=i: _leaf(x, device, i))
-                     for i in range(cfg.num_layers)]
+           for k, v in tree.items() if k not in ("layers", "encoder")}
+    out["layers"] = _layers(tree["layers"], cfg.num_layers, device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {k: _map(v, lambda x: _leaf(x, device))
+                          for k, v in enc.items() if k != "layers"}
+        out["encoder"]["layers"] = _layers(enc["layers"], cfg.encoder_layers,
+                                           device)
     return out

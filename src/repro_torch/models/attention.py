@@ -1,4 +1,5 @@
-"""Attention blocks (GQA / MHA, RoPE, qk-norm) and the decode KV cache.
+"""Attention blocks (GQA / MQA / MHA, RoPE, qk-norm), cross attention
+against an encoder's K / V, and the decode KV cache.
 
 Projections go through ``repro_torch.core.gemm.linear``; the score and value
 contractions use the plain-torch ``layers.chunked_attention``.
@@ -74,6 +75,30 @@ def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
     slot_ids = torch.arange(slots, device=k.device)
     src = (s - 1) - ((s - 1 - slot_ids) % slots)
     return {"k": k[:, src].to(dtype), "v": v[:, src].to(dtype)}
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
+    """Decoder cross attention against precomputed encoder K / V
+    [B, Se, Hkv, D]: every query sees every encoder position."""
+    b, s, _ = x.shape
+    q = gemm.linear(x, as_compute_weight(p["wq"], x.dtype), p.get("bq"))
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    out = chunked_attention(q, enc_k, enc_v, causal=False)
+    out = out.reshape(b, s, cfg.q_dim)
+    return gemm.linear(out, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+
+
+def encode_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
+    """Cross-attention K / V [B, Se, Hkv, D] from the encoder's output,
+    computed once a request."""
+    b, se, _ = enc_out.shape
+    k = gemm.linear(enc_out, as_compute_weight(p["wk"], enc_out.dtype),
+                    p.get("bk"))
+    v = gemm.linear(enc_out, as_compute_weight(p["wv"], enc_out.dtype),
+                    p.get("bv"))
+    return (k.reshape(b, se, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, se, cfg.num_kv_heads, cfg.head_dim))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -21,8 +21,25 @@ from repro_torch.core.dtypes import torch_dtype
 from repro_torch.core.epilogue import EPILOGUE_SPECS, EpilogueSpec
 from repro_torch.core.layered import GroupedPackedWeight, PackedWeight
 
-# Dense [K, N] weight names packed at load time.
-DENSE_WEIGHT_KEYS = frozenset({"wq", "wk", "wv", "wo", "wg", "wu", "wi"})
+# Every random matrix of an initial tree is N(0, INIT_STD), as the
+# reference's.
+INIT_STD = 0.02
+
+
+def init_normal(generator: torch.Generator, device, *shape) -> torch.Tensor:
+    """A random f32 leaf [*shape], N(0, INIT_STD), drawn from ``generator``."""
+    return torch.randn(shape, generator=generator, device=device).mul_(INIT_STD)
+
+
+def init_const(fill: float, n: int, device) -> torch.Tensor:
+    """A deterministic f32 leaf [n] filled with ``fill``."""
+    return torch.full((n,), fill, dtype=torch.float32, device=device)
+
+
+# Dense [K, N] weight names packed at load time, across every family
+# (attention, MLP, the SSM's projections).
+DENSE_WEIGHT_KEYS = frozenset(
+    {"wq", "wk", "wv", "wo", "wg", "wu", "wi", "in_proj", "out_proj"})
 
 # Stacked [E, K, N] expert-weight names inside a "moe" subtree, packed
 # grouped at load time. The gate/up pair plans for the silu-gate kernel's
@@ -95,6 +112,14 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return out.to(x.dtype)
 
 
+def rms_norm_gated(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(x * silu(z)) * scale."""
+    xf = (x * torch.nn.functional.silu(z)).to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype)
+
+
 def rope_frequencies(head_dim: int, theta: float,
                      device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -113,6 +138,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(seq_len: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """[seq_len, d_model] f32: sin on the even columns, cos on the odd."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d_model)
+    emb = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    emb[:, 0::2] = torch.sin(angle)
+    emb[:, 1::2] = torch.cos(angle)
+    return emb
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Uniform model API: ``build(cfg, device=None)`` returns a :class:`Model`.
+"""Uniform model API over every config: ``build(cfg, device=None)`` returns a
+:class:`Model`.
 
   init(seed) -> params           (random f32 weights, made on the device)
   prefill(params, batch, max_len, cache_dtype) -> (last logits, caches)
   decode(params, caches, token, pos) -> (logits, caches)
 
-Batches are ``{"tokens": [B, S] int}``. The device defaults to ``"cuda"``;
-without a card :func:`build` raises rather than running on the CPU — pass
-``device="cpu"`` to ask for it.
+Batches hold ``"tokens"`` [B, S] ints; a VLM's also ``"patches"`` [B, P, d]
+(the image frontend's embeddings, a stub: precomputed) and an
+encoder-decoder's ``"frames"`` [B, Se, d] (the audio frontend's, likewise).
+The device defaults to ``"cuda"``; without a card :func:`build` raises
+rather than running on the CPU — pass ``device="cpu"`` to ask for it.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -40,17 +43,26 @@ class Model:
 
 def build(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    transformer.check_ported(cfg)
+    family = encdec if cfg.is_encoder_decoder else transformer
 
     def init(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return transformer.init_params(cfg, gen, dev)
+        return family.init_params(cfg, gen, dev)
+
+    if cfg.is_encoder_decoder:
+        def prefill(params, batch, max_len=None, cache_dtype=None):
+            return encdec.prefill(cfg, params, batch["frames"],
+                                  batch["tokens"], max_len=max_len,
+                                  cache_dtype=cache_dtype)
+    else:
+        def prefill(params, batch, max_len=None, cache_dtype=None):
+            prefix = batch.get("patches") if cfg.family == "vlm" else None
+            return transformer.prefill(cfg, params, batch["tokens"],
+                                       prefix_embeds=prefix, max_len=max_len,
+                                       cache_dtype=cache_dtype)
 
     return Model(
-        cfg=cfg, device=dev, init=init,
-        prefill=lambda params, batch, max_len=None, cache_dtype=None:
-            transformer.prefill(cfg, params, batch["tokens"], max_len=max_len,
-                                cache_dtype=cache_dtype),
-        decode=lambda params, caches, token, pos: transformer.decode(
+        cfg=cfg, device=dev, init=init, prefill=prefill,
+        decode=lambda params, caches, token, pos: family.decode(
             cfg, params, caches, token, pos),
     )

@@ -29,9 +29,9 @@ from repro_torch.core.contraction import (ContractionSpec, as_compute_weight,
                                           is_packed)
 from repro_torch.core.epilogue import EPILOGUE_SPECS
 from repro_torch.core.gemm import contract
+from repro_torch.models.layers import init_normal
 
 GROUP_SIZE = 2048  # routing group (tokens); bounds the dispatch tensor
-INIT_STD = 0.02
 
 
 def moe_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -40,8 +40,7 @@ def moe_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
 
     def draw(*shape):
-        return torch.randn(shape, generator=generator,
-                           device=device).mul_(INIT_STD)
+        return init_normal(generator, device, *shape)
 
     return {"router": draw(d, e), "wg": draw(e, d, f), "wu": draw(e, d, f),
             "wo": draw(e, f, d)}

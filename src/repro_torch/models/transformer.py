@@ -1,9 +1,13 @@
-"""Decoder-only transformer, dense and MoE families: parameters, prefill
-and decode.
+"""Decoder-only transformer assembly for the dense / moe / hybrid / ssm /
+vlm families: parameters, prefill and decode.
 
 Layers are a Python list of per-layer parameter dicts and the forward pass
 is a Python loop over them (the reference scans stacked [L, ...] leaves).
-An MoE layer runs ``moe.apply_moe`` where a dense layer runs its MLP.
+A layer's mixer is attention, the Mamba2 SSD block, or (hymba) both over
+the same normed input, averaged; a parallel block (command-r) adds
+attention and the MLP of one normed input to the residual. An MoE layer
+runs ``moe.apply_moe`` where a dense layer runs its MLP. A VLM prefill
+takes precomputed patch embeddings as a prefix, attended bidirectionally.
 """
 from __future__ import annotations
 
@@ -15,28 +19,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       lm_logits)
-
-INIT_STD = 0.02
+                                       init_const, init_normal, lm_logits)
 
 
-PORTED_FAMILIES = ("dense", "moe")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot run yet: the ssm, hybrid, encdec
-    and vlm families, and parallel-block (cohere-style) layers."""
-    if (cfg.family not in PORTED_FAMILIES or not cfg.has_attention
-            or cfg.parallel_block):
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family!r}"
-            f"{', parallel block' if cfg.parallel_block else ''}): the port "
-            f"runs the dense and moe decoder families; ssm, hybrid, encdec, "
-            f"vlm and parallel-block layers are not ported yet")
-
-
-def _norm_params(cfg: ModelConfig, device) -> dict:
+def norm_params(cfg: ModelConfig, device) -> dict:
     if cfg.norm_type == "nonparametric_ln":
         return {}
     p = {"scale": torch.ones(cfg.d_model, device=device)}
@@ -45,107 +33,190 @@ def _norm_params(cfg: ModelConfig, device) -> dict:
     return p
 
 
+def attn_params(cfg: ModelConfig, generator: torch.Generator, device, *,
+                cross: bool = False) -> dict:
+    """The reference's ``attn_params``: wq / wk / wv / wo, zero biases under
+    ``cfg.use_bias`` and qk-norm scales (ones) under ``cfg.qk_norm``,
+    except for cross attention."""
+    d = cfg.d_model
+    a = {"wq": init_normal(generator, device, d, cfg.q_dim),
+         "wk": init_normal(generator, device, d, cfg.kv_dim),
+         "wv": init_normal(generator, device, d, cfg.kv_dim),
+         "wo": init_normal(generator, device, cfg.q_dim, d)}
+    if cfg.use_bias:
+        a.update(bq=init_const(0.0, cfg.q_dim, device),
+                 bk=init_const(0.0, cfg.kv_dim, device),
+                 bv=init_const(0.0, cfg.kv_dim, device), bo=init_const(0.0, d, device))
+    if cfg.qk_norm and not cross:
+        a.update(q_norm=init_const(1.0, cfg.head_dim, device),
+                 k_norm=init_const(1.0, cfg.head_dim, device))
+    return a
+
+
+def mlp_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Gated (wg / wu / wo) or plain (wi / wo), zero biases under
+    ``cfg.use_bias``."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        mlp = {"wg": init_normal(generator, device, d, f),
+               "wu": init_normal(generator, device, d, f),
+               "wo": init_normal(generator, device, f, d)}
+    else:
+        mlp = {"wi": init_normal(generator, device, d, f),
+               "wo": init_normal(generator, device, f, d)}
+    if cfg.use_bias:
+        mlp.update(bi=init_const(0.0, f, device), bo=init_const(0.0, d, device))
+    return mlp
+
+
+def embed_params(cfg: ModelConfig, generator: torch.Generator,
+                 device) -> dict:
+    def table():
+        return init_normal(generator, device, cfg.vocab_size, cfg.d_model)
+    params = {"embed": {"table": table()}}
+    if not cfg.tie_embeddings:
+        params["head"] = {"table": table()}
+    return params
+
+
+def layer_params(cfg: ModelConfig, generator: torch.Generator,
+                 device) -> dict:
+    """One layer of the reference's ``layer_params`` tree."""
+    layer = {"norm1": norm_params(cfg, device)}
+    if cfg.has_attention:
+        layer["attn"] = attn_params(cfg, generator, device)
+    if cfg.has_ssm:
+        layer["ssm"] = ssm_mod.ssm_params(cfg, generator, device)
+    if cfg.d_ff > 0:
+        layer["norm2"] = norm_params(cfg, device)
+        if cfg.is_moe:
+            layer["moe"] = moe_mod.moe_params(cfg, generator, device)
+        else:
+            layer["mlp"] = mlp_params(cfg, generator, device)
+    return layer
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random f32 parameters, N(0, 0.02) for every matrix, drawn from
     ``generator`` on ``device`` (the generator must live there). The tree
     is the reference's ``init_params`` tree with each stacked [L, ...]
-    leaf split per layer: qk-norm scales (ones) under ``cfg.qk_norm`` and
-    zero attention / MLP biases under ``cfg.use_bias``, as the
-    reference's ``attn_params`` and ``mlp_params`` add them."""
-    check_ported(cfg)
-
-    def dense(k, n):
-        return torch.randn((k, n), generator=generator, device=device) * INIT_STD
-
-    d, f = cfg.d_model, cfg.d_ff
-    params = {"embed": {"table": torch.randn(
-        (cfg.vocab_size, d), generator=generator, device=device) * INIT_STD}}
-    if not cfg.tie_embeddings:
-        params["head"] = {"table": torch.randn(
-            (cfg.vocab_size, d), generator=generator, device=device) * INIT_STD}
-    def const(fill, n):
-        return torch.full((n,), fill, dtype=torch.float32, device=device)
-
-    layers = []
-    for _ in range(cfg.num_layers):
-        a = {"wq": dense(d, cfg.q_dim), "wk": dense(d, cfg.kv_dim),
-             "wv": dense(d, cfg.kv_dim), "wo": dense(cfg.q_dim, d)}
-        if cfg.use_bias:
-            a.update(bq=const(0.0, cfg.q_dim), bk=const(0.0, cfg.kv_dim),
-                     bv=const(0.0, cfg.kv_dim), bo=const(0.0, d))
-        if cfg.qk_norm:
-            a.update(q_norm=const(1.0, cfg.head_dim),
-                     k_norm=const(1.0, cfg.head_dim))
-        layer = {"norm1": _norm_params(cfg, device), "attn": a,
-                 "norm2": _norm_params(cfg, device)}
-        if cfg.is_moe:
-            layer["moe"] = moe_mod.moe_params(cfg, generator, device)
-        else:
-            gated = cfg.mlp_type in ("swiglu", "geglu")
-            mlp = ({"wg": dense(d, f), "wu": dense(d, f), "wo": dense(f, d)}
-                   if gated else {"wi": dense(d, f), "wo": dense(f, d)})
-            if cfg.use_bias:
-                mlp.update(bi=const(0.0, f), bo=const(0.0, d))
-            layer["mlp"] = mlp
-        layers.append(layer)
-    params["layers"] = layers
-    params["final_norm"] = _norm_params(cfg, device)
+    leaf split per layer, its deterministic leaves (norm scales, qk-norm
+    scales, biases, the SSM's ``A_log`` / ``dt_bias`` / ``D``) equal."""
+    params = embed_params(cfg, generator, device)
+    params["layers"] = [layer_params(cfg, generator, device)
+                        for _ in range(cfg.num_layers)]
+    params["final_norm"] = norm_params(cfg, device)
     return params
-
-
-def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The layer's feed-forward on its normed input: MoE or MLP."""
-    if cfg.is_moe:
-        return moe_mod.apply_moe(cfg, p["moe"], x)[0]
-    return apply_mlp(cfg, p["mlp"], x)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None].expand(b, s)
 
 
+def prefill_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  positions: torch.Tensor, prefix_len: int, max_len: int,
+                  cache_dtype) -> Tuple[torch.Tensor, dict]:
+    """One layer over the prompt; also returns its decode cache."""
+    cache: dict = {}
+    h = apply_norm(cfg, p["norm1"], x)
+    a_out = s_out = None
+    if cfg.has_attention:
+        a_out, (k, v) = attn.self_attention(cfg, p["attn"], h, positions,
+                                            prefix_len=prefix_len,
+                                            return_kv=True)
+        cache["kv"] = attn.cache_from_prefill(cfg, k, v, max_len, cache_dtype)
+    if cfg.parallel_block:
+        return x + a_out + apply_mlp(cfg, p["mlp"], h), cache
+    if cfg.has_ssm:
+        s_out, cache["ssm"] = ssm_mod.apply_ssm(cfg, p["ssm"], h,
+                                                return_state=True)
+    return _mix_and_ffn(cfg, p, x, a_out, s_out), cache
+
+
+def _mix_and_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, a_out,
+                 s_out) -> torch.Tensor:
+    """The residual after the mixer (hymba averages its two paths), then
+    the feed-forward on the second norm, where the layer has one."""
+    if a_out is not None and s_out is not None:
+        x = x + 0.5 * (a_out + s_out)
+    else:
+        x = x + (a_out if a_out is not None else s_out)
+    if cfg.d_ff > 0:
+        h2 = apply_norm(cfg, p["norm2"], x)
+        if cfg.is_moe:
+            x = x + moe_mod.apply_moe(cfg, p["moe"], h2)[0]
+        else:
+            x = x + apply_mlp(cfg, p["mlp"], h2)
+    return x
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
             max_len: Optional[int] = None, cache_dtype=None
             ) -> Tuple[torch.Tensor, List[dict]]:
-    """Prompt processing: (last-position logits [B, V], per-layer caches)."""
+    """Prompt processing: (last-position logits [B, V], per-layer caches).
+    ``prefix_embeds`` [B, P, d] (the VLM's patch embeddings) go before the
+    tokens and attend to each other both ways; ``max_len`` must hold them
+    too."""
     compute = torch_dtype(cfg.compute_dtype)
     cache_dtype = cache_dtype or compute
     x = embed_tokens(cfg, params, tokens, compute)
-    b, s = tokens.shape
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(compute), x], dim=1)
+    b, s, _ = x.shape
     max_len = max_len or s
     positions = _positions(b, s, tokens.device)
     caches = []
     for p in params["layers"]:
-        a_out, (k, v) = attn.self_attention(
-            cfg, p["attn"], apply_norm(cfg, p["norm1"], x), positions,
-            return_kv=True)
-        caches.append({"kv": attn.cache_from_prefill(cfg, k, v, max_len,
-                                                     cache_dtype)})
-        x = x + a_out
-        x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+        x, cache = prefill_block(cfg, p, x, positions, prefix_len, max_len,
+                                 cache_dtype)
+        caches.append(cache)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], caches
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                 device=None) -> List[dict]:
-    return [{"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device)}
-            for _ in range(cfg.num_layers)]
+    def one_layer():
+        c = {}
+        if cfg.has_attention:
+            c["kv"] = attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+        if cfg.has_ssm:
+            c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, device)
+        return c
+    return [one_layer() for _ in range(cfg.num_layers)]
+
+
+def decode_block(cfg: ModelConfig, p: dict, cache: dict, x: torch.Tensor,
+                 pos: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """One layer for one token against its cache."""
+    new_cache = dict(cache)
+    h = apply_norm(cfg, p["norm1"], x)
+    a_out = s_out = None
+    if cfg.has_attention:
+        a_out, new_cache["kv"] = attn.decode_attention(cfg, p["attn"], h,
+                                                       cache["kv"], pos)
+    if cfg.parallel_block:
+        return x + a_out + apply_mlp(cfg, p["mlp"], h), new_cache
+    if cfg.has_ssm:
+        s_out, new_cache["ssm"] = ssm_mod.decode_ssm(cfg, p["ssm"], h,
+                                                     cache["ssm"])
+    return _mix_and_ffn(cfg, p, x, a_out, s_out), new_cache
 
 
 def decode(cfg: ModelConfig, params: dict, caches: List[dict],
            token: torch.Tensor, pos: torch.Tensor
            ) -> Tuple[torch.Tensor, List[dict]]:
-    """token [B, 1]; pos [B] -> (logits [B, 1, V], caches). The caches are
-    updated in place (see ``attention.decode_attention``)."""
+    """token [B, 1]; pos [B] -> (logits [B, 1, V], caches). The KV caches
+    are updated in place (see ``attention.decode_attention``); an SSM
+    layer's state and conv window are new tensors."""
     x = embed_tokens(cfg, params, token, torch_dtype(cfg.compute_dtype))
     new_caches = []
     for p, c in zip(params["layers"], caches):
-        a_out, kv = attn.decode_attention(
-            cfg, p["attn"], apply_norm(cfg, p["norm1"], x), c["kv"], pos)
-        new_caches.append({**c, "kv": kv})
-        x = x + a_out
-        x = x + _ffn(cfg, p, apply_norm(cfg, p["norm2"], x))
+        x, c = decode_block(cfg, p, c, x, pos)
+        new_caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x), new_caches

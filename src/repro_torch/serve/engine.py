@@ -144,8 +144,10 @@ class Engine:
             model.cfg, cfg, params, on_card=self.device.type == "cuda")
 
     @torch.inference_mode()
-    def _prefill(self, tokens: torch.Tensor):
-        return self.model.prefill(self.params, {"tokens": tokens},
+    def _prefill(self, batch):
+        """``batch``: the model-format batch on the device, ``tokens``
+        [B, S] with ``patches`` or ``frames`` where the model takes them."""
+        return self.model.prefill(self.params, batch,
                                   max_len=self.cfg.max_len,
                                   cache_dtype=torch_dtype(self.cfg.cache_dtype))
 
@@ -207,7 +209,7 @@ class Engine:
     def prefill_request(self, tokens) -> tuple:
         """Prefill ONE request's prompt ([S] ints) in its own batch-1 slot:
         (last-position logits [1, V], decode caches)."""
-        return self._prefill(self._tokens(tokens)[None])
+        return self._prefill({"tokens": self._tokens(tokens)[None]})
 
     def decode_request(self, caches, token, pos: int) -> tuple:
         """One decode step for one request: ``token`` [1, 1] at absolute
@@ -218,17 +220,25 @@ class Engine:
     def generate(self, batch: dict, max_new_tokens: int,
                  prompt_len: Optional[int] = None,
                  request_ids=None) -> np.ndarray:
-        """batch: ``{"tokens": [B, S]}``; returns [B, max_new_tokens]."""
+        """batch: ``{"tokens": [B, S]}``, with ``patches`` [B, P, d] for a
+        VLM or ``frames`` [B, Se, d] for an encoder-decoder; returns
+        [B, max_new_tokens]. A VLM's decode positions follow its
+        ``num_patches`` prefix positions."""
         tokens = self._tokens(batch["tokens"])
         b, t = tokens.shape
         prompt_len = prompt_len or t
+        prefix = (self.model.cfg.num_patches
+                  if self.model.cfg.family == "vlm" else 0)
         rids = np.arange(b) if request_ids is None else np.asarray(request_ids)
-        last_logits, caches = self._prefill(tokens)
+        inputs = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+                  else v for k, v in batch.items() if k != "tokens"}
+        last_logits, caches = self._prefill(
+            {**_to_device(inputs, self.device), "tokens": tokens})
         out = []
         tok = self.sample_tokens(last_logits, rids, 0)[:, None]
         for i in range(max_new_tokens):
             out.append(tok.cpu().numpy())
-            pos = torch.full((b,), prompt_len + i, dtype=torch.long,
+            pos = torch.full((b,), prefix + prompt_len + i, dtype=torch.long,
                              device=self.device)
             logits, caches = self._decode(caches, tok.to(torch.long), pos)
             tok = self.sample_tokens(logits[:, 0], rids, i + 1)[:, None]

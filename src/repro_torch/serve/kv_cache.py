@@ -175,7 +175,7 @@ class PagedKVCache:
                 or model_cfg.attention_type == "sliding_window":
             raise ValueError(
                 "paged KV supports decoder-only full-attention token LMs "
-                f"(family {model_cfg.family!r}, attention "
+                f"({model_cfg.name}: family {model_cfg.family!r}, attention "
                 f"{model_cfg.attention_type!r} not pageable)")
         if max_len % block_size != 0:
             raise ValueError(f"max_len={max_len} must be a multiple of "

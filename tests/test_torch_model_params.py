@@ -1,11 +1,12 @@
 """The port's ``init_params`` tree against the reference's ``init``.
 
-For every config the port runs (olmo-1b, mixtral-8x22b; each also with
-qk-norm and biases switched on), ``build(cfg, device="cpu").init(0)`` must
-give the reference's key tree, shapes and dtypes, with the reference's
-stacked ``[L, ...]`` layer leaves split per layer, and the same
-deterministic leaves (norm scales and qk-norm scales of ones, zero
-biases). The random matrices differ by construction (another generator).
+For every config (all ten; each also with qk-norm and biases switched
+on), ``build(cfg, device="cpu").init(0)`` must give the reference's key
+tree, shapes and dtypes, with the reference's stacked ``[L, ...]`` layer
+leaves split per layer (an encoder's too), and the same deterministic
+leaves (norm scales and qk-norm scales of ones, zero biases, the SSM's
+``A_log``, ``dt_bias`` and ``D``). The random matrices differ by
+construction (another generator).
 A prefill parity check then shows that the port applies non-zero biases
 and qk-norm scales handed to it through ``interop``."""
 import dataclasses
@@ -23,7 +24,10 @@ from repro_torch.models import build
 
 torch.set_num_threads(1)
 
-ARCHS = ["olmo-1b", "mixtral-8x22b"]
+ARCHS = ["command-r-plus-104b", "phi3-mini-3.8b", "qwen3-4b", "olmo-1b",
+         "mixtral-8x22b", "llama4-scout-17b-a16e", "whisper-base",
+         "paligemma-3b", "hymba-1.5b", "mamba2-130m"]
+STACKS = ("layers", "encoder")
 VARIANTS = {"as published": {},
             "qk_norm + use_bias": dict(qk_norm=True, use_bias=True)}
 
@@ -56,6 +60,25 @@ def _port_layers(params):
     return {path: [f[path] for f in flat] for path in flat[0]}, flat
 
 
+def _stacks(ref, port):
+    """(name, reference's stacked layers, port's per-layer list, L): the
+    decoder's layers and, for an encoder-decoder, the encoder's."""
+    out = [("layers", ref["layers"], port["layers"])]
+    if "encoder" in ref:
+        out.append(("encoder", ref["encoder"]["layers"],
+                    port["encoder"]["layers"]))
+    return out
+
+
+def _top(tree):
+    """Every leaf outside the layer stacks."""
+    top = {k: v for k, v in tree.items() if k != "layers"}
+    if "encoder" in top:
+        top["encoder"] = {k: v for k, v in top["encoder"].items()
+                          if k != "layers"}
+    return _flatten(top)
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_tree_matches_the_reference(arch, variant):
@@ -64,21 +87,22 @@ def test_init_tree_matches_the_reference(arch, variant):
     ref = _ref_tree(ref_cfg)
     port = build(cfg, device="cpu").init(0)
     assert set(port) == set(ref)
-    top_ref = _flatten({k: v for k, v in ref.items() if k != "layers"})
-    top_port = _flatten({k: v for k, v in port.items() if k != "layers"})
+    top_ref, top_port = _top(ref), _top(port)
     assert set(top_port) == set(top_ref)
     for path, leaf in top_ref.items():
         assert tuple(top_port[path].shape) == leaf.shape, path
         assert str(top_port[path].dtype) == f"torch.{leaf.dtype}", path
-    ref_layers = _flatten(ref["layers"])
-    port_layers, per_layer = _port_layers(port)
-    assert len(port["layers"]) == cfg.num_layers
-    assert all(set(f) == set(ref_layers) for f in per_layer)
-    for path, leaf in ref_layers.items():
-        assert leaf.shape[0] == cfg.num_layers, path
-        for t in port_layers[path]:
-            assert tuple(t.shape) == leaf.shape[1:], path
-            assert str(t.dtype) == f"torch.{leaf.dtype}", path
+    for name, ref_stack, port_stack in _stacks(ref, port):
+        n = cfg.num_layers if name == "layers" else cfg.encoder_layers
+        ref_layers = _flatten(ref_stack)
+        per_layer = [_flatten(layer) for layer in port_stack]
+        assert len(port_stack) == n
+        assert all(set(f) == set(ref_layers) for f in per_layer)
+        for path, leaf in ref_layers.items():
+            assert leaf.shape[0] == n, path
+            for f in per_layer:
+                assert tuple(f[path].shape) == leaf.shape[1:], path
+                assert str(f[path].dtype) == f"torch.{leaf.dtype}", path
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
@@ -90,26 +114,45 @@ def test_init_deterministic_leaves_match_the_reference(arch, variant):
     ref_cfg, cfg = _configs(arch, variant)
     ref = _ref_tree(ref_cfg)
     port = build(cfg, device="cpu").init(0)
-    port_layers, _ = _port_layers(port)
     fixed = []
-    for path, leaf in _flatten(ref["layers"]).items():
-        for value in (0.0, 1.0):
-            if np.all(leaf == value):
+    for _, ref_stack, port_stack in _stacks(ref, port):
+        per_layer = [_flatten(layer) for layer in port_stack]
+        for path, leaf in _flatten(ref_stack).items():
+            if path[-1] in SSM_FIXED:
                 fixed.append(path)
-                for t in port_layers[path]:
-                    assert torch.all(t == value), path
-    top_port = _flatten({k: v for k, v in port.items() if k != "layers"})
-    for path, leaf in _flatten({k: v for k, v in ref.items()
-                                if k != "layers"}).items():
+                for i, f in enumerate(per_layer):
+                    np.testing.assert_allclose(f[path].numpy(), leaf[i],
+                                               rtol=1e-6, atol=0)
+                continue
+            for value in (0.0, 1.0):
+                if np.all(leaf == value):
+                    fixed.append(path)
+                    for f in per_layer:
+                        assert torch.all(f[path] == value), path
+    top_port = _top(port)
+    for path, leaf in _top(ref).items():
         if np.all(leaf == 1.0) or np.all(leaf == 0.0):
             np.testing.assert_array_equal(top_port[path].numpy(), leaf)
     names = {p[-1] for p in fixed}
-    if VARIANTS[variant]:
-        assert {"q_norm", "k_norm", "bq", "bk", "bv", "bo"} <= names
-        if not cfg.is_moe:
-            assert {"bi"} <= names
-    else:
-        assert not names & {"q_norm", "k_norm", "bq", "bk", "bv", "bi"}
+    if cfg.has_ssm:
+        assert set(SSM_FIXED) | {"D", "norm", "conv_b"} <= names
+    # qk-norm scales and biases exactly where the config switches them on
+    # (the switched-on variant everywhere a layer has attention or an MLP).
+    want = set()
+    if cfg.has_attention and cfg.qk_norm:
+        want |= {"q_norm", "k_norm"}
+    if cfg.has_attention and cfg.use_bias:
+        want |= {"bq", "bk", "bv", "bo"}
+    if cfg.use_bias and cfg.d_ff and not cfg.is_moe:
+        want |= {"bi", "bo"}
+    assert names & {"q_norm", "k_norm", "bq", "bk", "bv", "bo", "bi"} == want
+    if VARIANTS[variant] and cfg.has_attention:
+        assert {"q_norm", "k_norm", "bq", "bk", "bv", "bo"} <= want
+
+
+# The SSM's leaves that are neither all zeros nor all ones but fixed:
+# A_log = log(linspace(1, 16, heads)), dt_bias = softplus^-1(0.01).
+SSM_FIXED = ("A_log", "dt_bias")
 
 
 def _with_live_bias_and_norms(tree, rng):

@@ -140,7 +140,8 @@ def _check_steps(ref_engine, engine, prompt, steps):
     1e-4, every greedy token equal."""
     lr, cr = ref_engine._prefill(ref_engine.params,
                                  {"tokens": jnp.asarray(prompt)})
-    lp, cp = engine._prefill(torch.as_tensor(prompt, dtype=torch.long))
+    lp, cp = engine._prefill(
+        {"tokens": torch.as_tensor(prompt, dtype=torch.long)})
     b, s = prompt.shape
     toks = []
     for i in range(steps + 1):
@@ -194,13 +195,6 @@ def test_dispatch_report_names_the_grouped_lowerings():
             if k.startswith("moe.")} == {"grouped_einsum"}
     assert "|counts|" in next(k for k in packed.dispatch_report
                               if k.startswith("moe.down"))
-
-
-def test_unported_families_are_named():
-    cfg = dataclasses.replace(reduced_config(ARCH), family="vlm",
-                              num_experts=0)
-    with pytest.raises(NotImplementedError, match="ssm, hybrid, encdec, vlm"):
-        build(cfg, device="cpu")
 
 
 # ---------------------------------------------------------------------------

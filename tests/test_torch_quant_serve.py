@@ -76,7 +76,8 @@ def _port_engine(tcfg, params, quantize):
 
 def _port_steps(engine, prompt, steps):
     """Prefill + greedy decode: per-step logits [B, V] and tokens."""
-    lp, cp = engine._prefill(torch.as_tensor(prompt, dtype=torch.long))
+    lp, cp = engine._prefill(
+        {"tokens": torch.as_tensor(prompt, dtype=torch.long)})
     logits, toks = [lp.numpy()], []
     b, s = prompt.shape
     for i in range(steps):
@@ -171,7 +172,8 @@ def test_int8_engine_tracks_the_float_engine(arch):
                             prompt, 1)
     quant = _port_engine(tcfg, params_from_numpy(tree, tcfg, "cpu"), "int8")
     # One decode step fed the float engine's token, as the reference test.
-    lp, cp = quant._prefill(torch.as_tensor(prompt, dtype=torch.long))
+    lp, cp = quant._prefill(
+        {"tokens": torch.as_tensor(prompt, dtype=torch.long)})
     tok = torch.as_tensor(float_run[1][0], dtype=torch.long)
     dp, _ = quant._decode(cp, tok, torch.full((2,), prompt.shape[1],
                                               dtype=torch.long))

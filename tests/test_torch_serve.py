@@ -48,7 +48,8 @@ def _step_logits(ref_engine, engine, prompt, steps):
     """Prefill + greedy decode on both engines; per-step logits and tokens."""
     lr, cr = ref_engine._prefill(ref_engine.params,
                                  {"tokens": jnp.asarray(prompt)})
-    lp, cp = engine._prefill(torch.as_tensor(prompt, dtype=torch.long))
+    lp, cp = engine._prefill(
+        {"tokens": torch.as_tensor(prompt, dtype=torch.long)})
     out = [(np.asarray(lr), lp.numpy())]
     tr = jnp.argmax(lr, -1).astype(jnp.int32)[:, None]
     tp = torch.argmax(lp, -1)[:, None]
