@@ -194,6 +194,26 @@ Phases (any failure exits non-zero and prints no result line):
      memory and the card's line. Then, in a fresh process (late in this
      one torch.profiler loses its records), each model's prefill ms and
      decode ms/step (CUDA events) and its device busy time (torch.profiler).
+  8. Train full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16
+     compute over f32 masters, remat) through the launcher's entry point,
+     ``repro_torch.launch.train.main`` (4 x 512 Markov tokens a step, 6
+     steps): every loss finite, step 6's below step 1's, and the launches
+     by body equal to the counts derived from the config
+     (``train_step_counts``: K5 + K1 on wgmma for the forward, the
+     recomputed layers and both products of the backward through
+     ``core.autograd``, K7 only where the planner picks it, nothing
+     else). Each distinct product of the step (forward, dX with W^T a
+     view, dW) at its shape through ``gemm.matmul`` / ``weight_grad``
+     against torch.matmul on the same bf16 inputs (2e-2 / 1e-3), on the
+     bodies derived for it. (b) On one batch, the loss and every
+     parameter's gradient through the kernels against the same step on
+     ``torch_matmul`` (loss within 1e-2, each leaf within 5e-2 relative
+     Frobenius error). (c) At 2 of 16 layers:
+     2 steps, a checkpoint, 2 more; restored into fresh trees, the state
+     bitwise the saved one and the same 2 steps bitwise the same losses.
+     Then, in a fresh process, the step's ms (host clock and CUDA
+     events), tokens/s, peak memory and device busy share
+     (torch.profiler).
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key, the diagonal tile taken as interior,
@@ -238,6 +258,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3064,10 +3085,13 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
 
 def profile_kernels(torch, fn, reps) -> tuple:
     """torch.profiler (CUPTI) over ``reps`` calls of ``fn(i)``, after one
-    unprofiled call: ({name: device us summed over the calls}, the kernel
-    records it kept against the launch calls it saw on the host, "kept /
-    launched" (a lost record would read as idle), the profiled wall ms a
-    call)."""
+    unprofiled call: ({kernel name: device us summed over the calls}, the
+    kernel records it kept against the launch calls it saw on the host,
+    "kept / launched" (a lost record would read as idle), the profiled
+    wall ms a call). Only the device's own records count: a host op's
+    ``self_device_time_total`` is the time of the kernels it launched,
+    which have records of their own (summing both counted an aten op's
+    kernels twice)."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
@@ -3082,12 +3106,13 @@ def profile_kernels(torch, fn, reps) -> tuple:
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
-        on_device = str(getattr(ev, "device_type", "")).endswith("CUDA")
-        if t > 0:
-            dev[ev.key] = t
-            if on_device and not ev.key.startswith(("Memcpy", "Memset")):
-                records += ev.count
-        elif not on_device and "LaunchKernel" in ev.key:
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            if t > 0:
+                dev[ev.key] = t
+                if not ev.key.startswith(("Memcpy", "Memset")):
+                    records += ev.count
+            continue
+        if "LaunchKernel" in ev.key:
             launched += ev.count
     kept = f"{records}/{launched}" if launched else f"{records}/not seen"
     return dev, kept, wall_ms
@@ -4409,6 +4434,425 @@ def phase_families(torch, gp, gg, counters, cfgs, models, serve, card) -> tuple:
     return paths, results, seconds
 
 
+# Phase 8: training. Full-width olmo-1b through the launcher's entry point
+# (``launch.train.main``): bf16 compute over f32 masters, a 4 x 512 Markov
+# batch a step, 6 steps, remat. The checkpoint round trip runs at the same
+# widths with the depth cut to CKPT_LAYERS of 16 (a full f32 state with
+# both Adam moments is about 14 GB to write).
+TRAIN_ARCH = "olmo-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 6
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--data", "markov",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1"]
+CKPT_LAYERS = 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-2, 5e-2   # (b): loss, each leaf's rel. Frobenius
+TRAIN_TIMES_TAG = "phase 8 times: "
+TRAIN_KERNELS = ("gemm_packed_fused_a", "pack_b", "gemm_tiled")
+
+
+def train_products(cfg, tokens, remat=True) -> list:
+    """The dense products of one train step of a dense config, as (M, K,
+    N, B a transposed view, A a transposed view, count): for each
+    contraction (q, k, v, o, the MLP's projections a layer, the LM head)
+    the forward (again for the layers under remat), dX = g @ W^T and dW =
+    X^T @ g."""
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = ([(d, f), (d, f), (f, d)] if cfg.mlp_type in ("swiglu", "geglu")
+           else [(d, f), (f, d)])
+    layer = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
+             (cfg.q_dim, d)] + mlp
+    out = []
+    for k, n in layer:
+        out += [(tokens, k, n, False, False, cfg.num_layers * (2 if remat else 1)),
+                (tokens, n, k, True, False, cfg.num_layers),
+                (k, tokens, n, False, True, cfg.num_layers)]
+    v = cfg.vocab_size
+    return out + [(tokens, d, v, True, False, 1), (tokens, v, d, False, False, 1),
+                  (d, tokens, v, False, True, 1)]
+
+
+def product_bodies(cfg, m, k, n, b_view, a_view) -> dict:
+    """{kernel: body} of one train-step product (a row of
+    ``train_products``) on the planner's pick (``choose_strategy``) for its
+    (M, K, N). K1 takes ``wgmma`` (every product has more than 16 rows)
+    after K5 packs its B: ``tma_copy`` for B as it lies, ``tma_stage`` for
+    a transposed view (the head's ``table.t()`` forward, every layer
+    weight's W^T in dX; the head's W^T is the table itself; a K1 dW reads
+    X^T made contiguous). K7, where the planner picks ``tiling``, takes
+    ``wgmma`` on operands as they lie and ``mma_general`` for dW's
+    transposed X^T."""
+    from repro_torch.core.planner import choose_strategy
+    if choose_strategy(m, k, n, cfg.compute_dtype) == "tiling_packing_fused":
+        return {"gemm_packed_fused_a": "wgmma",
+                "pack_b": "tma_stage" if b_view else "tma_copy"}
+    return {"gemm_tiled": "mma_general" if a_view else "wgmma"}
+
+
+def train_step_counts(cfg, tokens, remat=True) -> dict:
+    """Launches of one train step of a dense config by kernel and body,
+    derived from the config: each product of ``train_products`` on the
+    bodies ``product_bodies`` names, times its count."""
+    out = {"gemm_packed_fused_a": {}, "pack_b": {}, "gemm_tiled": {}}
+    for m, k, n, b_view, a_view, count in train_products(cfg, tokens, remat):
+        for kernel, body in product_bodies(cfg, m, k, n, b_view,
+                                           a_view).items():
+            out[kernel][body] = out[kernel].get(body, 0) + count
+    return out
+
+
+def train_step_bounds(cfg, tokens) -> dict:
+    """The least device ms of one train step's GEMMs (``bound_ms`` of each
+    product in bf16, summed with its count) and of its packs (each B read
+    once and its tiles written once, in bf16, at the HBM rate)."""
+    gemm_ms, pack_bytes, by = 0.0, 0, set()
+    for m, k, n, _, _, count in train_products(cfg, tokens):
+        ms, why = bound_ms(m, k, n, 2, 2 * k * n, 2, H100_BF16_FLOPS)
+        gemm_ms += count * ms
+        by.add(why)
+        pack_bytes += count * 2 * (2 * k * n)
+    return {"gemm_bound_ms": gemm_ms, "gemm_bound_by": "/".join(sorted(by)),
+            "pack_bound_ms": 1e3 * pack_bytes / H100_HBM_BYTES}
+
+
+def train_launches(counters) -> dict:
+    """The counters' launches by body of the kernels training runs, and
+    the total of every other wrapper (must be 0)."""
+    v = counters.variants()
+    out = {name: {b: c for b, c in v[name].items() if c}
+           for name in TRAIN_KERNELS}
+    out["others"] = sum(c for name, c in counters.read().items()
+                        if name not in TRAIN_KERNELS)
+    return out
+
+
+def train_shape_checks(torch, counters, cfg, tokens, seed=8) -> tuple:
+    """Each distinct product of one train step (``train_products``) on the
+    card, through the calls the step makes at the shape it makes them:
+    ``gemm.matmul`` for the forward and dX (B as the step hands it: W as
+    it lies, or a transposed view for the head's ``table.t()`` and every
+    W^T), ``core.autograd.weight_grad`` for dW = X^T @ g. Each is held
+    against torch.matmul in f32 (TF32 off) on the same bf16 inputs,
+    rounded to bf16, at phase 1's tolerances (2e-2 / 1e-3: f32 sums in
+    other orders, one bf16 rounding), and its launches to the bodies
+    ``product_bodies`` names, once each and nothing else. A is N(0, 1)
+    and B N(0, 1 / K) in bf16, so every output is of unit scale, the
+    scale phase 1's atol is set for (a normed activation against weights
+    at their init std, 0.02 at K 2048): at N(0, 1) operands an output
+    near 0 carries f32 rounding of partial sums up to sqrt(K) in size,
+    which an atol of 1e-3 cannot hold at K 8192 on any f32 GEMM. Returns
+    (failed tags, one row a product)."""
+    from repro_torch.core import autograd as ag
+    from repro_torch.core import gemm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * std).to(bf16)
+
+    fails, rows = [], []
+    seen = set()
+    for m, k, n, b_view, a_view, _ in train_products(cfg, tokens):
+        if (m, k, n, b_view, a_view) in seen:
+            continue
+        seen.add((m, k, n, b_view, a_view))
+        kind = "dW" if a_view else ("fwd/dX, B^T view" if b_view else "fwd/dX")
+        if a_view:   # dW = X^T @ g: X [tokens, m], g [tokens, n]
+            x, g = randn(k, m), randn(k, n, std=k ** -0.5)
+            a_f32, b_f32 = x.float().t(), g.float()
+            call = lambda: ag.weight_grad(x, g, out_dtype=bf16)
+        else:
+            a = randn(m, k)
+            b = (randn(n, k, std=k ** -0.5).t() if b_view
+                 else randn(k, n, std=k ** -0.5))
+            a_f32, b_f32 = a.float(), b.float()
+            call = lambda: gemm.matmul(a, b)
+        counters.reset()
+        got = call()
+        torch.cuda.synchronize()
+        ran = train_launches(counters)
+        want = {kern: {} for kern in TRAIN_KERNELS}
+        for kern, body in product_bodies(cfg, m, k, n, b_view, a_view).items():
+            want[kern] = {body: 1}
+        want["others"] = 0
+        ok, err = close(got, (a_f32 @ b_f32).to(bf16), 2e-2, 1e-3)
+        tag = f"{kind} M={m} K={k} N={n}"
+        bodies = ", ".join(f"{kern} {b}" for kern in TRAIN_KERNELS
+                           for b in ran[kern])
+        rows.append(dict(product=kind, m=m, k=k, n=n, bodies=bodies,
+                         max_abs_err=err, ok=ok and ran == want))
+        if not rows[-1]["ok"]:
+            fails.append(tag)
+            log(f"  check {tag} [{bodies}; want {want}]: max_abs_err="
+                f"{err:.3e} (rtol=2e-2, atol=1e-3) FAIL")
+        del got, a_f32, b_f32
+    torch.cuda.empty_cache()
+    log(f"  step products at their shapes: {len(rows) - len(fails)} of "
+        f"{len(rows)} held to torch.matmul (2e-2 / 1e-3) on their bodies; "
+        f"largest error {max(r['max_abs_err'] for r in rows):.3e}")
+    return fails, rows
+
+
+def named_leaves(tree, prefix=""):
+    """[(name, tensor)] of a params tree, per-layer lists indexed."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def train_grad_gate(torch, counters, models, cfg, batch) -> dict:
+    """(b) One batch, the same weights: the loss and every leaf's gradient
+    through the kernels (auto dispatch: K5 + K1) against the same step
+    with every dense contraction on ``torch_matmul``, named through
+    REPRO_TORCH_GEMM_STRATEGY. Also the launches of one step's forward and
+    backward by body, against ``train_step_counts``."""
+    from repro_torch.train import loop
+    model = models.build(cfg, device=DEVICE)
+    params = model.init(0)
+    grads_fn = loop._grads_fn(model, loop.TrainConfig())
+    counters.reset()
+    g_k, m_k = grads_fn(params, batch)
+    torch.cuda.synchronize()
+    step_counts = train_launches(counters)
+    want = train_step_counts(cfg, TRAIN_BATCH * TRAIN_SEQ)
+    if {k: step_counts[k] for k in TRAIN_KERNELS} != want or step_counts["others"]:
+        raise AssertionError(f"phase 8: one step launched {step_counts}, "
+                             f"derived {want}")
+    env = "REPRO_TORCH_GEMM_STRATEGY"
+    saved = os.environ.get(env)
+    os.environ[env] = "torch_matmul"
+    try:
+        counters.reset()
+        g_t, m_t = grads_fn(params, batch)
+        torch.cuda.synchronize()
+        plain_launched = sum(counters.read().values())
+    finally:
+        if saved is None:
+            os.environ.pop(env)
+        else:
+            os.environ[env] = saved
+    if plain_launched:
+        raise AssertionError(f"phase 8 (b): the torch_matmul step launched "
+                             f"{plain_launched} kernels")
+    loss_k, loss_t = float(m_k["loss"]), float(m_t["loss"])
+    loss_rel = abs(loss_k - loss_t) / abs(loss_t)
+    errs = {}
+    for (name, gk), (_, gt_) in zip(named_leaves(g_k), named_leaves(g_t)):
+        den = float(gt_.double().norm())
+        errs[name] = float((gk.double() - gt_.double()).norm()) / max(den, 1e-30)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"  (b) gradient gate: loss kernels {loss_k:.6f} torch_matmul "
+        f"{loss_t:.6f} (rel {loss_rel:.2e}, limit {TRAIN_LOSS_RTOL}); "
+        f"{len(errs)} leaves, largest rel. Frobenius errors " +
+        ", ".join(f"{n} {e:.2e}" for n, e in worst) +
+        f" (limit {TRAIN_GRAD_RTOL})")
+    if loss_rel > TRAIN_LOSS_RTOL or worst[0][1] > TRAIN_GRAD_RTOL:
+        raise AssertionError("phase 8 (b): gradients through the kernels "
+                             "disagree with torch_matmul's")
+    del g_k, g_t, params, model
+    torch.cuda.empty_cache()
+    return dict(step_launches=step_counts, derived=want, loss=loss_k,
+                loss_torch_matmul=loss_t, loss_rel=loss_rel,
+                grad_rel_fro_max=worst[0][1], grad_rel_fro_worst=dict(worst),
+                leaves=len(errs))
+
+
+def train_ckpt_round_trip(torch, models, cfg, data) -> dict:
+    """(c) At CKPT_LAYERS of the config's layers: 2 steps, save, 2 more;
+    restore into fresh trees: the state bitwise the saved one, and the
+    same 2 steps from it give the same losses, bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as launch
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    cut = dataclasses.replace(cfg, num_layers=CKPT_LAYERS)
+    model = models.build(cut, device=DEVICE)
+    step = make_train_step(model, TrainConfig(optim=opt.AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=4)))
+    batches = [launch.device_batch(data.batch_at(i), DEVICE) for i in range(4)]
+    p = model.init(0)
+    s = opt.init_state(p)
+    for i in range(2):
+        p, s, _ = step(p, s, batches[i])
+    saved = {"params": p, "opt": s}
+    tmp = tempfile.mkdtemp(prefix="phase8_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        ckpt.save(tmp, 2, saved)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
+        straight = []
+        for i in (2, 3):
+            p, s, m = step(p, s, batches[i])
+            straight.append(float(m["loss"]))
+        template = {"params": model.init(1), "opt": opt.init_state(model.init(1))}
+        t0 = time.perf_counter()
+        restored, at = ckpt.restore(tmp, template)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_state = at == 2 and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for (_, a), (_, b) in zip(named_leaves(saved), named_leaves(restored)))
+    p, s = restored["params"], restored["opt"]
+    resumed = []
+    for i in (2, 3):
+        p, s, m = step(p, s, batches[i])
+        resumed.append(float(m["loss"]))
+    out = dict(layers=CKPT_LAYERS, checkpoint_bytes=nbytes, save_s=save_s,
+               restore_s=restore_s, state_bitwise=same_state,
+               straight_losses=straight, resumed_losses=resumed,
+               losses_bitwise=straight == resumed)
+    log(f"  (c) checkpoint at {CKPT_LAYERS} of {cfg.num_layers} layers: "
+        f"{nbytes / 1e9:.2f} GB, save {save_s:.1f} s, restore {restore_s:.1f} s; "
+        f"restored state bitwise {same_state}; steps 3-4 straight {straight}, "
+        f"resumed {resumed}")
+    if not same_state or straight != resumed:
+        raise AssertionError("phase 8 (c): the resumed run is not bitwise the "
+                             "uninterrupted one")
+    return out
+
+
+def train_times_main() -> int:
+    """Phase 8's times, in a process of their own (as phase 7's: late in
+    the smoke's process torch.profiler loses its records): full-width
+    olmo-1b, the launcher's train step on its first batch, one warm step,
+    then TRAIN_TIMED steps by the host clock (synchronized) and by CUDA
+    events, peak memory over them, and torch.profiler over one more:
+    device busy ms and its share of the step. Prints one line,
+    TRAIN_TIMES_TAG + a JSON object."""
+    import torch
+    from repro_torch import models
+    from repro_torch.data.pipeline import DataConfig, MarkovLM
+    from repro_torch.launch import train as launch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = launch.preset_config(TRAIN_ARCH, "full")
+    model = models.build(cfg, device=DEVICE)
+    state = {"p": model.init(0)}
+    state["s"] = opt.init_state(state["p"])
+    step = make_train_step(model, TrainConfig(optim=opt.AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)))
+    data = MarkovLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    batch = launch.device_batch(data.batch_at(0), DEVICE)
+
+    def one(i):
+        state["p"], state["s"], _ = step(state["p"], state["s"], batch)
+    one(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = 2
+    t0 = time.perf_counter()
+    ms_events = time_ms(one, timed)   # one more warm call inside, then timed
+    host_ms = (time.perf_counter() - t0) * 1e3 / (timed + 1)
+    peak = torch.cuda.max_memory_allocated()
+    dev, kept, wall = profile_kernels(torch, one, 1)
+    busy = sum(dev.values()) / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    # K1's wgmma body and K5's bodies by their kernel names (no other
+    # wgmma_packed launches in a train step: K6 and K7 run 0 times)
+    k1_ms = sum(v for k, v in dev.items() if "wgmma_packed" in k) / 1e3
+    k5_ms = sum(v for k, v in dev.items() if "k5_" in k) / 1e3
+    out = dict(step_ms_events=ms_events, step_ms_host=host_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms_events / 1e3),
+               busy_ms=busy, busy_share=busy / ms_events,
+               k1_device_ms=k1_ms, k5_device_ms=k5_ms,
+               **train_step_bounds(cfg, TRAIN_BATCH * TRAIN_SEQ),
+               top_kernels_ms={k[:80]: v / 1e3 for k, v in top},
+               profiled_wall_ms=wall, records_kept=kept,
+               peak_memory_gb=peak / 1e9)
+    log(f"  step {ms_events:.1f} ms (events), {host_ms:.1f} ms (host clock); "
+        f"{out['tokens_per_s']:.0f} tokens/s; device busy {busy:.1f} ms "
+        f"({100 * busy / ms_events:.1f}%, records kept {kept}); peak "
+        f"{peak / 1e9:.2f} GB; device ms K1 {k1_ms:.2f} (GEMM bound "
+        f"{out['gemm_bound_ms']:.2f}), K5 {k5_ms:.2f} (bound "
+        f"{out['pack_bound_ms']:.2f})")
+    log(TRAIN_TIMES_TAG + json.dumps(out))
+    return 0
+
+
+def phase_train(torch, counters, models, card) -> tuple:
+    """Phase 8: (a) ``launch.train.main`` at full width (loss falls,
+    launches as derived), each step product at its shape against
+    torch.matmul (``train_shape_checks``), (b) the gradient gate, (c) the checkpoint round trip, then the step's times in a fresh
+    process. Returns (launches of (a), results)."""
+    import tempfile
+    from repro_torch.data.pipeline import DataConfig, MarkovLM
+    from repro_torch.launch import train as launch
+    t_phase = time.perf_counter()
+    cfg = launch.preset_config(TRAIN_ARCH, "full")
+    res = {"args": " ".join(TRAIN_ARGS)}
+    fd, metrics_path = tempfile.mkstemp(prefix="phase8_", suffix=".json")
+    os.close(fd)
+    try:
+        counters.reset()
+        t0 = time.perf_counter()
+        rc = launch.main(TRAIN_ARGS + ["--metrics-out", metrics_path])
+        torch.cuda.synchronize()
+        res["main_s"] = time.perf_counter() - t0
+        launched = counters.read()
+        by_body = train_launches(counters)
+        with open(metrics_path) as f:
+            history = json.load(f)
+    finally:
+        os.remove(metrics_path)
+    losses = [h["loss"] for h in history]
+    res.update(rc=rc, losses=losses, launches_by_body=by_body,
+               history=history)
+    want = {k: {b: c * TRAIN_STEPS for b, c in v.items()}
+            for k, v in train_step_counts(cfg, TRAIN_BATCH * TRAIN_SEQ).items()}
+    log(f"  (a) launch.train.main {' '.join(TRAIN_ARGS)}: rc {rc}, "
+        f"{res['main_s']:.1f} s; losses {[round(x, 4) for x in losses]}; "
+        f"launches {by_body} (derived {want})")
+    if (rc != 0 or len(losses) != TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"phase 8 (a): losses {losses} (rc {rc})")
+    if {k: by_body[k] for k in TRAIN_KERNELS} != want or by_body["others"]:
+        raise AssertionError(f"phase 8 (a): launched {by_body}, derived {want}")
+    shape_fails, res["shape_checks"] = train_shape_checks(
+        torch, counters, cfg, TRAIN_BATCH * TRAIN_SEQ)
+    if shape_fails:
+        raise AssertionError(f"phase 8: the kernels missed at the step's "
+                             f"shapes: {shape_fails}")
+    data = MarkovLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    batch = launch.device_batch(data.batch_at(0), DEVICE)
+    res["grad_gate"] = train_grad_gate(torch, counters, models, cfg, batch)
+    torch.cuda.empty_cache()
+    res["checkpoint"] = train_ckpt_round_trip(torch, models, cfg, data)
+    torch.cuda.empty_cache()
+    log("  times, in a fresh process:")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.train_times_main())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = run.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(TRAIN_TIMES_TAG):
+            log(line)
+    times = [ln for ln in lines if ln.startswith(TRAIN_TIMES_TAG)]
+    if run.returncode != 0 or len(times) != 1:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 8's timing process failed (exit "
+                             f"{run.returncode})")
+    res["times"] = json.loads(times[0][len(TRAIN_TIMES_TAG):])
+    res["times"]["process_s"] = time.perf_counter() - t0
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["card"] = card
+    log(json.dumps({"train": {k: v for k, v in res.items() if k != "history"}}))
+    log(f"  phase 8 took {res['phase_s']:.1f} s")
+    return launched, res
+
+
 # The quantized served cells: olmo-1b with phase 2's weights as int8 (tile
 # scales) and int4 (col scales), mixtral-8x22b with phase 3's as int8.
 OLMO_QUANT = ("int8", "int4:col")
@@ -5439,6 +5883,9 @@ def main(argv) -> int:
         f"{sys.version.split()[0]}")
     card = card_line()
     log(f"card: {card}")
+
+    def at_phase(msg):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {msg}")
     if argv and argv[0] == "--served-attention":
         log("served attention: chunked_attention of another layers.py "
             "against this tree's, in turns")
@@ -5464,7 +5911,7 @@ def main(argv) -> int:
                          gv.matmul_vsx_like, gv.matmul_vsx_like_packed,
                          fa.flash_attention])
 
-    log("phase 1: build + kernel vs plain")
+    at_phase("phase 1: build + kernel vs plain")
     t0 = time.perf_counter()
     paths = build.build_all()
     log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
@@ -5498,13 +5945,13 @@ def main(argv) -> int:
         torch, ops, counters, dict(pack=pk, gp=gp, gt=gt, gv=gv, gg=gg, fa=fa))
     torch.cuda.empty_cache()
 
-    log("phase 2: serve full-width olmo-1b, packed weights")
+    at_phase("phase 2: serve full-width olmo-1b, packed weights")
     load, launches, serve_t, packed_run = phase_serve(
         torch, gp, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
-    log("phase 2b: serve full-width olmo-1b through the continuous-batching "
-        "scheduler (paged KV pool, packed weights)")
+    at_phase("phase 2b: serve full-width olmo-1b through the continuous-batching "
+             "scheduler (paged KV pool, packed weights)")
     t_phase = time.perf_counter()
     cont_load, cont_launches, cont_t = phase_serve_continuous(
         torch, counters, serve, packed_run)
@@ -5513,23 +5960,23 @@ def main(argv) -> int:
     log(f"  phase 2b took {cont_t['phase_s']:.1f} s")
     torch.cuda.empty_cache()
 
-    log(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
-        f"published widths")
+    at_phase(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
+             f"published widths")
     mix_load, mix_launches, mix_t, mix_logits = phase_mixtral(
         torch, gp, gg, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
     quant_paths, quant_cells = {}, {}
     for quantize in OLMO_QUANT:
-        log(f"phase 3b: serve full-width olmo-1b, {quantize} weights "
-            f"(phase 2's values)")
+        at_phase(f"phase 3b: serve full-width olmo-1b, {quantize} weights "
+                 f"(phase 2's values)")
         load_q, run_q, quant_cells[f"olmo-1b {quantize}"] = phase_serve_quant(
             torch, gp, counters, serve, packed_run, quantize)
         quant_paths[f"olmo-1b {quantize}, load"] = load_q
         quant_paths[f"olmo-1b {quantize}"] = run_q
         torch.cuda.empty_cache()
-    log(f"phase 3c: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
-        f"{MIXTRAL_QUANT} weights (phase 3's seed)")
+    at_phase(f"phase 3c: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
+             f"{MIXTRAL_QUANT} weights (phase 3's seed)")
     load_q, run_q, quant_cells[f"mixtral-8x22b {MIXTRAL_QUANT}"] = \
         phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
                             mix_logits)
@@ -5538,19 +5985,19 @@ def main(argv) -> int:
     del mix_logits
     torch.cuda.empty_cache()
 
-    log("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
+    at_phase("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
     sweep_launches, sweep_rows, grouped_sweep, sweep_variants = phase_sweep(
         torch, counters, gemm, strategy, ref)
     torch.cuda.empty_cache()
 
-    log("phase 5: serve full-width olmo-1b, raw weights, Engine(model, params)")
+    at_phase("phase 5: serve full-width olmo-1b, raw weights, Engine(model, params)")
     raw_launches, raw_t = phase_serve_raw(torch, counters, ctr, serve,
                                           packed_run)
     del packed_run
     torch.cuda.empty_cache()
 
-    log("phase 6: long-context attention through ops.attention, full head "
-        "width, bf16")
+    at_phase("phase 6: long-context attention through ops.attention, full head "
+             "width, bf16")
     timer_checks.append(timer_check(torch, "phase 6, after the served profiles"))
     attn_launches, attn_rows, attn_main_err = phase_attention(
         torch, fa, ops, counters, ref, cfgs, shapes)
@@ -5560,10 +6007,16 @@ def main(argv) -> int:
     log(json.dumps({"served_attention": served_attn, "card": card}))
     torch.cuda.empty_cache()
 
-    log("phase 7: serve the other eight configs at published widths, packed "
-        "weights (" + ", ".join(FAMILY_DEPTH) + ")")
+    at_phase("phase 7: serve the other eight configs at published widths, packed "
+             "weights (" + ", ".join(FAMILY_DEPTH) + ")")
     family_paths, families, families_s = phase_families(
         torch, gp, gg, counters, cfgs, models, serve, card)
+    torch.cuda.empty_cache()
+
+    at_phase("phase 8: train full-width olmo-1b through launch.train.main (bf16 "
+             "compute, f32 masters, 4 x 512 tokens a step, remat)")
+    train_launched, train_res = phase_train(torch, counters, models, card)
+    train_bodies = train_res["launches_by_body"]
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "olmo-1b continuous, load": cont_load,
@@ -5571,7 +6024,8 @@ def main(argv) -> int:
                "mixtral-8x22b packed, load": mix_load,
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
-               "ops.attention": attn_launches, **quant_paths, **family_paths}
+               "ops.attention": attn_launches, **quant_paths, **family_paths,
+               "olmo-1b train": train_launched}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -5666,8 +6120,10 @@ def main(argv) -> int:
                                  sweep_variants["gemm_packed_fused_a"].items() if c},
               "olmo-1b raw": raw_t["k1_launches_by_body"],
               **{f"{arch} packed": r["k1_launches_by_body"]
-                 for arch, r in families.items()}},
+                 for arch, r in families.items()},
+              "olmo-1b train": train_bodies["gemm_packed_fused_a"]},
           families=families, families_phase_s=families_s,
+          training={k: v for k, v in train_res.items() if k != "history"},
           work=decode_work, shapes=table, serve=serve_t, card=card)
     entry("gemm_grouped_packed_ragged", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
@@ -5713,7 +6169,8 @@ def main(argv) -> int:
                                  for name in ("pack_a", "pack_b")},
               "olmo-1b raw": raw_t["k5_launches_by_body"],
               **{f"{arch} packed, load": r["k5_load_launches_by_body"]["pack_b"]
-                 for arch, r in families.items()}},
+                 for arch, r in families.items()},
+              "olmo-1b train": train_bodies["pack_b"]},
           library=k5_library,
           work="the 112 per-call pack_b of one raw-weight olmo-1b prefill forward "
                "(bf16, bk 128 bn 64, row)",
@@ -5746,7 +6203,8 @@ def main(argv) -> int:
           launches_by_body={
               "strategy sweep": {v: c for v, c in
                                  sweep_variants["gemm_tiled"].items() if c},
-              "olmo-1b raw": raw_t["k7_launches_by_body"]},
+              "olmo-1b raw": raw_t["k7_launches_by_body"],
+              "olmo-1b train": train_bodies["gemm_tiled"]},
           square_4096=[r for r in layered_rows if r["kernel"] == "gemm_tiled"
                        and r.get("strategy")],
           serve=raw_t, sweep=sweep_rows)

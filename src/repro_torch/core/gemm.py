@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import autograd as _autograd
 from repro_torch.core import contraction as ctr
 from repro_torch.core import strategy as _strategy  # noqa: F401  (registers)
 from repro_torch.core.contraction import ContractionSpec, dispatch
@@ -86,16 +87,27 @@ def contract(spec: ContractionSpec, a: torch.Tensor, w, *, w2=None,
     ``counts`` [*lead, E] for a ragged spec and ``w2`` the gate-mul
     partner; folding lowerings see the expert-major form
     (:func:`fold_grouped`). The auto pick targets the card when ``a`` lies
-    on it."""
+    on it. A call that needs a gradient runs a kernel lowering through
+    ``core.autograd.KernelContraction`` (dense, raw weight) or raises (a
+    packed or grouped kernel lowering); the plain torch lowerings
+    differentiate as they are."""
     _check_operands(spec, w, w2, bias, counts)
     _check_gemm_extras(spec, c, alpha, beta)
     low = dispatch(spec, strategy=strategy, on_card=a.is_cuda)
+    grad = _autograd.needs_grad(a, w, w2, c, bias)
+    if grad:
+        _autograd.check_differentiable(spec, low)
     if spec.kind == "dense":
         lead = a.shape[:-1]
         if c is not None:
             c = c.reshape(-1, c.shape[-1])
-        out = low.run(spec, a.reshape(-1, a.shape[-1]), w, bias=bias, c=c,
-                      alpha=alpha, beta=beta, plan=plan)
+        a2 = a.reshape(-1, a.shape[-1])
+        if grad and _autograd.wraps(spec, low):
+            out = _autograd.KernelContraction.apply(
+                a2, w, bias, c, low, spec, alpha, beta, plan, strategy)
+        else:
+            out = low.run(spec, a2, w, bias=bias, c=c, alpha=alpha,
+                          beta=beta, plan=plan)
         return out.reshape(*lead, out.shape[-1])
     if not low.folds:
         return low.run(spec, a, w, w2=w2, bias=bias, counts=counts)

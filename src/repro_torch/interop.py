@@ -18,6 +18,11 @@ tiles and scales split per layer like any stacked leaf. The port then
 serves the reference's quantized bytes exactly (its own planner tiles
 differently, so packing the raw weights again would quantize them
 otherwise). This module imports nothing of JAX.
+
+:func:`params_to_numpy` is the inverse for raw trees: the port's params (or
+an AdamW state, ``{"mu", "nu", "step"}``) back to the reference's layout,
+each per-layer list of dicts stacked into ``[L, ...]`` numpy leaves (an
+encoder's layers too), as the checkpoint files hold them.
 """
 from __future__ import annotations
 
@@ -90,3 +95,27 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
         out["encoder"]["layers"] = _layers(enc["layers"], cfg.encoder_layers,
                                            device)
     return out
+
+
+def _numpy(x) -> np.ndarray:
+    if not torch.is_tensor(x):
+        raise TypeError(f"params_to_numpy takes raw tensor leaves; got "
+                        f"{type(x).__name__}")
+    return x.detach().cpu().numpy()
+
+
+def _stack(items: list):
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return np.stack(items)
+
+
+def params_to_numpy(tree):
+    """Port tree (tensor leaves; per-layer lists of dicts) -> the
+    reference's layout with numpy leaves: each list stacked into
+    ``[L, ...]`` leaves, dicts kept, everything else converted as it is."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _stack([params_to_numpy(v) for v in tree])
+    return _numpy(tree)

@@ -17,7 +17,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       lm_logits, sinusoidal_embedding)
+                                       lm_logits, remat_call,
+                                       sinusoidal_embedding)
 from repro_torch.models.transformer import (attn_params, embed_params,
                                             mlp_params, norm_params)
 
@@ -59,16 +60,21 @@ def _with_positions(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + pe.to(x.dtype)[None]
 
 
-def encode(cfg: ModelConfig, params: dict,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
     """frames [B, Se, d] (the stub frontend's embeddings) -> the encoder's
-    output [B, Se, d] in the compute dtype."""
+    output [B, Se, d] in the compute dtype. ``remat`` recomputes each layer
+    in the backward (:func:`layers.remat_call`)."""
     x = _with_positions(cfg, frames.to(torch_dtype(cfg.compute_dtype)))
-    for lp in params["encoder"]["layers"]:
-        h = apply_norm(cfg, lp["norm1"], x)
-        x = x + attn.self_attention(cfg, lp["attn"], h, positions=None,
+
+    def layer(lp, c):
+        h = apply_norm(cfg, lp["norm1"], c)
+        c = c + attn.self_attention(cfg, lp["attn"], h, positions=None,
                                     causal=False)
-        x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], x))
+        return c + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], c))
+
+    for lp in params["encoder"]["layers"]:
+        x = remat_call(layer, remat, lp, x)
     return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
@@ -86,6 +92,28 @@ def _dec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     return x, kv
 
 
+def forward(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+            tokens: torch.Tensor, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train forward: (logits [B, S, V] f32, aux = 0). The encoder runs
+    once; each decoder layer projects its cross K / V from its output."""
+    compute = torch_dtype(cfg.compute_dtype)
+    enc_out = encode(cfg, params, frames, remat=remat)
+    b, s = tokens.shape
+    x = _with_positions(cfg, embed_tokens(cfg, params, tokens, compute))
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+    def layer(lp, c):
+        enc_k, enc_v = attn.encode_kv(cfg, lp["xattn"], enc_out)
+        return _dec_block(cfg, lp, c, enc_k, enc_v, positions)[0]
+
+    for lp in params["layers"]:
+        x = remat_call(layer, remat, lp, x)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return (lm_logits(cfg, params, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
             tokens: torch.Tensor, *, max_len: Optional[int] = None,
             cache_dtype=None) -> Tuple[torch.Tensor, List[dict]]:
@@ -93,7 +121,7 @@ def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     [B, V], per-layer caches {"kv", "cross_k", "cross_v"})."""
     compute = torch_dtype(cfg.compute_dtype)
     cache_dtype = cache_dtype or compute
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, remat=False)
     b, s = tokens.shape
     max_len = max_len or s
     x = _with_positions(cfg, embed_tokens(cfg, params, tokens, compute))
@@ -114,7 +142,7 @@ def init_caches(cfg: ModelConfig, params: dict, frames: torch.Tensor,
                 max_len: int, dtype) -> List[dict]:
     """Empty self-attention caches, with the cross K / V computed once from
     the encoder's output."""
-    enc_out = encode(cfg, params, frames)
+    enc_out = encode(cfg, params, frames, remat=False)
     caches = []
     for lp in params["layers"]:
         k, v = attn.encode_kv(cfg, lp["xattn"], enc_out)

@@ -13,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gemm
@@ -166,6 +167,16 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
         h = gemm.linear(x, as_compute_weight(p["wi"], x.dtype), p.get("bi"),
                         epilogue=EPILOGUE_SPECS["gelu"])
     return gemm.linear(h, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+
+
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint`` (not
+    reentrant): its activations are dropped after the forward and
+    recomputed in the backward, with the same values."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

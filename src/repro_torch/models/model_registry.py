@@ -2,12 +2,15 @@
 :class:`Model`.
 
   init(seed) -> params           (random f32 weights, made on the device)
+  forward(params, batch, remat=True) -> (logits [B, S, V] f32, moe_aux)
   prefill(params, batch, max_len, cache_dtype) -> (last logits, caches)
   decode(params, caches, token, pos) -> (logits, caches)
 
 Batches hold ``"tokens"`` [B, S] ints; a VLM's also ``"patches"`` [B, P, d]
 (the image frontend's embeddings, a stub: precomputed) and an
-encoder-decoder's ``"frames"`` [B, Se, d] (the audio frontend's, likewise).
+encoder-decoder's ``"frames"`` [B, Se, d] (the audio frontend's, likewise);
+a train batch also ``"labels"`` [B, S]. A VLM's train logits are sliced to
+the text positions.
 The device defaults to ``"cuda"``; without a card :func:`build` raises
 rather than running on the CPU — pass ``device="cpu"`` to ask for it.
 """
@@ -37,6 +40,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    forward: Callable
     prefill: Callable
     decode: Callable
 
@@ -50,11 +54,24 @@ def build(cfg: ModelConfig, device=None) -> Model:
         return family.init_params(cfg, gen, dev)
 
     if cfg.is_encoder_decoder:
+        def forward(params, batch, remat: bool = True):
+            return encdec.forward(cfg, params, batch["frames"],
+                                  batch["tokens"], remat=remat)
+
         def prefill(params, batch, max_len=None, cache_dtype=None):
             return encdec.prefill(cfg, params, batch["frames"],
                                   batch["tokens"], max_len=max_len,
                                   cache_dtype=cache_dtype)
     else:
+        def forward(params, batch, remat: bool = True):
+            prefix = batch.get("patches") if cfg.family == "vlm" else None
+            logits, aux = transformer.forward(cfg, params, batch["tokens"],
+                                              prefix_embeds=prefix,
+                                              remat=remat)
+            if prefix is not None:
+                logits = logits[:, prefix.shape[1]:]  # text positions only
+            return logits, aux
+
         def prefill(params, batch, max_len=None, cache_dtype=None):
             prefix = batch.get("patches") if cfg.family == "vlm" else None
             return transformer.prefill(cfg, params, batch["tokens"],
@@ -62,7 +79,7 @@ def build(cfg: ModelConfig, device=None) -> Model:
                                        cache_dtype=cache_dtype)
 
     return Model(
-        cfg=cfg, device=dev, init=init, prefill=prefill,
+        cfg=cfg, device=dev, init=init, forward=forward, prefill=prefill,
         decode=lambda params, caches, token, pos: family.decode(
             cfg, params, caches, token, pos),
     )

@@ -1,5 +1,5 @@
 """Decoder-only transformer assembly for the dense / moe / hybrid / ssm /
-vlm families: parameters, prefill and decode.
+vlm families: parameters, the train forward, prefill and decode.
 
 Layers are a Python list of per-layer parameter dicts and the forward pass
 is a Python loop over them (the reference scans stacked [L, ...] leaves).
@@ -21,7 +21,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       init_const, init_normal, lm_logits)
+                                       init_const, init_normal, lm_logits,
+                                       remat_call)
 
 
 def norm_params(cfg: ModelConfig, device) -> dict:
@@ -115,29 +116,46 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def prefill_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                  positions: torch.Tensor, prefix_len: int, max_len: int,
-                  cache_dtype) -> Tuple[torch.Tensor, dict]:
-    """One layer over the prompt; also returns its decode cache."""
+                  positions: torch.Tensor, prefix_len: int,
+                  max_len: Optional[int] = None, cache_dtype=None
+                  ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+    """One layer over a whole sequence: (x, this layer's decode cache, its
+    MoE aux loss). With ``max_len`` None (the train forward) no cache is
+    built and the dict is empty."""
     cache: dict = {}
+    keep = max_len is not None
     h = apply_norm(cfg, p["norm1"], x)
     a_out = s_out = None
     if cfg.has_attention:
         a_out, (k, v) = attn.self_attention(cfg, p["attn"], h, positions,
                                             prefix_len=prefix_len,
                                             return_kv=True)
-        cache["kv"] = attn.cache_from_prefill(cfg, k, v, max_len, cache_dtype)
+        if keep:
+            cache["kv"] = attn.cache_from_prefill(cfg, k, v, max_len,
+                                                  cache_dtype)
     if cfg.parallel_block:
-        return x + a_out + apply_mlp(cfg, p["mlp"], h), cache
+        return (x + a_out + apply_mlp(cfg, p["mlp"], h), cache,
+                _no_aux(x))
     if cfg.has_ssm:
-        s_out, cache["ssm"] = ssm_mod.apply_ssm(cfg, p["ssm"], h,
-                                                return_state=True)
-    return _mix_and_ffn(cfg, p, x, a_out, s_out), cache
+        if keep:
+            s_out, cache["ssm"] = ssm_mod.apply_ssm(cfg, p["ssm"], h,
+                                                    return_state=True)
+        else:
+            s_out = ssm_mod.apply_ssm(cfg, p["ssm"], h)
+    x, aux = _mix_and_ffn(cfg, p, x, a_out, s_out)
+    return x, cache, aux
+
+
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _mix_and_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, a_out,
-                 s_out) -> torch.Tensor:
+                 s_out) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual after the mixer (hymba averages its two paths), then
-    the feed-forward on the second norm, where the layer has one."""
+    the feed-forward on the second norm, where the layer has one: (x, the
+    MoE aux loss, 0 for a dense layer)."""
+    aux = _no_aux(x)
     if a_out is not None and s_out is not None:
         x = x + 0.5 * (a_out + s_out)
     else:
@@ -145,10 +163,47 @@ def _mix_and_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, a_out,
     if cfg.d_ff > 0:
         h2 = apply_norm(cfg, p["norm2"], x)
         if cfg.is_moe:
-            x = x + moe_mod.apply_moe(cfg, p["moe"], h2)[0]
+            out, aux, _ = moe_mod.apply_moe(cfg, p["moe"], h2)
+            x = x + out
         else:
             x = x + apply_mlp(cfg, p["mlp"], h2)
-    return x
+    return x, aux
+
+
+def run_layers(cfg: ModelConfig, layers: List[dict], x: torch.Tensor,
+               positions: torch.Tensor, prefix_len: int = 0,
+               remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every layer over the whole sequence: (x, the summed MoE aux loss).
+    ``remat`` recomputes each layer in the backward
+    (:func:`layers.remat_call`); the values do not change."""
+    def layer(p, h):
+        out, _, aux = prefill_block(cfg, p, h, positions, prefix_len)
+        return out, aux
+
+    auxes = []
+    for p in layers:
+        x, aux = remat_call(layer, remat, p, x)
+        auxes.append(aux)
+    return x, torch.stack(auxes).sum() if auxes else _no_aux(x)
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (logits [B, S(+P), V] f32, the summed MoE aux
+    loss). ``prefix_embeds`` [B, P, d] (the VLM's patch embeddings) go
+    before the tokens and attend to each other both ways."""
+    compute = torch_dtype(cfg.compute_dtype)
+    x = embed_tokens(cfg, params, tokens, compute)
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(compute), x], dim=1)
+    b, s, _ = x.shape
+    x, aux = run_layers(cfg, params["layers"], x, _positions(b, s, x.device),
+                        prefix_len=prefix_len, remat=remat)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
@@ -171,8 +226,8 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     positions = _positions(b, s, tokens.device)
     caches = []
     for p in params["layers"]:
-        x, cache = prefill_block(cfg, p, x, positions, prefix_len, max_len,
-                                 cache_dtype)
+        x, cache, _ = prefill_block(cfg, p, x, positions, prefix_len,
+                                    max_len, cache_dtype)
         caches.append(cache)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], caches
@@ -204,7 +259,7 @@ def decode_block(cfg: ModelConfig, p: dict, cache: dict, x: torch.Tensor,
     if cfg.has_ssm:
         s_out, new_cache["ssm"] = ssm_mod.decode_ssm(cfg, p["ssm"], h,
                                                      cache["ssm"])
-    return _mix_and_ffn(cfg, p, x, a_out, s_out), new_cache
+    return _mix_and_ffn(cfg, p, x, a_out, s_out)[0], new_cache
 
 
 def decode(cfg: ModelConfig, params: dict, caches: List[dict],
