@@ -214,6 +214,36 @@ Phases (any failure exits non-zero and prints no result line):
      Then, in a fresh process, the step's ms (host clock and CUDA
      events), tokens/s, peak memory and device busy share
      (torch.profiler).
+  9. Guarded dispatch and the serving launcher, bf16. (a) No fault: a
+     packed [2048, 8192] weight (olmo-1b's gate / up) at M 4 (K1
+     tc_stream) and 512 (K1 wgmma), the same weight raw at M 4 (K7) and
+     512 (K5 + K1), mixtral-8x22b's gate / up pair as packed expert
+     stacks at C 8 with counts (K2): each auto output bitwise the named
+     winner's, on those bodies, nothing degraded. (b) On the card the
+     fallback chain is the winner alone: with ``kernel_compile`` or
+     ``kernel_run`` armed at every hit, auto raises the injected fault
+     with a note naming the spec and the winner, as the named winner
+     does, and nothing is recorded; ``pack`` under the env override
+     ``tiling_packing_fused`` on the raw weight raises the same way;
+     ``scale_grid`` on an int8 packed weight under
+     ``REPRO_NUMERICS_GUARD=1`` makes auto and the named
+     ``packed_weight`` raise ``NumericsError`` naming the spec. What each
+     spec ran and raised is printed. (c) ``kernel_run`` armed at its
+     first hit during ``Engine.generate`` on full-width olmo-1b, packed,
+     4 x 128 + 8 steps: the call raises naming the spec, nothing is
+     recorded, and the same engine's next call gives the tokens of a
+     call before the fault. (d)
+     ``launch.serve`` on the card with no device flag, full-width
+     olmo-1b, 4 requests x 128 + 16 tokens: tokens/s and ms/decode-step
+     beside the card's line; then ``launch.train.main`` at the tiny
+     preset into a checkpoint and ``launch.serve`` serving it, whose
+     greedy tokens must equal an Engine's on the restored params.
+  After every phase (and in phases 7 and 8's timing processes) the
+  guarded-dispatch health report must be empty: a contraction that
+  degraded fails the run, named with its phase. Phase 9 plants its own
+  faults and clears what it planted. ``REPRO_FAULT=kernel_run:1`` in the
+  environment fails the run where the first auto contraction runs (phase
+  2): its traceback names the phase, the spec and the lowering.
 With ``--planted-faults`` the script runs no phase: it builds copies of
 K4's source with a fault planted in each (a KV tile dropped, the causal or
 the window edge shifted by one key, the diagonal tile taken as interior,
@@ -4391,6 +4421,8 @@ def family_times_main() -> int:
             f"{kept_d}); {time.perf_counter() - t0:.1f} s")
         del caches, engine, model, batch
         torch.cuda.empty_cache()
+    from repro_torch.core import health
+    assert_healthy(health, "phase 7's timing process")
     log(FAMILY_TIMES_TAG + json.dumps(out))
     return 0
 
@@ -4621,19 +4653,11 @@ def train_grad_gate(torch, counters, models, cfg, batch) -> dict:
     if {k: step_counts[k] for k in TRAIN_KERNELS} != want or step_counts["others"]:
         raise AssertionError(f"phase 8: one step launched {step_counts}, "
                              f"derived {want}")
-    env = "REPRO_TORCH_GEMM_STRATEGY"
-    saved = os.environ.get(env)
-    os.environ[env] = "torch_matmul"
-    try:
+    with env_set("REPRO_TORCH_GEMM_STRATEGY", "torch_matmul"):
         counters.reset()
         g_t, m_t = grads_fn(params, batch)
         torch.cuda.synchronize()
         plain_launched = sum(counters.read().values())
-    finally:
-        if saved is None:
-            os.environ.pop(env)
-        else:
-            os.environ[env] = saved
     if plain_launched:
         raise AssertionError(f"phase 8 (b): the torch_matmul step launched "
                              f"{plain_launched} kernels")
@@ -4774,6 +4798,8 @@ def train_times_main() -> int:
         f"{peak / 1e9:.2f} GB; device ms K1 {k1_ms:.2f} (GEMM bound "
         f"{out['gemm_bound_ms']:.2f}), K5 {k5_ms:.2f} (bound "
         f"{out['pack_bound_ms']:.2f})")
+    from repro_torch.core import health
+    assert_healthy(health, "phase 8's timing process")
     log(TRAIN_TIMES_TAG + json.dumps(out))
     return 0
 
@@ -4851,6 +4877,342 @@ def phase_train(torch, counters, models, card) -> tuple:
     log(json.dumps({"train": {k: v for k, v in res.items() if k != "history"}}))
     log(f"  phase 8 took {res['phase_s']:.1f} s")
     return launched, res
+
+
+# Phase 9: guarded dispatch and the serving launcher. The zero-fault
+# cases and the planted sites run at served shapes: olmo-1b's gate / up
+# projection [2048, 8192] packed (K1) and raw (K7 at decode, K5 + K1 at the
+# prefill's rows), mixtral-8x22b's gate / up pair at the decode envelope
+# (K2); then one fault during a served generate, then the launcher.
+GUARD_K, GUARD_N, GUARD_ROWS = 2048, 8192, (4, 512)
+GUARD_GROUPED = (MIX_E, MIX_D, MIX_F, 8)      # E, K, N, C
+GUARD_STEPS = 8
+LAUNCH_SHAPE = (4, 128, 16)        # requests, prompt length, new tokens
+LIFECYCLE_TRAIN = ["--preset", "tiny", "--steps", "4", "--log-every", "1"]
+KERNEL_SITES = ("kernel_compile", "kernel_run")
+
+
+def assert_healthy(health, where):
+    """Fail the run, naming ``where`` and each degraded (spec, lowering), if
+    guarded dispatch recorded any degradation. The only degradations a
+    passing run accepts are phase 9's planted ones, cleared where planted."""
+    report = health.health_report()
+    if report:
+        log(f"  health report after {where}: {json.dumps(report)}")
+        raise AssertionError(f"{where}: guarded dispatch degraded "
+                             f"{len(report)} contraction(s): "
+                             + "; ".join(report))
+
+
+@contextlib.contextmanager
+def healthy(health, where):
+    """Run a phase; a failure is logged with the phase's name (and the
+    notes that name a failing contraction's spec), and whether it passed
+    or failed, its health report must be empty afterwards (a degradation
+    is named even where it made the phase fail some other check first)."""
+    try:
+        yield
+    except Exception as exc:
+        log(f"  {where} failed: {type(exc).__name__}: {exc}"
+            + "".join(f"\n    {note}" for note in getattr(exc, "__notes__", [])))
+        raise
+    finally:
+        assert_healthy(health, where)
+
+
+def guard_cases(torch, m, device, k=GUARD_K, n=GUARD_N,
+                rows=GUARD_ROWS, grouped=GUARD_GROUPED, seed=9) -> list:
+    """Phase 9's cases, bf16: each ``dict(label, spec, run, bodies, raw)``
+    where ``run(strategy)`` calls the served entry (``gemm.linear``, and
+    ``GroupedPackedWeight.silu_gate`` under auto, ``gemm.contract`` when a
+    strategy is named) and ``bodies`` the launches by body the zero-fault
+    auto call must make. ``m`` holds the port's modules."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=gen, device=device) * 0.05).to(bf16)
+    w = rand(k, n)
+    pw = m["layered"].PackedWeight.pack(w)
+    cases = []
+    for rows_ in rows:
+        x = rand(rows_, k)
+        k1 = "tc_stream" if rows_ <= 16 else "wgmma"
+        for weight, raw in ((pw, False), (w, True)):
+            spec = m["ctr"].ContractionSpec.dense(rows_, k, n, bf16, w=weight,
+                                                  out_dtype=bf16)
+            if raw and rows_ <= 16:
+                bodies = {"gemm_tiled": {"tc_stream": 1}}
+            elif raw:
+                bodies = {"pack_b": {"tma_copy": 1},
+                          "gemm_packed_fused_a": {k1: 1}}
+            else:
+                bodies = {"gemm_packed_fused_a": {k1: 1}}
+            cases.append(dict(
+                label=f"{'raw' if raw else 'packed'} [{k}, {n}] at M={rows_}",
+                spec=spec, raw=raw, bodies=bodies,
+                run=lambda s, x=x, wt=weight: m["gemm"].linear(
+                    x, wt, strategy=s or "auto")))
+    e, gk, gn, c = grouped
+    gate = m["layered"].GroupedPackedWeight.pack(rand(e, gk, gn), n_b_streams=2)
+    up = m["layered"].GroupedPackedWeight.pack(rand(e, gk, gn), n_b_streams=2)
+    a = rand(e, 1, c, gk)
+    counts = torch.randint(0, c + 1, (e, 1), generator=gen, device=device,
+                           dtype=torch.int32)
+    counts[0, 0] = c                       # one full segment, one empty
+    counts[-1, 0] = 0
+    spec = m["ctr"].ContractionSpec.grouped(
+        e, c, gk, gn, bf16, w=gate, epilogue="silu_gate", counts=True)
+
+    def run_pair(s):
+        if s is None:
+            return gate.silu_gate(up, a, counts=counts)
+        out = m["gemm"].contract(spec, a.transpose(0, 1), gate, w2=up,
+                                 counts=counts.t(), strategy=s)
+        return out.transpose(0, 1)
+    cases.append(dict(label=f"grouped pair E={e} [{gk}, {gn}] at C={c}, counts",
+                      spec=spec, raw=False, run=run_pair,
+                      bodies={"gemm_grouped_packed_ragged": {"tc_stream": 1}}))
+    return cases
+
+
+def raised_naming(exc_type, spec, winner, call, what) -> str:
+    """``call()`` must raise ``exc_type`` whose message or notes name
+    ``spec`` and the lowering ``winner`` (the card's guarded runner notes
+    both on a failure it lets through). Returns a line saying what
+    raised."""
+    try:
+        call()
+    except exc_type as exc:
+        text = "\n".join([str(exc)] + list(getattr(exc, "__notes__", [])))
+        if spec.describe() not in text or repr(winner) not in text:
+            raise AssertionError(f"{what}: {type(exc).__name__} does not name "
+                                 f"{spec.describe()} and {winner!r}: {text}")
+        return f"{winner} raised {type(exc).__name__}, naming the spec"
+    raise AssertionError(f"{what}: did not raise {exc_type.__name__}")
+
+
+@contextlib.contextmanager
+def env_set(name, value):
+    """``os.environ[name] = value`` within the block, restored after."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
+
+
+def guard_checks(torch, m, counters, cases) -> dict:
+    """Phase 9 (a) and (b) over ``cases``: (a) with no fault the auto
+    output is bitwise the named winner's, launched on the bodies the case
+    names, and nothing degrades; (b) on the card the chain is the winner
+    alone, so with ``kernel_compile`` / ``kernel_run`` armed at every hit
+    auto raises ``InjectedFault`` naming the spec and the winner, as the
+    named winner does, and nothing is recorded; ``pack`` under the env
+    override ``tiling_packing_fused`` (raw weights) raises the same way.
+    Returns what each case ran, by site. ``m`` holds the port's modules."""
+    ctr, faults, health = m["ctr"], m["faults"], m["health"]
+    walked = {}
+    for case in cases:
+        spec, run, label = case["spec"], case["run"], case["label"]
+        winner = ctr.dispatch(spec, on_card=True).name
+        rec = walked.setdefault(label, {})
+        # (a) zero fault
+        health.clear_health()
+        counters.reset()
+        got = run(None)
+        torch.cuda.synchronize()
+        bodies = {name: launches_by_body(counters, name)
+                  for name in case["bodies"]}
+        want = run(winner)
+        if not torch.equal(got, want) or health.HEALTH:
+            raise AssertionError(f"phase 9 (a) {label}: auto != named {winner} "
+                                 f"or degraded {health.health_report()}")
+        if bodies != case["bodies"]:
+            raise AssertionError(f"phase 9 (a) {label}: launched {bodies}, "
+                                 f"want {case['bodies']}")
+        rec["none"] = f"{winner}, bitwise its named output"
+        # (b) the kernel sites, every hit: the winner alone, raising
+        for site in KERNEL_SITES:
+            with faults.inject(site):
+                rec[site] = raised_naming(faults.InjectedFault, spec, winner,
+                                          lambda: run(None),
+                                          f"phase 9 (b) {label} {site}")
+                try:
+                    run(winner)
+                except faults.InjectedFault:
+                    pass
+                else:
+                    raise AssertionError(f"phase 9 (b) {label}: named {winner} "
+                                         f"did not raise under {site}")
+        if case["raw"]:
+            with env_set("REPRO_TORCH_GEMM_STRATEGY", "tiling_packing_fused"), \
+                    faults.inject("pack"):
+                rec["pack"] = raised_naming(
+                    faults.InjectedFault, spec, "tiling_packing_fused",
+                    lambda: run(None), f"phase 9 (b) {label} pack")
+        if health.HEALTH:
+            raise AssertionError(f"phase 9 (b) {label}: recorded "
+                                 f"{health.health_report()}")
+    return walked
+
+
+def guard_scale_grid(torch, m, k=GUARD_K, n=GUARD_N, rows=GUARD_ROWS) -> dict:
+    """Phase 9 (b), ``scale_grid`` under the numerics guard on an int8
+    packed [k, n] weight at each of ``rows``: auto and the named
+    ``packed_weight`` raise ``NumericsError`` naming the spec, and nothing
+    is recorded."""
+    ctr, faults, health = m["ctr"], m["faults"], m["health"]
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    pw8 = m["layered"].PackedWeight.pack(
+        torch.randn(k, n, generator=gen, device=DEVICE) * 0.05, quantize="int8")
+    walked = {}
+    for rows_ in rows:
+        x = torch.randn(rows_, k, generator=gen, device=DEVICE).to(
+            torch.bfloat16)
+        spec = ctr.ContractionSpec.dense(rows_, k, n, torch.bfloat16, w=pw8,
+                                         out_dtype=torch.bfloat16)
+        label = f"int8 packed [{k}, {n}] at M={rows_}"
+        with env_set(health.ENV_NUMERICS_GUARD, "1"), faults.inject("scale_grid"):
+            ran = raised_naming(health.NumericsError, spec, "packed_weight",
+                                lambda: m["gemm"].linear(x, pw8),
+                                f"phase 9 (b) {label} scale_grid")
+            try:
+                m["gemm"].linear(x, pw8, strategy="packed_weight")
+            except health.NumericsError:
+                pass
+            else:
+                raise AssertionError(f"phase 9 (b) {label}: named packed_weight "
+                                     f"did not raise NumericsError")
+        if health.HEALTH:
+            raise AssertionError(f"phase 9 (b) {label} scale_grid: recorded "
+                                 f"{health.health_report()}")
+        walked[label] = {"scale_grid": ran}
+    return walked
+
+
+def guard_serve(torch, m, cfgs, models, serve) -> dict:
+    """Phase 9 (c): ``kernel_run`` armed at its first hit during
+    ``Engine.generate`` on full-width olmo-1b with packed weights, prompt
+    PROMPT, GUARD_STEPS greedy steps: the call raises naming the spec,
+    nothing is recorded, and the engine's next call gives the tokens of a
+    call made before the fault."""
+    health, faults = m["health"], m["faults"]
+    cfg = dataclasses.replace(cfgs.get_config("olmo-1b"),
+                              compute_dtype="bfloat16")
+    model = models.build(cfg, device=DEVICE)
+    engine = serve.Engine(model, bf16_tree(torch, model.init(0)),
+                          serve.ServeConfig(max_len=MAX_LEN, pack_weights=True,
+                                            cache_dtype="bfloat16"),
+                          device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab_size, PROMPT,
+                           generator=torch.Generator().manual_seed(1))
+
+    def generate():
+        return engine.generate({"tokens": prompt}, max_new_tokens=GUARD_STEPS)
+    want = generate()
+    with faults.inject("kernel_run", nth=1):
+        try:
+            generate()
+        except faults.InjectedFault as exc:
+            raised = "\n".join(getattr(exc, "__notes__", []))
+        else:
+            raise AssertionError("phase 9 (c): generate did not raise under "
+                                 "kernel_run:1")
+    after = generate()
+    log(f"  (c) kernel_run:1 during generate ({PROMPT[0]}x{PROMPT[1]} + "
+        f"{GUARD_STEPS} steps, packed): raised, {raised!r}; report "
+        f"{json.dumps(health.health_report())}; the next call's tokens equal "
+        f"the first's: {bool((after == want).all())}")
+    if (health.HEALTH or "lowering" not in raised or after.shape != want.shape
+            or not (after == want).all() or want.min() < 0
+            or want.max() >= cfg.vocab_size):
+        raise AssertionError(f"phase 9 (c): raised {raised!r}, report "
+                             f"{health.health_report()}, tokens {after.shape}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"raised": raised, "tokens_0": want[0].tolist()}
+
+
+def guard_launcher(torch, m, health, card) -> dict:
+    """Phase 9 (d): the serving launcher on the card with no device flag,
+    full-width olmo-1b (raw weights, random from seed 0): its tokens/s and
+    ms / decode step; then the lifecycle, ``launch.train.main`` at the tiny
+    preset into a checkpoint and ``launch.serve`` serving it, whose greedy
+    tokens must equal an Engine's on ``checkpoint.restore``'s params."""
+    import tempfile
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+    requests, prompt, new = LAUNCH_SHAPE
+    shape = ["--requests", str(requests), "--prompt-len", str(prompt), "--new",
+             str(new)]
+    out = {}
+    with healthy(health, "phase 9 (d), the serving launcher"):
+        t0 = time.perf_counter()
+        args = ["--arch", "olmo-1b", "--preset", "full"] + shape
+        res = launch_serve.run(args)
+        out["launcher"] = dict(args=" ".join(args),
+                               tok_s=res["tok_s"], ms_per_step=res["ms_per_step"],
+                               seconds=time.perf_counter() - t0, card=card)
+        log(f"  (d) launch.serve {' '.join(args)}: "
+            f"{res['tok_s']:.1f} tok/s, {res['ms_per_step']:.2f} ms/decode-step "
+            f"({card}); {out['launcher']['seconds']:.1f} s")
+        del res
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="phase9_") as d:
+            t0 = time.perf_counter()
+            if launch_train.main(LIFECYCLE_TRAIN + ["--ckpt-dir", d]) != 0:
+                raise AssertionError("phase 9 (d): launch.train.main failed")
+            args = ["--preset", "tiny", "--ckpt-dir", d] + shape
+            res = launch_serve.run(args)
+            cfg = launch_train.preset_config("olmo-1b", "tiny")
+            model = m["models"].build(cfg, device=DEVICE)
+            restored, step = ckpt.restore(d, {"params": model.init(1)})
+            engine = m["serve"].Engine(
+                model, restored["params"],
+                m["serve"].ServeConfig(max_len=prompt + new + 8), device=DEVICE)
+            want = engine.generate(
+                launch_serve.request_batch(cfg, requests, prompt), new)
+        same = bool((res["tokens"] == want).all())
+        out["lifecycle"] = dict(train=" ".join(LIFECYCLE_TRAIN), serve=" ".join(args),
+                                step=step, same_tokens=same,
+                                seconds=time.perf_counter() - t0)
+        log(f"  (d) lifecycle: trained {step} steps (tiny), served the checkpoint "
+            f"through launch.serve: tokens equal to an Engine on the restored "
+            f"params: {same}; {out['lifecycle']['seconds']:.1f} s")
+        if not same or step != 4:
+            raise AssertionError("phase 9 (d): the launcher's tokens differ from "
+                                 "the restored params' Engine")
+    return out
+
+
+def phase_guard(torch, m, counters, cfgs, models, serve, card) -> dict:
+    """Phase 9: guarded dispatch on the card ((a) no fault, (b) every
+    site, (c) one fault while serving) and the serving launcher (d)."""
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    walked = guard_checks(torch, m, counters, guard_cases(torch, m, DEVICE))
+    walked.update(guard_scale_grid(torch, m))
+    for label, ran in walked.items():
+        log(f"  (a)/(b) {label}: " + "; ".join(
+            f"{site}: {what}" for site, what in ran.items()))
+    res["chains"] = walked
+    res["checks_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["serve_fault"] = guard_serve(torch, m, cfgs, models, serve)
+    res["serve_fault"]["seconds"] = time.perf_counter() - t0
+    res.update(guard_launcher(torch, m, m["health"], card))
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"guard": res, "card": card}))
+    log(f"  phase 9 took {res['phase_s']:.1f} s")
+    return res
 
 
 # The quantized served cells: olmo-1b with phase 2's weights as int8 (tile
@@ -5856,7 +6218,7 @@ def main(argv) -> int:
         from repro_torch import configs as cfgs
         from repro_torch import models, serve
         from repro_torch.core import contraction as ctr
-        from repro_torch.core import gemm, strategy
+        from repro_torch.core import gemm, health, layered, strategy
         from repro_torch.configs import shapes
         from repro_torch.core import tile_format as tf
         from repro_torch.kernels import build
@@ -5868,6 +6230,7 @@ def main(argv) -> int:
         from repro_torch.kernels import ops
         from repro_torch.kernels import pack as pk
         from repro_torch.kernels import ref
+        from repro_torch.testing import faults
     except ImportError as exc:
         print(f"chip_smoke: cannot import the port ({exc}); run from the "
               f"repo root", file=sys.stderr)
@@ -5912,49 +6275,53 @@ def main(argv) -> int:
                          fa.flash_attention])
 
     at_phase("phase 1: build + kernel vs plain")
-    t0 = time.perf_counter()
-    paths = build.build_all()
-    log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
-    for name, path in paths.items():
-        lines = path.with_suffix(".log").read_text().splitlines() \
-            if path.with_suffix(".log").exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    log(f"  gemm_vsx_like SASS: {check_no_tensor_cores(paths['gemm_vsx_like'])}")
-    log(f"  gemm_packed SASS: {check_wgmma(paths['gemm_packed'])}")
-    log(f"  gemm_packed_fused_a SASS: "
-        f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
-    log(f"  gemm_grouped_packed SASS: "
-        f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
-    for name, want in QUANT_SASS.items():
-        log(f"  {name} quantized TMA bodies' SASS: "
-            f"{check_quant_sass(paths[name], want)}")
-    log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
-    log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
-    log(f"  pack SASS: {check_k5_sass(paths['pack'])}")
-    timer_checks = [timer_check(torch, "phase 1, a fresh process")]
-    table, main_err = phase_kernels(torch, gp, ref, tf, pk)
-    grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
-    quant_t, quant_seen = phase_quant_kernels(torch, dict(gp=gp, gg=gg, ref=ref,
-                                                          tf=tf))
-    layered_rows, layered_err = phase_layered(
-        torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
-    attn_err = phase_attention_checks(torch, fa)
-    ops_counts = phase_ops_checks(
-        torch, ops, counters, dict(pack=pk, gp=gp, gt=gt, gv=gv, gg=gg, fa=fa))
+    with healthy(health, "phase 1"):
+        t0 = time.perf_counter()
+        paths = build.build_all()
+        log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+        for name, path in paths.items():
+            lines = path.with_suffix(".log").read_text().splitlines() \
+                if path.with_suffix(".log").exists() else []
+            for line in lines:
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+        log(f"  gemm_vsx_like SASS: {check_no_tensor_cores(paths['gemm_vsx_like'])}")
+        log(f"  gemm_packed SASS: {check_wgmma(paths['gemm_packed'])}")
+        log(f"  gemm_packed_fused_a SASS: "
+            f"{check_k1_sass(paths['gemm_packed_fused_a'])}")
+        log(f"  gemm_grouped_packed SASS: "
+            f"{check_grouped_sass(paths['gemm_grouped_packed'])}")
+        for name, want in QUANT_SASS.items():
+            log(f"  {name} quantized TMA bodies' SASS: "
+                f"{check_quant_sass(paths[name], want)}")
+        log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
+        log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
+        log(f"  pack SASS: {check_k5_sass(paths['pack'])}")
+        timer_checks = [timer_check(torch, "phase 1, a fresh process")]
+        table, main_err = phase_kernels(torch, gp, ref, tf, pk)
+        grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
+        quant_t, quant_seen = phase_quant_kernels(torch, dict(gp=gp, gg=gg,
+                                                              ref=ref, tf=tf))
+        layered_rows, layered_err = phase_layered(
+            torch, dict(pack=pk, gp=gp, gt=gt, gv=gv), tf)
+        attn_err = phase_attention_checks(torch, fa)
+        ops_counts = phase_ops_checks(
+            torch, ops, counters, dict(pack=pk, gp=gp, gt=gt, gv=gv, gg=gg,
+                                       fa=fa))
     torch.cuda.empty_cache()
 
     at_phase("phase 2: serve full-width olmo-1b, packed weights")
-    load, launches, serve_t, packed_run = phase_serve(
-        torch, gp, counters, cfgs, models, serve)
+    with healthy(health, "phase 2"):
+        load, launches, serve_t, packed_run = phase_serve(
+            torch, gp, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
     at_phase("phase 2b: serve full-width olmo-1b through the continuous-batching "
              "scheduler (paged KV pool, packed weights)")
     t_phase = time.perf_counter()
-    cont_load, cont_launches, cont_t = phase_serve_continuous(
-        torch, counters, serve, packed_run)
+    with healthy(health, "phase 2b"):
+        cont_load, cont_launches, cont_t = phase_serve_continuous(
+            torch, counters, serve, packed_run)
     cont_t["phase_s"] = time.perf_counter() - t_phase
     log(json.dumps({"serve_continuous": cont_t, "card": card}))
     log(f"  phase 2b took {cont_t['phase_s']:.1f} s")
@@ -5962,61 +6329,81 @@ def main(argv) -> int:
 
     at_phase(f"phase 3: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
              f"published widths")
-    mix_load, mix_launches, mix_t, mix_logits = phase_mixtral(
-        torch, gp, gg, counters, cfgs, models, serve)
+    with healthy(health, "phase 3"):
+        mix_load, mix_launches, mix_t, mix_logits = phase_mixtral(
+            torch, gp, gg, counters, cfgs, models, serve)
     torch.cuda.empty_cache()
 
     quant_paths, quant_cells = {}, {}
     for quantize in OLMO_QUANT:
         at_phase(f"phase 3b: serve full-width olmo-1b, {quantize} weights "
                  f"(phase 2's values)")
-        load_q, run_q, quant_cells[f"olmo-1b {quantize}"] = phase_serve_quant(
-            torch, gp, counters, serve, packed_run, quantize)
+        with healthy(health, f"phase 3b ({quantize})"):
+            load_q, run_q, quant_cells[f"olmo-1b {quantize}"] = \
+                phase_serve_quant(torch, gp, counters, serve, packed_run,
+                                  quantize)
         quant_paths[f"olmo-1b {quantize}, load"] = load_q
         quant_paths[f"olmo-1b {quantize}"] = run_q
         torch.cuda.empty_cache()
     at_phase(f"phase 3c: serve mixtral-8x22b, {MIXTRAL_LAYERS} of 56 layers, "
              f"{MIXTRAL_QUANT} weights (phase 3's seed)")
-    load_q, run_q, quant_cells[f"mixtral-8x22b {MIXTRAL_QUANT}"] = \
-        phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
-                            mix_logits)
+    with healthy(health, "phase 3c"):
+        load_q, run_q, quant_cells[f"mixtral-8x22b {MIXTRAL_QUANT}"] = \
+            phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
+                                mix_logits)
     quant_paths[f"mixtral-8x22b {MIXTRAL_QUANT}, load"] = load_q
     quant_paths[f"mixtral-8x22b {MIXTRAL_QUANT}"] = run_q
     del mix_logits
     torch.cuda.empty_cache()
 
     at_phase("phase 4: the paper's strategy sweep (square GEMMs, f32 and bf16)")
-    sweep_launches, sweep_rows, grouped_sweep, sweep_variants = phase_sweep(
-        torch, counters, gemm, strategy, ref)
+    with healthy(health, "phase 4"):
+        sweep_launches, sweep_rows, grouped_sweep, sweep_variants = phase_sweep(
+            torch, counters, gemm, strategy, ref)
     torch.cuda.empty_cache()
 
     at_phase("phase 5: serve full-width olmo-1b, raw weights, Engine(model, params)")
-    raw_launches, raw_t = phase_serve_raw(torch, counters, ctr, serve,
-                                          packed_run)
+    with healthy(health, "phase 5"):
+        raw_launches, raw_t = phase_serve_raw(torch, counters, ctr, serve,
+                                              packed_run)
     del packed_run
     torch.cuda.empty_cache()
 
     at_phase("phase 6: long-context attention through ops.attention, full head "
              "width, bf16")
-    timer_checks.append(timer_check(torch, "phase 6, after the served profiles"))
-    attn_launches, attn_rows, attn_main_err = phase_attention(
-        torch, fa, ops, counters, ref, cfgs, shapes)
-    from repro_torch.models import layers as model_layers
-    served_attn = served_attention(torch, model_layers.chunked_attention, cfgs,
-                                   shapes)
+    with healthy(health, "phase 6"):
+        timer_checks.append(timer_check(torch, "phase 6, after the served "
+                                               "profiles"))
+        attn_launches, attn_rows, attn_main_err = phase_attention(
+            torch, fa, ops, counters, ref, cfgs, shapes)
+        from repro_torch.models import layers as model_layers
+        served_attn = served_attention(torch, model_layers.chunked_attention,
+                                       cfgs, shapes)
     log(json.dumps({"served_attention": served_attn, "card": card}))
     torch.cuda.empty_cache()
 
     at_phase("phase 7: serve the other eight configs at published widths, packed "
              "weights (" + ", ".join(FAMILY_DEPTH) + ")")
-    family_paths, families, families_s = phase_families(
-        torch, gp, gg, counters, cfgs, models, serve, card)
+    with healthy(health, "phase 7"):
+        family_paths, families, families_s = phase_families(
+            torch, gp, gg, counters, cfgs, models, serve, card)
     torch.cuda.empty_cache()
 
     at_phase("phase 8: train full-width olmo-1b through launch.train.main (bf16 "
              "compute, f32 masters, 4 x 512 tokens a step, remat)")
-    train_launched, train_res = phase_train(torch, counters, models, card)
+    with healthy(health, "phase 8"):
+        train_launched, train_res = phase_train(torch, counters, models, card)
     train_bodies = train_res["launches_by_body"]
+    torch.cuda.empty_cache()
+
+    at_phase("phase 9: guarded dispatch (no fault, every site, one fault while "
+             "serving) and the serving launcher (launch.serve.main, full-width "
+             "olmo-1b; the train -> checkpoint -> serve lifecycle)")
+    with healthy(health, "phase 9"):
+        phase_guard(torch, dict(ctr=ctr, faults=faults, health=health, gemm=gemm,
+                                layered=layered, models=models, serve=serve),
+                    counters, cfgs, models, serve, card)
+    torch.cuda.empty_cache()
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "olmo-1b continuous, load": cont_load,

@@ -12,7 +12,7 @@ import importlib
 
 _EXPORTS = {
     "contraction": ("ContractionSpec", "Lowering", "LOWERINGS",
-                    "as_compute_weight", "dispatch",
+                    "as_compute_weight", "dispatch", "dispatch_table",
                     "is_packed", "lowerings_for", "register_lowering",
                     "weight_kind"),
     "epilogue": ("EPILOGUE_SPECS", "EpilogueSpec", "as_epilogue_spec"),

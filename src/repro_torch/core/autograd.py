@@ -19,8 +19,12 @@ Backward, with ``g = dY * act'(z)`` (act' from torch's autograd of the
 kernels' own activation table, so gelu is the tanh form):
 ``dA = alpha * g @ W^T``, ``dW = alpha * A^T @ g``, ``dbias = sum_rows(g)``,
 ``dC = beta * g``. Both products go through ``core.gemm.matmul`` with the
-forward's strategy, so on the card they launch the kernels. ``A^T`` is a
-transposed view, which K1 refuses (it needs A with unit column stride):
+forward's strategy (auto when the forward's was), so on the card they
+launch the kernels and, under auto, are guarded like any auto call: on
+the CPU a forward that degraded down its fallback chain still gets its
+gradient.
+``A^T`` is a transposed view, which K1 refuses (it needs A with unit
+column stride):
 where the dispatch picks ``tiling_packing_fused`` for ``dW``, ``A^T`` is
 copied contiguous first. That copy plus K5 + K1 ran a full-width olmo-1b
 step's dW products 2.3-2.9x faster on an H100 than ``tiling`` (K7's
@@ -28,7 +32,8 @@ step's dW products 2.3-2.9x faster on an H100 than ``tiling`` (K7's
 ``test_cuda_dw_copy_route_beats_k7_on_the_view`` times it.
 
 Packed and grouped kernel lowerings have no backward here: a call that
-needs a gradient through one raises (:func:`check_differentiable`).
+needs a gradient through one raises (:func:`check_differentiable`), and a
+fallback chain under a gradient skips them (:func:`differentiable`).
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ import torch
 from repro_torch.core.epilogue import ACTIVATIONS
 
 # The lowerings whose forward is plain torch, differentiated as it is.
-NATIVE_LOWERINGS = ("torch_matmul", "grouped_einsum")
+NATIVE_LOWERINGS = ("torch_matmul", "grouped_einsum", "torch_ref",
+                    "grouped_torch_ref")
 
 
 def _tensors(x):
@@ -65,9 +71,14 @@ def wraps(spec, low) -> bool:
             and low.name not in NATIVE_LOWERINGS)
 
 
+def differentiable(spec, low) -> bool:
+    """Whether a gradient can flow through ``low`` for ``spec``."""
+    return wraps(spec, low) or low.name in NATIVE_LOWERINGS
+
+
 def check_differentiable(spec, low) -> None:
     """Raise for a lowering that needs a gradient and has none."""
-    if wraps(spec, low) or low.name in NATIVE_LOWERINGS:
+    if differentiable(spec, low):
         return
     raise RuntimeError(
         f"lowering {low.name!r} has no backward ({spec.describe()}): a "
@@ -105,11 +116,12 @@ def weight_grad(a: torch.Tensor, g: torch.Tensor, *, alpha: float = 1.0,
                 strategy: Optional[str] = None,
                 out_dtype=None) -> torch.Tensor:
     """``alpha * A^T @ g`` through ``core.gemm.matmul`` (A [M, K], g
-    [M, N] -> [K, N])."""
+    [M, N] -> [K, N]); with no ``strategy`` the product is an auto call,
+    guarded, whose pick :func:`dw_strategy` has prepared ``A^T`` for."""
     from repro_torch.core import gemm
-    at, name = dw_strategy(a, g, strategy)
-    return gemm.matmul(at, g.to(a.dtype), alpha=alpha, strategy=name,
-                       out_dtype=out_dtype)
+    at, _ = dw_strategy(a, g, strategy)
+    return gemm.matmul(at, g.to(a.dtype), alpha=alpha,
+                       strategy=strategy or "auto", out_dtype=out_dtype)
 
 
 class KernelContraction(torch.autograd.Function):

@@ -8,8 +8,30 @@ env (``REPRO_TORCH_GEMM_STRATEGY``, honoured only for a lowering of the
 spec's kind that supports it) > auto. ``on_card`` says whether the operands
 lie on the card, as the reference's ``kernel_backend()`` says whether it
 targets the TPU: the auto pick there is the planner's kernel strategy, on
-the CPU the plain torch lowerings. The guarded fallback chain comes with a
-later slice of the port: here a failing lowering raises.
+the CPU the plain torch lowerings.
+
+Guarded execution (:func:`fallback_chain` + :func:`run_guarded`): env and
+auto dispatch on the CPU never crash on a failing lowering. The runner
+classifies the failure (``repro_torch.core.health``), records the
+degradation in the health registry, and degrades down the chain of
+supporting lowerings ordered by ``cost(spec, on_card)``, bottoming out at
+the always-supporting plain torch reference lowerings
+(:data:`REFERENCE_LOWERINGS`, cost :data:`REFERENCE_COST`: finite so they
+sit at the chain's end, huge so auto never picks them outright). An
+explicit ``strategy=`` choice is a contract and never degrades: it raises.
+
+On the card the chain is the winner alone: a kernel wrapper given CUDA
+tensors launches its kernel or raises, and no other lowering takes over
+its work there. A failure that raises at the call (a kernel build error, a
+launch refused by the wrapper's own checks, a geometry check,
+``torch.cuda.OutOfMemoryError``) propagates with a note naming the spec and
+the lowering, and the registry records nothing. An asynchronous device
+fault (an illegal address, a trap in a kernel) surfaces at a later
+synchronisation, far from the call that caused it, and leaves the context
+unusable, so it ends the run in any case. The opt-in numerics guard
+(``REPRO_NUMERICS_GUARD``) reads each output back, so it synchronises; the
+port runs eagerly, so it checks every guarded call, and on the card a
+non-finite output raises :class:`~repro_torch.core.health.NumericsError`.
 """
 from __future__ import annotations
 
@@ -18,7 +40,9 @@ import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.core import health
 from repro_torch.core.dtypes import dtype_name, torch_dtype
 from repro_torch.core.epilogue import EpilogueSpec, as_epilogue_spec
 from repro_torch.core.tile_format import TileFormat
@@ -30,8 +54,18 @@ WEIGHT_KINDS = ("raw", "packed")
 ACCUMS = ("native", "f32")
 
 # Cost of the comparison lowerings (the paper's slower strategies): runnable
-# when named, never the auto pick.
+# when named, never the auto pick, never in a fallback chain.
 COMPARISON_COST = float("inf")
+
+# Cost of the always-supporting reference lowerings: finite (they join the
+# fallback chain, unlike the comparison lowerings) but far above every real
+# contender, so auto dispatch never picks them while a kernel or library
+# lowering supports the spec.
+REFERENCE_COST = 1e9
+
+# kind -> name of the always-supporting reference lowering, the bottom of
+# every fallback chain (filled by repro_torch.core.strategy).
+REFERENCE_LOWERINGS: Dict[str, str] = {}
 
 
 def weight_kind(w) -> str:
@@ -238,3 +272,107 @@ def dispatch(spec: ContractionSpec, *, strategy: Optional[str] = None,
         raise ValueError(f"no registered lowering supports {spec.describe()}")
     return min(cands, key=lambda lw: (lw.cost(spec, on_card), lw.name))
 
+
+
+# Exceptions that are control flow, not a lowering's failure: the guarded
+# runner lets them through. Non-reentrant activation checkpointing stops a
+# recomputation once it has every saved tensor back by raising this one from
+# inside whatever runs at that moment, a contraction included.
+_CONTROL_FLOW = tuple(
+    t for t in (getattr(torch.utils.checkpoint, "_StopRecomputationError",
+                        None),) if t is not None)
+
+
+def fallback_chain(spec: ContractionSpec, chosen: Lowering, *,
+                   on_card: bool = False) -> Tuple[Lowering, ...]:
+    """The guarded-dispatch degradation order for ``spec``: ``chosen`` (the
+    dispatch winner) first, then every other supporting lowering by
+    ``(cost(spec, on_card), name)`` with the comparison lowerings left out,
+    then the kind's reference lowering last. On the card the chain is
+    ``chosen`` alone (see the module docstring)."""
+    if on_card:
+        return (chosen,)
+    _ensure_registered()
+    ref_name = REFERENCE_LOWERINGS.get(spec.kind)
+    others = sorted(
+        (lw for lw in lowerings_for(spec)
+         if lw.name not in (chosen.name, ref_name)
+         and lw.cost(spec, on_card) < COMPARISON_COST),
+        key=lambda lw: (lw.cost(spec, on_card), lw.name))
+    tail = (LOWERINGS[ref_name],) \
+        if ref_name is not None and ref_name != chosen.name else ()
+    return (chosen, *others) + tail
+
+
+def run_guarded(spec: ContractionSpec, chosen: Lowering,
+                run_one: Callable[[Lowering], torch.Tensor], *,
+                on_card: bool = False,
+                usable: Optional[Callable[[Lowering], bool]] = None
+                ) -> torch.Tensor:
+    """``run_one(chosen)``, degraded down ``fallback_chain(spec, chosen,
+    on_card=on_card)`` (env / auto dispatch) when it fails.
+
+    A failing lowering is classified (``health.classify_failure``), the
+    degradation recorded in the health registry, and the next entry tried;
+    with the numerics guard armed, a NaN / Inf output degrades the same way.
+    The chain is built only after a failure, keeping the lowerings that
+    ``usable`` accepts (those with a backward, for a call that needs a
+    gradient). The last entry is never degraded past: its failure
+    propagates, so a genuine contract violation still surfaces. On the card
+    that entry is the winner: its failure propagates with a note naming the
+    spec, and a non-finite output under the guard raises
+    :class:`~repro_torch.core.health.NumericsError`."""
+    chain, i, low = None, 0, chosen
+    while True:
+        failure = None
+        try:
+            out = run_one(low)
+        except _CONTROL_FLOW:
+            raise
+        except Exception as exc:  # noqa: BLE001 — classify, then degrade
+            failure = exc
+        if failure is None and not (health.numerics_guard_enabled()
+                                    and health.has_nonfinite(out)):
+            return out
+        if chain is None:
+            chain = fallback_chain(spec, chosen, on_card=on_card)
+            if usable is not None:
+                chain = tuple(lw for lw in chain if usable(lw))
+        if i == len(chain) - 1:
+            where = (f"{spec.describe()}: lowering {low.name!r} failed on the "
+                     f"card, where no other lowering takes over")
+            if failure is not None:
+                if on_card:
+                    failure.add_note(where)
+                raise failure
+            if on_card:
+                raise health.NumericsError(
+                    f"{where}: non-finite values in its output "
+                    f"({health.ENV_NUMERICS_GUARD})")
+            return out
+        if failure is None:
+            cause, detail = "numerics", "non-finite values in output"
+        else:
+            cause = health.classify_failure(failure)
+            detail = f"{type(failure).__name__}: {failure}"
+        health.record_degradation(spec.describe(), low.name, cause,
+                                  chain[i + 1].name, detail=detail)
+        i += 1
+        low = chain[i]
+
+
+def check_explicit_numerics(spec: ContractionSpec, low: Lowering,
+                            out) -> None:
+    """The explicit side of the numerics guard: an explicit choice never
+    degrades, so under the guard a non-finite output raises."""
+    if health.numerics_guard_enabled() and health.has_nonfinite(out):
+        raise health.NumericsError(
+            f"non-finite values in output of explicit lowering {low.name!r} "
+            f"for {spec.describe()} ({health.ENV_NUMERICS_GUARD})")
+
+
+def dispatch_table(specs, *, on_card: bool = False) -> Dict[str, str]:
+    """``{spec.describe(): dispatch(spec).name}``: the golden-test and
+    serving-report view of the dispatch surface."""
+    return {spec.describe(): dispatch(spec, on_card=on_card).name
+            for spec in specs}

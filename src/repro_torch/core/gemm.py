@@ -12,6 +12,12 @@ is ``torch_matmul``. The grouped ones are ``grouped_packed_weight`` (a
 :class:`GroupedPackedWeight`, K2 / K3) and, for raw [E, K, N] stacks,
 ``grouped_einsum``, ``grouped_packed`` and ``grouped_packed_ragged``.
 Whether the call targets the card is read from the activation's device.
+
+Env and auto dispatch are guarded (``contraction.run_guarded``): on the CPU
+a failing lowering is classified and recorded in ``core.health``'s
+registry, and the call degrades down the fallback chain to the plain torch
+reference lowering; on the card the winner's failure raises. An explicit
+``strategy=`` never degrades: its failures raise.
 """
 from __future__ import annotations
 
@@ -54,12 +60,18 @@ def fold_grouped(x: torch.Tensor, counts: Optional[torch.Tensor] = None):
 
 
 def _check_gemm_extras(spec, c, alpha, beta) -> None:
-    # The c/alpha/beta form is dense-only: the grouped lowerings have no
-    # accumulate-into-C path, so reject rather than compute alpha=1, beta=0.
-    if spec.kind == "grouped" and (c is not None or alpha != 1.0
-                                   or beta != 0.0):
+    # The c/alpha/beta form is dense-only and raw-weight-only: the grouped
+    # lowerings have no accumulate-into-C path, and the packed-weight one
+    # takes the linear layer's epilogue only. Checked before the fallback
+    # chain, which would otherwise degrade past the refusal.
+    if c is None and alpha == 1.0 and beta == 0.0:
+        return
+    if spec.kind == "grouped":
         raise ValueError("c/alpha/beta are dense-only GEMM operands; got "
                          f"them with {spec.describe()}")
+    if spec.weight == "packed":
+        raise ValueError("the packed_weight lowering takes epilogue(a @ W + "
+                         "bias) only (no c/alpha/beta)")
 
 
 def _check_operands(spec, w, w2, bias, counts) -> None:
@@ -87,32 +99,50 @@ def contract(spec: ContractionSpec, a: torch.Tensor, w, *, w2=None,
     ``counts`` [*lead, E] for a ragged spec and ``w2`` the gate-mul
     partner; folding lowerings see the expert-major form
     (:func:`fold_grouped`). The auto pick targets the card when ``a`` lies
-    on it. A call that needs a gradient runs a kernel lowering through
-    ``core.autograd.KernelContraction`` (dense, raw weight) or raises (a
-    packed or grouped kernel lowering); the plain torch lowerings
+    on it.
+
+    Env / auto dispatch is guarded (``contraction.run_guarded``): on the
+    CPU a failing lowering is recorded in the health registry and the call
+    degrades down its fallback chain, on the card the winner's failure
+    raises; an explicit ``strategy=`` raises, and under the numerics guard
+    a non-finite output of it raises too. A call that needs a gradient runs
+    each kernel lowering it tries through
+    ``core.autograd.KernelContraction`` (dense, raw weight); a packed or
+    grouped kernel pick raises before the chain, and the chain skips
+    lowerings that carry no gradient. The plain torch lowerings
     differentiate as they are."""
     _check_operands(spec, w, w2, bias, counts)
     _check_gemm_extras(spec, c, alpha, beta)
-    low = dispatch(spec, strategy=strategy, on_card=a.is_cuda)
+    on_card = a.is_cuda
+    low = dispatch(spec, strategy=strategy, on_card=on_card)
     grad = _autograd.needs_grad(a, w, w2, c, bias)
     if grad:
         _autograd.check_differentiable(spec, low)
-    if spec.kind == "dense":
-        lead = a.shape[:-1]
-        if c is not None:
-            c = c.reshape(-1, c.shape[-1])
-        a2 = a.reshape(-1, a.shape[-1])
-        if grad and _autograd.wraps(spec, low):
-            out = _autograd.KernelContraction.apply(
-                a2, w, bias, c, low, spec, alpha, beta, plan, strategy)
-        else:
-            out = low.run(spec, a2, w, bias=bias, c=c, alpha=alpha,
-                          beta=beta, plan=plan)
-        return out.reshape(*lead, out.shape[-1])
-    if not low.folds:
-        return low.run(spec, a, w, w2=w2, bias=bias, counts=counts)
-    x3, fc, restore = fold_grouped(a, counts)
-    return restore(low.run(spec, x3, w, w2=w2, bias=bias, counts=fc))
+
+    def run_one(lw):
+        # Folding is per lowering (``folds`` differs down a chain), so the
+        # whole body is the guarded runner's unit of retry.
+        if spec.kind == "dense":
+            a2 = a.reshape(-1, a.shape[-1])
+            c2 = None if c is None else c.reshape(-1, c.shape[-1])
+            if grad and _autograd.wraps(spec, lw):
+                out = _autograd.KernelContraction.apply(
+                    a2, w, bias, c2, lw, spec, alpha, beta, plan, strategy)
+            else:
+                out = lw.run(spec, a2, w, bias=bias, c=c2, alpha=alpha,
+                             beta=beta, plan=plan)
+            return out.reshape(*a.shape[:-1], out.shape[-1])
+        if not lw.folds:
+            return lw.run(spec, a, w, w2=w2, bias=bias, counts=counts)
+        x3, fc, restore = fold_grouped(a, counts)
+        return restore(lw.run(spec, x3, w, w2=w2, bias=bias, counts=fc))
+
+    if strategy is not None and strategy != "auto":
+        out = run_one(low)
+        ctr.check_explicit_numerics(spec, low, out)
+        return out
+    usable = (lambda lw: _autograd.differentiable(spec, lw)) if grad else None
+    return ctr.run_guarded(spec, low, run_one, on_card=on_card, usable=usable)
 
 
 def matmul(a: torch.Tensor, b, c: Optional[torch.Tensor] = None, *,

@@ -4,10 +4,11 @@ registries (``HEALTH`` for dispatch, ``SERVE`` for requests).
 
 ``HEALTH`` holds one row per ``(spec, lowering)``: how often it failed, the
 classified cause, the fallback that took over, and the last failure's
-detail string. ``Engine.health_report()`` reads it. The port has no guarded
-dispatch yet (the JAX package's ``run_guarded`` / ``fallback_chain``), so
-nothing degrades a lowering and the report stays empty apart from what the
-serving stack records itself (the scheduler's typed ``kv_leak``).
+detail string. ``Engine.health_report()`` reads it. The guarded runner
+(``repro_torch.core.contraction.run_guarded``) writes a row each time an
+env / auto contraction on the CPU degrades down its fallback chain (on the
+card the chain is the winner alone, whose failure raises); the serving
+stack records its own typed rows (the scheduler's ``kv_leak``).
 
 Failure classes (:data:`FAILURE_CLASSES`):
 

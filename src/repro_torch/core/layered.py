@@ -16,6 +16,13 @@ epilogue, behind the per-tile dequant when the weight is quantized.
 ``quantize="int8"`` stores int8 tiles + per-tile f32 scales, ``"int4"``
 nibble-packed tiles; a ``":col"`` suffix selects one scale per column of
 tiles, applied once at store.
+
+The lowering bodies hold the reference's fault sites: ``kernel_compile``
+before the kernel, ``scale_grid`` on the scale grid it reads, ``kernel_run``
+after it. ``GroupedPackedWeight.matmul`` / ``silu_gate`` run their chosen
+lowering through the guarded runner (``contraction.run_guarded``), after
+their contract checks, so a fallback chain never swallows a contract
+violation.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from repro_torch.kernels.gemm_grouped import (gemm_grouped_packed,
                                               gemm_grouped_packed_ragged)
 from repro_torch.kernels.gemm_packed import gemm_packed_fused_a
 from repro_torch.kernels.pack import pack_b, pack_b_grouped
+from repro_torch.testing import faults
 
 
 def _parse_quantize(quantize: Optional[str]):
@@ -121,11 +129,15 @@ class PackedWeight(_PackedCommon):
         """The ``packed_weight`` lowering body: the fused-A kernel (its
         plain torch version for CPU tensors)."""
         self._check_k(a.shape[1])
-        return gemm_packed_fused_a(
+        faults.maybe_fail("kernel_compile")
+        out = gemm_packed_fused_a(
             a, self.packed, self.n, bm=self._clamp_bm(a.shape[0]),
-            layout_b=self.plan.layout_b, b_scales=self.scales, bias=bias,
+            layout_b=self.plan.layout_b,
+            b_scales=faults.corrupt("scale_grid", self.scales), bias=bias,
             epilogue=epilogue, b_format=self.fmt,
             out_dtype=out_dtype or a.dtype)
+        faults.maybe_fail("kernel_run")
+        return out
 
 
 @dataclasses.dataclass
@@ -194,8 +206,11 @@ class GroupedPackedWeight(_PackedCommon):
                              f"[E, S]={tuple(a.shape[:2])}")
 
     def _kernel_kw(self, b2, out_dtype, a) -> dict:
+        """The grouped kernels' keywords; the gate's scale grid passes the
+        ``scale_grid`` site (the partner's does not, as in the reference)."""
         return dict(b2_packed=None if b2 is None else b2.packed,
-                    layout_b=self.plan.layout_b, b_scales=self.scales,
+                    layout_b=self.plan.layout_b,
+                    b_scales=faults.corrupt("scale_grid", self.scales),
                     b2_scales=None if b2 is None else b2.scales,
                     b_format=self.fmt, out_dtype=out_dtype or a.dtype)
 
@@ -206,9 +221,12 @@ class GroupedPackedWeight(_PackedCommon):
         if (epilogue == "silu_gate") != (b2 is not None):
             raise ValueError("epilogue='silu_gate' requires the partner "
                              "stack (use silu_gate(), not matmul())")
-        return gemm_grouped_packed_ragged(
+        faults.maybe_fail("kernel_compile")
+        out = gemm_grouped_packed_ragged(
             a, self.packed, self.n, counts, bm=self._clamp_bm(a.shape[2]),
             bias=bias, epilogue=epilogue, **self._kernel_kw(b2, out_dtype, a))
+        faults.maybe_fail("kernel_run")
+        return out
 
     def _spec(self, a3, *, epilogue, bias, counts, out_dtype):
         return ContractionSpec.grouped(
@@ -233,7 +251,8 @@ class GroupedPackedWeight(_PackedCommon):
         a3 = a.reshape(self.e, -1, self.k)
         spec = self._spec(a3, epilogue=epi, bias=bias,
                           counts=counts is not None, out_dtype=out_dtype)
-        out = ctr.dispatch(spec).run(spec, a3, self, bias=bias, counts=counts)
+        out = self._guarded(spec, a3, lambda lw: lw.run(
+            spec, a3, self, bias=bias, counts=counts))
         return out.reshape(*a.shape[:-1], self.n)
 
     def silu_gate(self, up: "GroupedPackedWeight", a: torch.Tensor, *,
@@ -250,21 +269,36 @@ class GroupedPackedWeight(_PackedCommon):
         spec = self._spec(a3, epilogue=as_epilogue_spec("silu_gate"),
                           bias=None, counts=counts is not None,
                           out_dtype=out_dtype)
-        out = ctr.dispatch(spec).run(spec, a3, self, w2=up, counts=counts)
+        out = self._guarded(spec, a3, lambda lw: lw.run(
+            spec, a3, self, w2=up, counts=counts))
         return out.reshape(*a.shape[:-1], self.n)
+
+    @staticmethod
+    def _guarded(spec, a3, run_one) -> torch.Tensor:
+        """The dispatched lowering, guarded for the device ``a3`` lies on
+        (degraded down its fallback chain on the CPU)."""
+        on_card = a3.is_cuda
+        return ctr.run_guarded(spec, ctr.dispatch(spec, on_card=on_card),
+                               run_one, on_card=on_card)
 
     def _matmul_impl(self, a, *, bias, epilogue: str,
                      out_dtype) -> torch.Tensor:
         """Count-free body: every row of a [E, M, K] is live."""
-        return gemm_grouped_packed(
+        faults.maybe_fail("kernel_compile")
+        out = gemm_grouped_packed(
             a, self.packed, self.n, bm=self._clamp_bm(a.shape[1]), bias=bias,
             epilogue=epilogue, **self._kernel_kw(None, out_dtype, a))
+        faults.maybe_fail("kernel_run")
+        return out
 
     def _silu_gate_impl(self, up: "GroupedPackedWeight", a, *,
                         out_dtype) -> torch.Tensor:
-        return gemm_grouped_packed(
+        faults.maybe_fail("kernel_compile")
+        out = gemm_grouped_packed(
             a, self.packed, self.n, bm=self._clamp_bm(a.shape[1]),
             epilogue="silu_gate", **self._kernel_kw(up, out_dtype, a))
+        faults.maybe_fail("kernel_run")
+        return out
 
 
 def _run_packed_weight(spec, a, w, *, bias=None, c=None, alpha=1.0, beta=0.0,

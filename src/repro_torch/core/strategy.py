@@ -26,6 +26,12 @@ and the grouped (MoE expert) lowerings of ``out[e] = A[e] @ B[e]`` over raw
                   ``gemm_grouped_packed_ragged`` (K2), skipping the rows at
                   or past the per-segment counts
 
+and the reference lowerings ``torch_ref`` (dense) and ``grouped_torch_ref``
+(grouped), the bottom of every guarded fallback chain: plain torch in f32,
+packed weights unpacked (and dequantized) through the plain inverses of
+``kernels.ref``, supporting every spec of their kind at
+``contraction.REFERENCE_COST``, with no fault site inside.
+
 Each kernel wrapper runs its CUDA kernel on CUDA tensors and its plain torch
 version on CPU tensors, so one table serves both devices (the reference's
 ``backend="pallas"``). On the card, auto dispatch takes the planner's pick
@@ -33,6 +39,11 @@ version on CPU tensors, so one table serves both devices (the reference's
 ``choose_grouped_strategy`` for stacks); on the CPU ``torch_matmul`` and
 ``grouped_einsum``, as the reference takes ``xla`` and ``grouped_einsum``
 off the TPU. Every strategy here registers with the one dispatch point.
+
+The fault sites of the reference (``repro_torch.testing.faults``) sit where
+its lowerings have them: ``kernel_compile`` before and ``kernel_run`` after
+each registered lowering's body, ``pack`` and ``scale_grid`` where a
+per-call strategy packs B.
 """
 from __future__ import annotations
 
@@ -55,8 +66,10 @@ from repro_torch.kernels.gemm_grouped import (gemm_grouped_packed,
 from repro_torch.kernels.gemm_packed import gemm_packed, gemm_packed_fused_a
 from repro_torch.kernels.gemm_tiled import gemm_tiled
 from repro_torch.kernels.gemm_vsx_like import matmul_vsx_like
+from repro_torch.kernels import ref
 from repro_torch.kernels.pack import pack_a, pack_b, pack_b_grouped
 from repro_torch.kernels.ref import grouped_ragged_ref, ragged_row_mask
+from repro_torch.testing import faults
 
 STRATEGIES = ("naive", "pluto", "intrinsic", "tiling", "tiling_packing",
               "tiling_packing_fused", "vsx", "torch_matmul")
@@ -167,9 +180,11 @@ def _pack_b_plan(plan: GemmPlan, b):
     """B [K, N] (or a stack [E, K, N]) packed per the plan's format:
     ``(format, packed, scales-or-None)``; a quantized plan quantizes here,
     per call."""
+    faults.maybe_fail("pack")
     fmt = _plan_pack_format(plan, b)
     packer = pack_b if b.dim() == 2 else pack_b_grouped
-    return (fmt,) + normalize_packed(packer(b, fmt), fmt)
+    packed, scales = normalize_packed(packer(b, fmt), fmt)
+    return fmt, packed, faults.corrupt("scale_grid", scales)
 
 
 def _tiling_packing_fused(a, b, c, alpha, beta, plan, out_dtype, *,
@@ -337,9 +352,12 @@ def _dense_cost(name: str):
 def _dense_run(name: str):
     def _run(spec, a, w, *, bias=None, c=None, alpha=1.0, beta=0.0,
              plan=None):
-        return run(name, a, w, c, alpha=alpha, beta=beta, plan=plan,
-                   out_dtype=spec.resolved_out_dtype(a, c), bias=bias,
-                   epilogue=spec.epilogue.kernel_name)
+        faults.maybe_fail("kernel_compile")
+        out = run(name, a, w, c, alpha=alpha, beta=beta, plan=plan,
+                  out_dtype=spec.resolved_out_dtype(a, c), bias=bias,
+                  epilogue=spec.epilogue.kernel_name)
+        faults.maybe_fail("kernel_run")
+        return out
     return _run
 
 
@@ -349,16 +367,21 @@ def _torch_matmul_facade_run(spec, a, w, *, bias=None, c=None, alpha=1.0,
     contracts and applies the epilogue in f32 (the matmul contract);
     ``"native"`` keeps the product in the input dtype and applies the
     epilogue in the output dtype, with no c/alpha/beta."""
+    faults.maybe_fail("kernel_compile")
     out_dtype = spec.resolved_out_dtype(a, c)
     epi = spec.epilogue.with_bias(bias is not None)
     if spec.accum == "f32":
         acc = torch.matmul(a.to(torch.float32), w.to(torch.float32))
-        return _epilogue(acc, c, alpha, beta, out_dtype, bias, epi)
-    if c is not None or alpha != 1.0 or beta != 0.0:
-        raise ValueError("c/alpha/beta need accum='f32' (matmul semantics)")
-    dt = torch.promote_types(a.dtype, w.dtype)
-    acc = torch.matmul(a.to(dt), w.to(dt))
-    return epi.apply(acc.to(out_dtype), bias=bias)
+        out = _epilogue(acc, c, alpha, beta, out_dtype, bias, epi)
+    else:
+        if c is not None or alpha != 1.0 or beta != 0.0:
+            raise ValueError("c/alpha/beta need accum='f32' (matmul "
+                             "semantics)")
+        dt = torch.promote_types(a.dtype, w.dtype)
+        acc = torch.matmul(a.to(dt), w.to(dt))
+        out = epi.apply(acc.to(out_dtype), bias=bias)
+    faults.maybe_fail("kernel_run")
+    return out
 
 
 @functools.lru_cache(maxsize=4096)
@@ -380,21 +403,80 @@ def _grouped_einsum_run(spec, a, w, *, w2=None, bias=None, counts=None):
     """Raw expert stacks on UNFOLDED operands (a [*lead, E, M, K], counts
     [*lead, E]): one batched einsum per stream in the activation dtype, the
     epilogue chain, and the ragged contract as an output mask."""
+    faults.maybe_fail("kernel_compile")
     acc = torch.einsum("...emk,ekn->...emn", a, w)
     acc2 = (torch.einsum("...emk,ekn->...emn", a, w2)
             if w2 is not None else None)
     epi = spec.epilogue.with_bias(bias is not None)
     out = epi.apply(acc, bias=None if bias is None else bias[:, None, :],
                     gate=acc2).to(spec.resolved_out_dtype(a))
-    return mask_ragged_rows(out, counts) if counts is not None else out
+    out = mask_ragged_rows(out, counts) if counts is not None else out
+    faults.maybe_fail("kernel_run")
+    return out
 
 
 def _grouped_kernel_run(name: str):
     def _run(spec, a, w, *, w2=None, bias=None, counts=None):
-        return run_grouped(name, a, w, b2=w2, counts=counts, bias=bias,
-                           epilogue=spec.epilogue.kernel_name,
-                           out_dtype=spec.resolved_out_dtype(a))
+        faults.maybe_fail("kernel_compile")
+        out = run_grouped(name, a, w, b2=w2, counts=counts, bias=bias,
+                          epilogue=spec.epilogue.kernel_name,
+                          out_dtype=spec.resolved_out_dtype(a))
+        faults.maybe_fail("kernel_run")
+        return out
     return _run
+
+
+# ---------------------------------------------------------------------------
+# Reference lowerings: the bottom of every guarded fallback chain
+# ---------------------------------------------------------------------------
+
+def _natural_weight(w) -> torch.Tensor:
+    """A weight in its natural [K, N] (or [E, K, N]) form: a packed one
+    unpacked, and dequantized where quantized, by the plain inverses."""
+    if not ctr.is_packed(w):
+        return w
+    if w.packed.dim() == 5:
+        return ref.unpack_b_grouped_ref(w.packed, w.k, w.n, w.plan.layout_b,
+                                        scales=w.scales, fmt=w.fmt)
+    return ref.unpack_b_dequant_ref(w.packed, w.scales, w.k, w.n,
+                                    w.plan.layout_b, fmt=w.fmt)
+
+
+def _dense_ref_run(spec, a, w, *, bias=None, c=None, alpha=1.0, beta=0.0,
+                   plan=None):
+    """The dense reference: one f32 ``torch.matmul`` on the natural weight,
+    then the epilogue. It accumulates in f32 whatever ``spec.accum`` says
+    (a degraded contraction trades the native accumulation for completing
+    at all)."""
+    acc = torch.matmul(a.to(torch.float32),
+                       _natural_weight(w).to(torch.float32))
+    return _epilogue(acc, c, alpha, beta, spec.resolved_out_dtype(a, c),
+                     bias, spec.epilogue.kernel_name)
+
+
+def _grouped_ref_run(spec, a, w, *, w2=None, bias=None, counts=None):
+    """The grouped reference on folded operands (a [E, M, K], counts
+    [E, S]): a batched f32 einsum on the natural stacks, the ragged
+    contract through the masked plain oracle."""
+    if spec.epilogue.gate_mul and w2 is None:
+        raise ValueError("epilogue='silu_gate' requires the partner stack")
+    b = _natural_weight(w)
+    b2 = None if w2 is None else _natural_weight(w2)
+    e, m, k = a.shape
+    out_dtype = spec.resolved_out_dtype(a)
+    epi = spec.epilogue.kernel_name
+    if counts is not None:
+        s = counts.shape[1]
+        act = (None if epi in ("none", "silu_gate")
+               else KERNEL_EPILOGUES[epi])
+        return grouped_ragged_ref(
+            a.reshape(e, s, m // s, k), b, counts, b2=b2, bias=bias,
+            epilogue_fn=act, out_dtype=out_dtype).reshape(e, m, -1)
+    a32 = a.to(torch.float32)
+    acc = torch.einsum("emk,ekn->emn", a32, b.to(torch.float32))
+    acc2 = (torch.einsum("emk,ekn->emn", a32, b2.to(torch.float32))
+            if b2 is not None else None)
+    return grouped_epilogue(acc, acc2, bias, epi, out_dtype)
 
 
 for _name in STRATEGIES:
@@ -423,3 +505,16 @@ ctr.register_lowering(
     supports=lambda spec: spec.weight == "raw" and spec.counts,
     cost=_grouped_cost("grouped_packed_ragged"),
     run=_grouped_kernel_run("grouped_packed_ragged"))
+
+# The reference lowerings support everything of their kind at a huge but
+# finite cost: never the auto pick while a real lowering supports the spec,
+# always the last entry of a fallback chain.
+ctr.register_lowering("torch_ref", "dense", supports=lambda spec: True,
+                      cost=lambda spec, on_card: ctr.REFERENCE_COST,
+                      run=_dense_ref_run)
+ctr.register_lowering("grouped_torch_ref", "grouped",
+                      supports=lambda spec: True,
+                      cost=lambda spec, on_card: ctr.REFERENCE_COST,
+                      run=_grouped_ref_run)
+ctr.REFERENCE_LOWERINGS.update({"dense": "torch_ref",
+                                "grouped": "grouped_torch_ref"})

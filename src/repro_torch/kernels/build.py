@@ -27,6 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
+class BuildError(RuntimeError):
+    """A kernel that cannot be built here. It declares the ``compile``
+    failure class, so a guarded contraction records a failed build as the
+    reference records a failed kernel compilation, by its class and not by
+    its message."""
+
+    failure_class = "compile"
+
+
 def sources() -> Dict[str, Path]:
     """Kernel name -> its ``.cu`` source."""
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
@@ -36,8 +45,8 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
+    raise BuildError("nvcc not found: the CUDA kernels build only on a "
+                     "machine with the CUDA toolkit")
 
 
 def nvcc_command(src: Path, out: Path) -> list:
@@ -82,7 +91,7 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
             failed.append(f"{name} (nvcc exit {rc}; see {out.with_suffix('.log')}):\n"
                           + out.with_suffix(".log").read_text()[-4000:])
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise BuildError("kernel build failed: " + "\n".join(failed))
     return {name: library_path(name) for name in names}
 
 

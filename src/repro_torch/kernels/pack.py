@@ -17,7 +17,9 @@ any strides) for what TMA cannot read (:func:`pack_plan`). The
 ``.variants`` of each wrapper count its launches by body.
 
 A wrapper takes the plain version only for tensors on the CPU. For a CUDA
-tensor it launches the kernel or raises: there is no fallback.
+tensor it launches the kernel or raises: there is no fallback. Each packer
+opens with the ``pack`` fault site (``repro_torch.testing.faults``), as the
+reference's do, so that a guarded contraction can degrade past it.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.core.tile_format import (TileFormat, as_tile_format, cdiv,
                                           quantize_tiles)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import pack_a_ref, pack_b_grouped_ref, pack_b_ref
+from repro_torch.testing import faults
 
 pack_a_plain = pack_a_ref
 pack_b_plain = pack_b_ref
@@ -263,6 +266,7 @@ def pack_a(a: torch.Tensor, bm: int, bk: int,
            layout: str = "row") -> torch.Tensor:
     """A[M, K] -> [Mb, Kb, bm, bk] ("row") or [Mb, Kb, bk, bm] ("col"), tiles
     in row-of-tiles order, zero-filled past M and K."""
+    faults.maybe_fail("pack")
     if layout not in ("row", "col"):
         raise ValueError(f"bad layout {layout!r}")
     if not _device_check(a, "pack_a"):
@@ -276,6 +280,7 @@ def pack_b(b: torch.Tensor, bk, bn: Optional[int] = None,
     """B[K, N] -> [Nb, Kb, bk, bn] ("row") or [Nb, Kb, bn, bk] ("col"), tiles
     in column-of-tiles order, zero-filled past K and N. ``bk`` may be a
     :class:`TileFormat`; a quantized format returns ``(packed, scales)``."""
+    faults.maybe_fail("pack")
     fmt = as_tile_format(bk, bn, layout=layout, dtype=b.dtype)
     if b.dim() != 2:
         raise ValueError(f"pack_b takes B [K, N]; got {tuple(b.shape)}")
@@ -291,6 +296,7 @@ def pack_b_grouped(b: torch.Tensor, bk, bn: Optional[int] = None,
     ("col"), every expert packed as :func:`pack_b` packs a matrix, in one
     launch. A quantized format returns ``(packed, scales)`` with per-expert
     grids [E, Nb, Kb] (or [E, Nb])."""
+    faults.maybe_fail("pack")
     fmt = as_tile_format(bk, bn, layout=layout, dtype=b.dtype)
     if b.dim() != 3:
         raise ValueError(f"pack_b_grouped takes B [E, K, N]; got "

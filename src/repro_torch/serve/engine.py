@@ -157,9 +157,14 @@ class Engine:
 
     def health_report(self) -> Dict[str, dict]:
         """The dispatch-health registry's degradation report: an empty dict
-        is healthy. Each entry records a ``(spec, lowering)``'s failure
+        is healthy. Each entry records a ``(spec, lowering)`` that failed
+        under guarded dispatch (``contraction.run_guarded``): its failure
         count, classified cause, the fallback that took over and the last
-        failure's detail. The registry is process-global
+        failure's detail. The port runs eagerly, so every contraction of
+        every step is guarded, not only the first trace of a program as in
+        the reference's jit'd engine. On the card a failing contraction
+        raises instead (no other lowering takes over there), so nothing
+        of dispatch is recorded. The registry is process-global
         (``repro_torch.core.health.HEALTH``): engines sharing a process
         share the report."""
         return health.health_report()

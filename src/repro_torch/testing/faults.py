@@ -1,4 +1,5 @@
-"""Deterministic fault injection for the port's serving stack.
+"""Deterministic fault injection for the port's guarded contraction stack,
+its serving stack and its checkpoints.
 
 Production code is instrumented with *named sites* — cheap probes that do
 nothing until the ``REPRO_FAULT`` environment variable arms exactly one of
