@@ -104,7 +104,15 @@ Phases (any failure exits non-zero and prints no result line):
      tc_stream for the prefill's LM head and at decode, nothing else; the
      load's K5 packs: 112 tma_copy, the LM head tma_stage). The
      first prefill's logits are compared with the same weights run through
-     the plain versions on the card.
+     the plain versions on the card. The decode step is a captured CUDA
+     graph (``repro_torch.serve.graphs``): the counted call's first step
+     warms it up and captures it, every later step replays it, and the
+     replays' launches (credited by the graph) are counted as eager ones.
+     Then generate through the graph and eagerly (``Engine._graphed =
+     False``): greedy tokens bitwise equal and launches by body equal, else
+     the run fails; each timed end to end (decode ms/step) and alone (an
+     eager decode forward, a graph replay), with its device-busy share by
+     torch.profiler (over eager steps, over replays) and the capture's ms.
   2b. Serve the same olmo-1b (phase 2's bf16 weights, packed again at
      load) through the serving stack: ``ContinuousScheduler`` (max_live 8,
      block_size 16, max_len 256, bf16 cache) over its paged KV pool, on 24
@@ -121,7 +129,11 @@ Phases (any failure exits non-zero and prints no result line):
      batch-1 decode (reported only), the step, gather and scatter timed,
      the device-busy share by torch.profiler; and the first 8 requests
      through the scheduler and through the batch-1 ``StreamFrontend``
-     (tokens/s of each).
+     (tokens/s of each). The batched step is the scheduler's captured graph
+     (gather and decode; the scatter outside): each of (i)-(iv) runs
+     through it and eagerly, with the same tokens, statistics, lifecycle
+     events and launches by body, else the run fails; the step at 8 rows
+     is bitwise the eager step's and timed both ways.
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
      8 KV heads x 128, d_ff 16384, 8 experts top-2, vocab 32768) with its
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
@@ -129,7 +141,8 @@ Phases (any failure exits non-zero and prints no result line):
      same way: prefill logits against the plain versions, expert choices
      compared, K1's launches by body as for olmo-1b, K2's on wgmma at
      prefill and tc_stream at decode, nothing else; the load's K5 packs
-     on tma_copy, but the LM head's (table.t()) on tma_stage.
+     on tma_copy, but the LM head's (table.t()) on tma_stage. The decode
+     graph against the eager loop as in phase 2 (likewise in 3b, 3c, 5).
   3b. Serve olmo-1b with phase 2's weights quantized at load, as int8
      (tile scales) and as int4 (col scales), through
      ``ServeConfig(pack_weights=True, quantize=...)``: every K1 launch on
@@ -191,9 +204,13 @@ Phases (any failure exits non-zero and prints no result line):
      llama4's K2 at its C 16 / 8 against the plain versions on the body
      each must take, prefill logits within 5e-2 of the plain versions on
      the same weights (llama4 as mixtral: routing pinned, and free), peak
-     memory and the card's line. Then, in a fresh process (late in this
-     one torch.profiler loses its records), each model's prefill ms and
-     decode ms/step (CUDA events) and its device busy time (torch.profiler).
+     memory and the card's line, and its decode graph against the eager
+     loop (tokens bitwise, launches by body). Then, in a fresh process
+     (late in this one torch.profiler loses its records), each model's
+     prefill ms and decode ms/step, eager and as a graph replay (CUDA
+     events), and their device busy time (torch.profiler); a family that
+     ``serve.graphs.EAGER_FAMILIES`` names decodes eagerly, printed with
+     its reason.
   8. Train full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16
      compute over f32 masters, remat) through the launcher's entry point,
      ``repro_torch.launch.train.main`` (4 x 512 Markov tokens a step, 6
@@ -230,9 +247,12 @@ Phases (any failure exits non-zero and prints no result line):
      ``packed_weight`` raise ``NumericsError`` naming the spec. What each
      spec ran and raised is printed. (c) ``kernel_run`` armed at its
      first hit during ``Engine.generate`` on full-width olmo-1b, packed,
-     4 x 128 + 8 steps: the call raises naming the spec, nothing is
-     recorded, and the same engine's next call gives the tokens of a
-     call before the fault. (d)
+     4 x 128 + 8 steps: the call raises in the prefill naming the spec,
+     nothing is recorded, and the same engine's next call gives the
+     tokens of a call before the fault; on a fresh engine, armed at the
+     first hit past the prefill's, it raises at the decode graph's
+     warm-up naming the spec, no graph is kept, and the next call
+     captures and gives those tokens. (d)
      ``launch.serve`` on the card with no device flag, full-width
      olmo-1b, 4 requests x 128 + 16 tokens: tokens/s and ms/decode-step
      beside the card's line; then ``launch.train.main`` at the tiny
@@ -2500,16 +2520,37 @@ def k7_square_times(torch, gt) -> list:
 TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA")
 
 
-def dump_sass(path) -> str:
-    """The SASS of a built library. Without cuobjdump the checks cannot be
-    made, and the run fails."""
+# The SASS of each library dumped so far, by path (``dump_all_sass``);
+# emptied once phase 1's SASS checks are done.
+SASS_CACHE = {}
+
+
+def dump_all_sass(paths) -> None:
+    """Dump the SASS of every library of ``paths`` not dumped yet into
+    SASS_CACHE, one cuobjdump process each, all started together: one
+    after another they were most of phase 1 (``tools/smoke_phase_times.py``
+    times it). Without cuobjdump the checks cannot be made, and the run
+    fails."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         raise AssertionError("cuobjdump not found: cannot read the kernels' "
                              "SASS")
-    return subprocess.run([tool, "--dump-sass", str(path)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
+    todo = [str(p) for p in paths if str(p) not in SASS_CACHE]
+
+    def dump(path):
+        return subprocess.run([tool, "--dump-sass", path], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        for path, sass in zip(todo, pool.map(dump, todo)):
+            SASS_CACHE[path] = sass
+
+
+def dump_sass(path) -> str:
+    """The SASS of a built library (``dump_all_sass``)."""
+    dump_all_sass([path])
+    return SASS_CACHE[str(path)]
 
 
 def tensor_core_ops(path) -> tuple:
@@ -3113,7 +3154,7 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     return launches, rows, grows, variants
 
 
-def profile_kernels(torch, fn, reps) -> tuple:
+def profile_kernels(torch, fn, reps, counts=None) -> tuple:
     """torch.profiler (CUPTI) over ``reps`` calls of ``fn(i)``, after one
     unprofiled call: ({kernel name: device us summed over the calls}, the
     kernel records it kept against the launch calls it saw on the host,
@@ -3121,7 +3162,7 @@ def profile_kernels(torch, fn, reps) -> tuple:
     wall ms a call). Only the device's own records count: a host op's
     ``self_device_time_total`` is the time of the kernels it launched,
     which have records of their own (summing both counted an aten op's
-    kernels twice)."""
+    kernels twice). ``counts``, a dict, gets {kernel name: records}."""
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
@@ -3141,6 +3182,8 @@ def profile_kernels(torch, fn, reps) -> tuple:
                 dev[ev.key] = t
                 if not ev.key.startswith(("Memcpy", "Memset")):
                     records += ev.count
+                    if counts is not None:
+                        counts[ev.key] = counts.get(ev.key, 0) + ev.count
             continue
         if "LaunchKernel" in ev.key:
             launched += ev.count
@@ -3148,69 +3191,302 @@ def profile_kernels(torch, fn, reps) -> tuple:
     return dev, kept, wall_ms
 
 
-def serve_timings(torch, engine, prompt, steps, kernel_tags):
-    """Warm Engine.generate calls, the forwards alone, and a profile of the
-    decode forward. ``kernel_tags`` maps a label to a substring of the CUDA
-    kernel names, for their device time per decode step."""
-    # End to end: warm Engine.generate calls on the host clock (each step
-    # samples and copies its tokens to the host). `steps` steps against 1
-    # step gives the decode step; the 1-step call is prefill + sample + one
-    # step.
+# What a replay launched, read from its kernel records. Each kernel of the
+# port's sources is named here by its ``__global__`` function (K1's, K6's
+# and K7's TMA templates also by where A's and B's boxes come from) with
+# the (wrapper, body) pairs whose launches issue it, one record a launch.
+# Pairs of two wrappers that share a kernel (gemm_blocked.cuh's bodies, K2
+# and K3, the three packers) are one class. A split body's reduction is a
+# second kernel of the same launch, not a launch of its own.
+_BLOCKED = ("gemm_packed_fused_a", "gemm_tiled", "gemm_packed")
+_VSX = ("matmul_vsx_like", "matmul_vsx_like_packed")
+_GROUPED = ("gemm_grouped_packed_ragged", "gemm_grouped_packed")
+_PACKS = ("pack_a", "pack_b", "pack_b_grouped")
+KERNEL_CLASSES = {
+    "mma_stream NaturalA PackedB": [("gemm_packed_fused_a", "tc_stream")],
+    "wgmma_packed NaturalA PackedB": [("gemm_packed_fused_a", "wgmma")],
+    "mma_stream NaturalA NaturalB": [("gemm_tiled", "tc_stream")],
+    "wgmma_packed NaturalA NaturalB": [("gemm_tiled", "wgmma")],
+    "mma_stream PackedA PackedB": [("gemm_packed", "tc_stream")],
+    "wgmma_packed PackedA PackedB": [("gemm_packed", "wgmma")],
+    "quant_stream": [("gemm_packed_fused_a", "tc_stream_q")],
+    "quant_wgmma": [("gemm_packed_fused_a", "wgmma_q")],
+    "fused_a_mma": [("gemm_packed_fused_a", "mma_quant")],
+    "fused_a_fma": [("gemm_packed_fused_a", "fma_quant")],
+    "blocked_mma": [(w, "mma_general") for w in _BLOCKED],
+    "fma_tiled": [(w, "fma_tiled") for w in _BLOCKED + _VSX],
+    "fma_stream": [(w, "fma_stream") for w in _BLOCKED + _VSX],
+    "grouped_stream": [(w, "tc_stream") for w in _GROUPED],
+    "grouped_wgmma": [(w, "wgmma") for w in _GROUPED],
+    "grouped_quant_stream": [(w, "tc_stream_q") for w in _GROUPED],
+    "grouped_quant_wgmma": [(w, "wgmma_q") for w in _GROUPED],
+    "grouped_mma": [(w, "mma_sync") for w in _GROUPED],
+    "grouped_fma": [(w, "fma") for w in _GROUPED],
+    "k5_tma_copy": [(w, "tma_copy") for w in _PACKS],
+    "k5_tma_stage": [(w, "tma_stage") for w in _PACKS],
+    "k5_general": [(w, "general") for w in _PACKS],
+    "flash_f32_kernel": [("flash_attention", "f32")],
+    "flash_mma_kernel": [("flash_attention", "mma_general")],
+    "flash_stream_kernel": [("flash_attention", "stream")],
+    "flash_wgmma_kernel": [("flash_attention", "wgmma")],
+}
+SECOND_KERNELS = ("splitk_reduce", "grouped_reduce")
+# Every check of a replay's records (label, replays, records by class).
+REPLAY_CHECKS = []
+
+
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of the port's CUDA sources."""
+    import re
+
+    from repro_torch.kernels import build
+    names = set()
+    for path in build.CSRC.glob("*.cu*"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\([^)]*\)\s*)?(\w+)\s*\(", path.read_text()))
+    return names
+
+
+def kernel_class(name, ours):
+    """The class of a profile's kernel ``name`` (a key of KERNEL_CLASSES, a
+    SECOND_KERNELS name, or the bare name of a port kernel neither lists),
+    or None for a kernel not of the port's sources (``ours``)."""
+    import re
+    s = name.replace("(anonymous namespace)::", "")
+    s = s[len("void "):] if s.startswith("void ") else s
+    base = re.match(r"\w*", s).group(0)
+    if base not in ours:
+        return None
+    if base in ("mma_stream", "wgmma_packed"):
+        return " ".join((base, "NaturalA" if "NaturalA" in s else "PackedA",
+                         "NaturalB" if "NaturalB" in s else "PackedB"))
+    return base
+
+
+def credit_by_class(credit) -> dict:
+    """What a replay launches by KERNEL_CLASSES class, as the graph credits
+    it (``graphs.LaunchCredit``)."""
+    of_pair = {pair: cls for cls, pairs in KERNEL_CLASSES.items()
+               for pair in pairs}
+    out = {}
+    for fn, (_, bodies) in credit.delta.items():
+        for body, n in bodies.items():
+            cls = of_pair.get((fn.__name__, body))
+            if cls is None:
+                raise AssertionError(f"no kernel name known for {fn.__name__}'s "
+                                     f"body {body}")
+            out[cls] = out.get(cls, 0) + n
+    return out
+
+
+def replay_records(counts) -> dict:
+    """The port's kernel records of a profile ({kernel name: records}) by
+    KERNEL_CLASSES class, split reductions left out; a port kernel that no
+    class names counts under its own name (and fails the check)."""
+    ours = port_kernel_names()
+    out = {}
+    for name, n in counts.items():
+        cls = kernel_class(name, ours)
+        if cls is not None and cls not in SECOND_KERNELS:
+            out[cls] = out.get(cls, 0) + n
+    return out
+
+
+# Profiles of one check, at most: a short read is profiled again.
+REPLAY_PROFILES = 3
+
+
+def replay_launch_check(profile, credit, reps, label, counts=None) -> dict:
+    """The launches a graph credits, measured: the port's kernel records
+    of ``reps`` profiled replays (``profile()`` -> {kernel name: records};
+    ``counts``, where given, is the first profile's), by class, must equal
+    ``reps`` times what the graph credits a replay (``credit``), class by
+    class, else the run fails. A kernel launched outside the capture, or a
+    launch no wrapper counted, reads as unequal. torch.profiler can lose a
+    kernel record (PERF.md §7) but never adds one, so a read above the
+    credit in any class fails at once, and a read below it only is
+    profiled again, up to REPLAY_PROFILES profiles: a launch the replays
+    lack reads short in every profile. Every read is kept in
+    REPLAY_CHECKS. Returns the records by class."""
+    want = {cls: n * reps for cls, n in credit_by_class(credit).items()}
+    reads = []
+    while True:
+        got = replay_records(profile() if counts is None else counts)
+        counts = None
+        reads.append(got)
+        over = {c: n for c, n in got.items() if n > want.get(c, 0)}
+        log(f"  {label}: kernel records of {reps} replays by kernel {got}; "
+            f"credited {want}: equal {got == want}"
+            + ("" if got == want or over else
+               f" (a short read, profile {len(reads)} of {REPLAY_PROFILES})"))
+        if got == want or over or len(reads) == REPLAY_PROFILES:
+            break
+    REPLAY_CHECKS.append(dict(label=label, replays=reps, records=got,
+                              equal=got == want, short_reads=reads[:-1]))
+    if got != want:
+        raise AssertionError(f"{label}: the replays' kernel records {reads} "
+                             f"are not the launches the graph credits ({want})")
+    return got
+
+
+def kernel_counts(torch, fn, reps) -> dict:
+    """{kernel name: records} of ``reps`` profiled calls of ``fn(i)``
+    (``profile_kernels``)."""
+    counts = {}
+    profile_kernels(torch, fn, reps, counts)
+    return counts
+
+
+def decode_graph(engine):
+    """The engine's one decode graph (phases 2-5 serve one batch width)."""
+    (step,) = engine._graphs.values()
+    return step
+
+
+def graph_against_eager(torch, counters, engine, batch, steps, label) -> dict:
+    """``Engine.generate`` of ``steps`` greedy steps through the engine's
+    decode graph (captured by an earlier call, so every step replays it)
+    and eagerly (``engine._graphed = False``), the counters at 0 before
+    each: the greedy tokens must be bitwise equal, and the launches by body
+    of the replays equal to the eager steps'. Returns what it found."""
+    import numpy as np
+    runs = {}
+    for mode in ("graph", "eager"):
+        engine._graphed = mode == "graph"
+        try:
+            counters.reset()
+            tokens = engine.generate(batch, max_new_tokens=steps)
+            torch.cuda.synchronize()
+        finally:
+            engine._graphed = True
+        runs[mode] = (tokens, counters.read(), counters.variants())
+    (tok_g, n_g, by_g), (tok_e, n_e, by_e) = runs["graph"], runs["eager"]
+    step = decode_graph(engine)
+    out = dict(tokens_bitwise_equal=bool(np.array_equal(tok_g, tok_e)),
+               launches_equal=n_g == n_e and by_g == by_e,
+               launches={k: v for k, v in n_g.items() if v},
+               replays=step.replays, warmup_ms=step.warmup_ms,
+               capture_ms=step.capture_ms)
+    log(f"  {label}, graph against eager ({steps} steps, each a replay): "
+        f"greedy tokens bitwise equal {out['tokens_bitwise_equal']}; launches "
+        f"by body equal {out['launches_equal']} ({out['launches']}); first "
+        f"step {step.warmup_ms:.1f} ms warm-up + {step.capture_ms:.1f} ms "
+        f"capture; {step.replays} replays so far")
+    if not (out["tokens_bitwise_equal"] and out["launches_equal"]):
+        raise AssertionError(f"{label}: the decode graph differs from the eager "
+                             f"loop: tokens {out['tokens_bitwise_equal']}, "
+                             f"launches graph {by_g} eager {by_e}")
+    return out
+
+
+def serve_timings(torch, engine, prompt, steps, kernel_tags, counters,
+                  label="decode"):
+    """The decode graph against the eager loop (``graph_against_eager``),
+    then each's warm Engine.generate calls, the forwards alone, and a
+    profile of the decode step (eager steps, graph replays), in which the
+    replays' kernel records must be the launches the graph credits
+    (``replay_launch_check``). ``kernel_tags`` maps a label to a substring
+    of the CUDA kernel names, for their device time per decode step. The
+    top-level keys are the graph's (the served path); ``eager`` holds the
+    eager loop's. A busy share is taken against the step alone (CUDA
+    events) and, with its spread over the 3 calls, against the generate
+    step (host clock)."""
     b = prompt.shape[0]
+    check = graph_against_eager(torch, counters, engine, {"tokens": prompt},
+                                steps, "decode")
 
+    # End to end: warm Engine.generate calls on the host clock (each step
+    # copies its tokens to the host; both paths are warm from the check
+    # above). `steps` steps against 1 step gives the decode step; the
+    # 1-step call is prefill + sample + one step.
     def gen_ms(n_new, reps=3):
-        engine.generate({"tokens": prompt}, max_new_tokens=n_new)
-        t0 = time.perf_counter()
+        """Each call's ms (host clock, synchronised)."""
+        out = []
         for _ in range(reps):
+            t0 = time.perf_counter()
             engine.generate({"tokens": prompt}, max_new_tokens=n_new)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-    ms_gen = gen_ms(steps)
-    ms_gen1 = gen_ms(1)
-    ms_step = (ms_gen - ms_gen1) / (steps - 1)
-    log(f"  Engine.generate {b}x{prompt.shape[1]} (warm, mean of 3): {steps} "
-        f"steps {ms_gen:.2f} ms, 1 step {ms_gen1:.2f} ms; decode "
-        f"{ms_step:.3f} ms/step = {b * 1e3 / ms_step:.1f} tokens/s (batch "
-        f"{b}); {b * 1e3 * steps / ms_gen:.1f} tokens/s over the whole call")
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    modes = {}
+    for mode in ("graph", "eager"):
+        engine._graphed = mode == "graph"
+        try:
+            gens, gens1 = gen_ms(steps), gen_ms(1)
+        finally:
+            engine._graphed = True
+        ms_gen, ms_gen1 = sum(gens) / len(gens), sum(gens1) / len(gens1)
+        ms_step = (ms_gen - ms_gen1) / (steps - 1)
+        # The step of each pair of calls: the spread of the estimate.
+        pairs = [(g - g1) / (steps - 1) for g, g1 in zip(gens, gens1)]
+        modes[mode] = dict(generate_ms=ms_gen, generate_1_step_ms=ms_gen1,
+                           decode_ms_per_step=ms_step,
+                           decode_ms_per_step_range=[min(pairs), max(pairs)],
+                           tokens_per_s=b * 1e3 / ms_step)
+        log(f"  Engine.generate {b}x{prompt.shape[1]}, {mode} (warm, mean of "
+            f"3): {steps} steps {ms_gen:.2f} ms, 1 step {ms_gen1:.2f} ms; "
+            f"decode {ms_step:.3f} ms/step (pairs {min(pairs):.3f}-"
+            f"{max(pairs):.3f}) = {b * 1e3 / ms_step:.1f} tokens/s "
+            f"(batch {b}); {b * 1e3 * steps / ms_gen:.1f} tokens/s over the "
+            f"whole call")
 
-    # Model forwards alone (CUDA events): no sampling, no host copy.
+    # Forwards alone (CUDA events): no sampling, no host copy; the eager
+    # step, and a replay of the decode graph (its token copy, position
+    # fill and replay).
     batch = {"tokens": prompt.to(DEVICE)}
     ms_prefill = time_ms(lambda i: engine._prefill(batch), 3)
     _, caches = engine._prefill(batch)
     tok = torch.zeros((b, 1), dtype=torch.long, device=DEVICE)
     pos0 = prompt.shape[1]
+    graph = decode_graph(engine)
+    graph({"caches": caches, "tok": tok, "pos": pos0})
 
     def step(i):
         pos = torch.full((b,), pos0 + i % 64, dtype=torch.long, device=DEVICE)
         engine._decode(caches, tok, pos)
-    ms_decode = time_ms(step, 16)
+
+    def replay(i):
+        graph({"tok": tok, "pos": pos0 + i % 64})
+    fwd_ms = dict(eager=time_ms(step, 16), graph=time_ms(replay, 16))
     log(f"  model forward alone: prefill {b}x{prompt.shape[1]} "
-        f"{ms_prefill:.2f} ms; decode {ms_decode:.3f} ms/step")
+        f"{ms_prefill:.2f} ms; decode eager {fwd_ms['eager']:.3f} ms/step, "
+        f"graph replay {fwd_ms['graph']:.3f} ms/step")
 
     # -- where a decode step's time goes (torch.profiler, CUPTI) ------------
+    # The profiler slows the host (wall below); each busy share is taken
+    # against the unprofiled times measured above.
     steps_p = 4
-    dev, kept, wall_ms = profile_kernels(torch, step, steps_p)
-    per_kernel = {label: sum(t for name, t in dev.items() if tag in name)
-                  / steps_p / 1e3 for label, tag in kernel_tags.items()}
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
-    # The profiler slows the host (wall below); the busy share is taken
-    # against the unprofiled step times measured above.
-    busy_ms = sum(dev.values()) / steps_p / 1e3
-    log(f"  profile {steps_p} decode steps: wall {wall_ms:.3f} ms/step "
-        f"(profiled), device busy {busy_ms:.3f} ms/step = "
-        f"{100 * busy_ms / ms_decode:.1f}% of the unprofiled forward "
-        f"({100 * busy_ms / ms_step:.1f}% of the generate step), "
-        + ", ".join(f"{label} {ms:.3f} ms/step" for label, ms in per_kernel.items())
-        + f", {len(dev)} kernel names, kernel records kept {kept} launches")
-    for name, t in top:
-        log(f"    {t / steps_p / 1e3:8.3f} ms/step  {name[:90]}")
-    return dict(generate_ms=ms_gen, generate_1_step_ms=ms_gen1,
-                decode_ms_per_step=ms_step, tokens_per_s=b * 1e3 / ms_step,
-                model_prefill_ms=ms_prefill, model_decode_ms=ms_decode,
-                decode_device_busy_share=busy_ms / ms_decode,
-                generate_device_busy_share=busy_ms / ms_step,
-                decode_device_ms={k: v for k, v in per_kernel.items()},
-                decode_kernel_records=kept)
+    for mode, fn in (("eager", step), ("graph", replay)):
+        counts = {}
+        dev, kept, wall_ms = profile_kernels(torch, fn, steps_p, counts)
+        per_kernel = {tag_label: sum(t for name, t in dev.items() if tag in name)
+                      / steps_p / 1e3 for tag_label, tag in kernel_tags.items()}
+        busy_ms = sum(dev.values()) / steps_p / 1e3
+        ms_step = modes[mode]["decode_ms_per_step"]
+        lo, hi = modes[mode]["decode_ms_per_step_range"]
+        modes[mode].update(
+            model_decode_ms=fwd_ms[mode], decode_device_busy_ms=busy_ms,
+            decode_device_busy_share=busy_ms / fwd_ms[mode],
+            generate_device_busy_share=busy_ms / ms_step,
+            generate_device_busy_share_range=[busy_ms / hi, busy_ms / lo],
+            decode_device_ms=per_kernel, decode_kernel_records=kept)
+        log(f"  profile {steps_p} decode steps, {mode}: wall {wall_ms:.3f} "
+            f"ms/step (profiled), device busy {busy_ms:.3f} ms/step = "
+            f"{100 * busy_ms / fwd_ms[mode]:.1f}% of the step alone (events, "
+            f"{fwd_ms[mode]:.3f} ms; {100 * busy_ms / ms_step:.1f}% of the "
+            f"generate step, {100 * busy_ms / hi:.1f}-{100 * busy_ms / lo:.1f}% "
+            f"over its pairs of calls), "
+            + ", ".join(f"{tag_label} {ms:.3f} ms/step"
+                        for tag_label, ms in per_kernel.items())
+            + f", {len(dev)} kernel names, kernel records kept {kept} launches")
+        for name, t in sorted(dev.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"    {t / steps_p / 1e3:8.3f} ms/step  {name[:90]}")
+        if mode == "graph":
+            check["replay_records"] = replay_launch_check(
+                lambda: kernel_counts(torch, replay, steps_p), graph.credit,
+                steps_p, f"{label}, the decode graph", counts)
+    return dict(modes["graph"], model_prefill_ms=ms_prefill,
+                eager=modes["eager"], graph_check=check)
 
 
 # The raw prefill's kernels in a profile: K5's three bodies ("k5_"), K1's
@@ -3369,7 +3645,8 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     if rel > 5e-2 or same_tok != 1:
         raise AssertionError("served logits disagree with the plain version")
 
-    timings = serve_timings(torch, engine, prompt, STEPS, K1_KERNEL_TAGS)
+    timings = serve_timings(torch, engine, prompt, STEPS, K1_KERNEL_TAGS,
+                            counters, "olmo-1b packed")
     timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3,
                    k1_launches_by_body=bodies, load_ms=t_load * 1e3,
                    k5_load_launches_by_body=load_bodies)
@@ -3396,9 +3673,12 @@ def continuous_requests(serve, vocab, n=CONT_REQUESTS, seed=7):
 
 
 class ForwardCount:
-    """The model's prefill / decode forwards, counted: an Engine built on
-    ``model`` calls these (prefills of more than 16 rows apart: their
-    projections take K1's wgmma body, every other forward tc_stream)."""
+    """The forwards of a scheduler's run, counted: the model's prefills (an
+    Engine built on ``model`` calls these; prefills of more than 16 rows
+    apart: their projections take K1's wgmma body, every other forward
+    tc_stream) and the batched steps that ran (``count_steps``: each call
+    of a scheduler's ``_step`` runs one decode forward, eagerly or as a
+    graph's warm-up or replay)."""
 
     def __init__(self, model):
         self.prefills = self.long_prefills = self.decodes = 0
@@ -3407,23 +3687,28 @@ class ForwardCount:
             self.prefills += 1
             self.long_prefills += int(batch["tokens"].shape[1] > 16)
             return model.prefill(params, batch, **kw)
+        self.model = dataclasses.replace(model, prefill=prefill)
 
-        def decode(*args):
+    def count_steps(self, cs):
+        step = cs._step
+
+        def counted(*args):
             self.decodes += 1
-            return model.decode(*args)
-        self.model = dataclasses.replace(model, prefill=prefill, decode=decode)
+            return step(*args)
+        cs._step = counted
 
     def reset(self):
         self.prefills = self.long_prefills = self.decodes = 0
 
 
 def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
-                   fault=None, record=None, **cfg):
+                   fault=None, record=None, graphed=True, **cfg):
     """Serve ``reqs`` (all at t = 0) through a fresh ContinuousScheduler,
-    counted: conservation and a drained pool, K1 the only kernel, every
-    launch on tc_stream or wgmma (113 a forward: 112 projections and the LM
-    head; a prefill's projections on wgmma). ``fault`` arms batch_step at
-    those hits; ``record`` (a dict) gets each decoded token's logits row by
+    its batched step a captured graph (``graphed``) or eager, counted:
+    conservation and a drained pool, K1 the only kernel, every launch on
+    tc_stream or wgmma (113 a forward: 112 projections and the LM head; a
+    prefill's projections on wgmma). ``fault`` arms batch_step at those
+    hits; ``record`` (a dict) gets each decoded token's logits row by
     (request id, step). Returns what the run measured."""
     from repro_torch.core import health
     from repro_torch.testing import faults
@@ -3433,6 +3718,8 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
     cs = serve.ContinuousScheduler(engine, serve.ContinuousConfig(
         queue_capacity=len(reqs), max_live=CONT_LIVE, block_size=CONT_BLOCK,
         max_retries=1, **cfg))
+    cs._graphed = graphed
+    fwd.count_steps(cs)
     if record is not None:
         commit = cs._commit_rows
 
@@ -3470,15 +3757,37 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
     want_bodies = {"wgmma": (per_forward - 1) * fwd.long_prefills,
                    "tc_stream": want - (per_forward - 1) * fwd.long_prefills}
     want_bodies = {k: v for k, v in want_bodies.items() if v}
+    # The counting wrapper and the recording one close over the scheduler:
+    # take them off, so that the scheduler, its pool, its graph and the
+    # engine it holds go when the run returns.
+    del cs._step
+    if record is not None:
+        del cs._commit_rows
     tokens = {rid: res.tokens.tolist() for rid, res in cs.results.items()}
     n_tok = sum(len(t) for t in tokens.values())
-    out = dict(label=label, wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+    out = dict(label=label, graphed=graphed, wall_s=wall, tokens=n_tok,
+               tokens_per_s=n_tok / wall, ms_per_step=wall * 1e3 / fwd.decodes,
                prefills=fwd.prefills, decode_steps=fwd.decodes, peak_blocks=peak,
                kv_blocks=cs.kv.alloc.capacity, pool_bytes=cs.kv.pool_bytes(),
                stats=s, events=events, k1_launches=launches["gemm_packed_fused_a"],
                k1_launches_by_body=bodies)
-    log(f"  {label}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tokens/s; "
-        f"{fwd.prefills} prefills, {fwd.decodes} batched steps, peak "
+    if graphed:
+        # What a replay of the scheduler's step launches, measured: one
+        # replay profiled (the graph alone: its credit is not applied, and
+        # the pool, scattered outside the graph, is not touched).
+        sg = cs._step_graph
+        out.update(replays=sg.replays, capture_ms=sg.capture_ms,
+                   warmup_ms=sg.warmup_ms,
+                   replay_records=replay_launch_check(
+                       lambda: kernel_counts(torch, lambda i: sg.graph.replay(), 1),
+                       sg.credit, 1, f"{label}, the scheduler's step"))
+    log(f"  {label}, {'graph' if graphed else 'eager'}: {n_tok} tokens in "
+        f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
+        f"{out['ms_per_step']:.2f} ms a batched step (host clock, the run's "
+        f"prefills included); {fwd.prefills} prefills, {fwd.decodes} batched "
+        f"steps"
+        + (f" ({out['replays']} replays, capture {out['capture_ms']:.1f} ms)"
+           if graphed else "") + ", peak "
         f"{peak}/{cs.kv.alloc.capacity} KV blocks, pool {cs.kv.pool_bytes()} "
         f"bytes; completed {s['completed']} evicted {s['evicted']} preempted "
         f"{s['preempted']} resumed {s['resumed']} retries {s['retries']}; "
@@ -3529,25 +3838,47 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
     faults.reset()
     health.clear_serve()
 
-    run_i, tok_i, launched = continuous_run(torch, serve, engine, counters, fwd,
-                                            reqs, "(i) unpressured")
-    total = dict(launched)
+    total = {}
+
+    def both(label, **kw):
+        """The run through the scheduler's graph and eagerly: the same
+        tokens, statistics, lifecycle events and launches by body, else the
+        phase fails. Returns the graph run's results, with the eager run's
+        times beside them."""
+        run_g, tok_g, launched_g = continuous_run(
+            torch, serve, engine, counters, fwd, reqs, label, **kw)
+        run_e, tok_e, launched_e = continuous_run(
+            torch, serve, engine, counters, fwd, reqs, label, graphed=False,
+            **kw)
+        for launched in (launched_g, launched_e):
+            for k, v in launched.items():
+                total[k] = total.get(k, 0) + v
+        same = dict(tokens=tok_g == tok_e, stats=run_g["stats"] == run_e["stats"],
+                    events=run_g["events"] == run_e["events"],
+                    launches_by_body=run_g["k1_launches_by_body"]
+                    == run_e["k1_launches_by_body"])
+        run_g["eager"] = {k: run_e[k] for k in ("wall_s", "tokens_per_s",
+                                                 "ms_per_step", "decode_steps")}
+        run_g["equal_to_eager"] = same
+        log(f"  {label}: graph against eager: {same}; "
+            f"{run_g['tokens_per_s']:.1f} against {run_e['tokens_per_s']:.1f} "
+            f"tokens/s")
+        if not all(same.values()):
+            raise AssertionError(f"{label}: the graph's run differs from the "
+                                 f"eager run: {same}")
+        return run_g, tok_g
+
+    run_i, tok_i = both("(i) unpressured")
     if run_i["stats"]["completed"] != len(reqs):
         raise AssertionError("(i): not every request completed")
     tight = (3 * run_i["peak_blocks"]) // 4
-    run_ii, tok_ii, launched = continuous_run(
-        torch, serve, engine, counters, fwd, reqs,
-        f"(ii) {tight} KV blocks", num_kv_blocks=tight)
-    total = {k: total[k] + launched[k] for k in total}
+    run_ii, tok_ii = both(f"(ii) {tight} KV blocks", num_kv_blocks=tight)
     if run_ii["stats"]["preempted"] < 1 \
             or run_ii["stats"]["resumed"] != run_ii["stats"]["preempted"]:
         raise AssertionError("(ii): no preempt / resume under the tight pool")
     if tok_ii != tok_i:
         raise AssertionError("(ii): preempted streams differ from (i)'s")
-    run_iii, tok_iii, launched = continuous_run(
-        torch, serve, engine, counters, fwd, reqs,
-        "(iii) batch_step at hits 1, 2, 3", fault=(1, 2, 3))
-    total = {k: total[k] + launched[k] for k in total}
+    run_iii, tok_iii = both("(iii) batch_step at hits 1, 2, 3", fault=(1, 2, 3))
     evicted = [rid for rid, t in tok_iii.items() if len(t) != len(tok_i[rid])]
     if run_iii["events"].get("bisect:guilty") != 1 or len(evicted) != 1 \
             or run_iii["stats"]["evicted"] != 1:
@@ -3557,10 +3888,7 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         if toks != tok_i[rid][:len(toks)] or (rid not in evicted
                                              and toks != tok_i[rid]):
             raise AssertionError(f"(iii): request {rid} differs from (i)")
-    run_iv, tok_iv, launched = continuous_run(
-        torch, serve, engine, counters, fwd, reqs, "(iv) int8 pool",
-        kv_quantize="int8")
-    total = {k: total[k] + launched[k] for k in total}
+    run_iv, tok_iv = both("(iv) int8 pool", kv_quantize="int8")
     same = sum(a == b for rid in tok_i for a, b in zip(tok_i[rid], tok_iv[rid]))
     run_iv["share_equal_to_i"] = same / run_i["tokens"]
     log(f"  (iv) int8 pool: {same}/{run_i['tokens']} tokens equal to (i)'s "
@@ -3584,7 +3912,10 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         tokens[row, 0] = slot.emitted[-1]
         pos[row] = slot.req.tokens.shape[0] + len(slot.emitted) - 1
     tables = cs.kv.device_tables()
+    # The graph's logits are its static output: kept before the row steps
+    # replay the same graph.
     logits, written = cs._step(tables, tokens, pos)
+    logits = logits.clone()
     alone_equal, b1_equal, b1_max = 0, 0, 0.0
     for row in range(CONT_LIVE):
         alone, _ = cs._row_step(row, int(tokens[row, 0]), int(pos[row]))
@@ -3595,31 +3926,48 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         b1_equal += bool(torch.equal(raw[0, 0], logits[row]))
         b1_max = max(b1_max, float((raw[0, 0].float() - logits[row].float())
                                    .abs().max()))
+    cs._graphed = False
+    eager_equal = bool(torch.equal(cs._step(tables, tokens, pos)[0], logits))
+    cs._graphed = True
     log(f"  one batched step, {CONT_LIVE} live rows at positions "
-        f"{pos.tolist()}: {alone_equal}/{CONT_LIVE} rows bitwise equal to the "
-        f"row alone (the others dead); against the batch-1 decode "
-        f"(decode_request on gather_slot, reported only): {b1_equal}/"
-        f"{CONT_LIVE} bitwise, largest |difference| {b1_max:.3e} "
-        f"(|logits| max {float(logits.abs().max()):.3f})")
-    if alone_equal != CONT_LIVE:
-        raise AssertionError("a batched row differs from the same row alone")
+        f"{pos.tolist()}, through the graph: {alone_equal}/{CONT_LIVE} rows "
+        f"bitwise equal to the row alone (the others dead); bitwise the eager "
+        f"step {eager_equal}; against the batch-1 decode (decode_request on "
+        f"gather_slot, reported only): {b1_equal}/{CONT_LIVE} bitwise, largest "
+        f"|difference| {b1_max:.3e} (|logits| max {float(logits.abs().max()):.3f})")
+    if alone_equal != CONT_LIVE or not eager_equal:
+        raise AssertionError("a batched row differs from the same row alone, "
+                             "or the graph's step from the eager step")
 
-    def step(i):
-        return cs._step(tables, tokens, pos)
-    step_ms = time_ms(step, 8)
-    step_busy = device_ms(step, 4, "phase 2b batched step")
+    step_t = {}
+    for mode in ("graph", "eager"):
+        cs._graphed = mode == "graph"
+
+        def step(i):
+            return cs._step(tables, tokens, pos)
+        try:
+            step_ms = time_ms(step, 8)
+            step_busy = device_ms(step, 4, f"phase 2b batched step, {mode}")
+            t_host = time.perf_counter()
+            for i in range(8):
+                step(i)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t_host) * 1e3 / 8
+        finally:
+            cs._graphed = True
+        step_t[mode] = dict(batched_step_ms=step_ms, batched_step_host_ms=wall_ms,
+                            batched_step_device_busy_ms=step_busy,
+                            device_busy_share=step_busy / wall_ms)
+        log(f"  batched step at {CONT_LIVE} rows, {mode}: {step_ms:.3f} ms "
+            f"(events), {wall_ms:.3f} ms (host clock), device busy "
+            f"{step_busy:.3f} ms = {100 * step_busy / wall_ms:.1f}% of the "
+            f"host-clock step")
     gather_ms = time_ms(lambda i: cs.kv.gather(tables), 8)
     scatter_ms = time_ms(lambda i: cs._commit_pool(written), 8)
-    t_host = time.perf_counter()
-    for i in range(8):
-        step(i)
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t_host) * 1e3 / 8
-    log(f"  batched step at {CONT_LIVE} rows: {step_ms:.3f} ms (events), "
-        f"{wall_ms:.3f} ms (host clock), device busy {step_busy:.3f} ms = "
-        f"{100 * step_busy / wall_ms:.1f}% of the host-clock step; gather "
-        f"{gather_ms:.3f} ms + scatter {scatter_ms:.3f} ms = "
-        f"{100 * (gather_ms + scatter_ms) / step_ms:.1f}% of the step")
+    step_ms = step_t["graph"]["batched_step_ms"]
+    log(f"  gather {gather_ms:.3f} ms + scatter {scatter_ms:.3f} ms = "
+        f"{100 * (gather_ms + scatter_ms) / step_ms:.1f}% of the graph's step "
+        f"(the gather is inside the graph, the scatter outside)")
     cs.drain()
 
     # -- batched against batch-1 on the same subset ------------------------
@@ -3646,7 +3994,10 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
     fe.drain()
     torch.cuda.synchronize()
     fe_wall = time.perf_counter() - t0
-    engine.sample_tokens = sample
+    # Back to the class's method: an instance attribute holding the bound
+    # method would be a cycle that keeps the engine, its weights and its
+    # graphs alive past the phase, until a garbage collection.
+    del engine.sample_tokens, sample
     health.clear_serve()
     fe_tok = {rid: res.tokens.tolist() for rid, res in fe.results.items()}
     fe_n = sum(len(t) for t in fe_tok.values())
@@ -3680,9 +4031,8 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         f"{fe_same}/{fe_n} (reported only)")
     del cs, fe, engine
     out = dict(runs=[run_i, run_ii, run_iii, run_iv],
-               batched_step_ms=step_ms, batched_step_host_ms=wall_ms,
-               batched_step_device_busy_ms=step_busy,
-               device_busy_share=step_busy / wall_ms,
+               **step_t["graph"], eager_step=step_t["eager"],
+               graph_step_equal_to_eager=eager_equal,
                gather_ms=gather_ms, scatter_ms=scatter_ms,
                gather_scatter_share=(gather_ms + scatter_ms) / step_ms,
                rows_alone_equal=alone_equal, batch1_rows_equal=b1_equal,
@@ -3771,7 +4121,8 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
         f"5e-2), max_abs_err={max_err:.3e}, same argmax {same_tok}/1")
     if rel > 5e-2 or same_tok != 1:
         raise AssertionError("raw-weight logits disagree with the packed run")
-    timings = serve_timings(torch, engine, prompt, STEPS, K7_KERNEL_TAGS)
+    timings = serve_timings(torch, engine, prompt, STEPS, K7_KERNEL_TAGS,
+                            counters, "olmo-1b raw")
     timings.update(rel_fro_vs_packed=rel, first_generate_ms=t_gen * 1e3,
                    lowerings=picks, k1_launches_by_body=bodies,
                    k7_launches_by_body=k7_bodies, k5_launches_by_body=k5_bodies,
@@ -3928,6 +4279,9 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
                               num_layers=MIXTRAL_LAYERS,
                               compute_dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
+    # What the earlier phases still hold (olmo-1b's weights, kept for
+    # phase 5): part of every peak below.
+    held_gb = torch.cuda.memory_allocated() / 1e9
     model = models.build(cfg, device=DEVICE)
     t0 = time.perf_counter()
     params = model.init(0)
@@ -3970,6 +4324,8 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
         raise AssertionError(f"load-time launch counts {load}")
     if load_bodies != want_load_bodies:
         raise AssertionError(f"load-time K5 launches by body {load_bodies}")
+    load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cpu").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT, generator=gen)
     want_k1 = (4 * cfg.num_layers + 1) * (STEPS + 1)
@@ -4010,13 +4366,33 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
                                   check["dropped"])
 
     timings = serve_timings(torch, engine, prompt, STEPS,
-                            {**K1_KERNEL_TAGS, **K2_KERNEL_TAGS})
+                            {**K1_KERNEL_TAGS, **K2_KERNEL_TAGS}, counters,
+                            "mixtral-8x22b packed")
+    # The decode graph's static caches and pool sit beside the packed
+    # weights. The peaks: to the end of the load (init, packing), and over
+    # the served runs after it.
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(load_peak_gb, serve_peak_gb)
+    graph_gb = torch.cuda.memory_allocated() / 1e9
+    graph = decode_graph(engine)
+    static_gb = graph.static_bytes / 1e9
+    pool_gb = graph.capture_reserved_bytes / 1e9
+    log(f"  memory: {held_gb:.2f} GB held from earlier phases at the start; "
+        f"peak to the end of the load {load_peak_gb:.2f} GB, over the served "
+        f"runs {serve_peak_gb:.2f} GB; {graph_gb:.2f} GB allocated with the "
+        f"decode graph alive, of which its static tree {static_gb:.3f} GB "
+        f"(the caches, max_len {MAX_LEN}), and its capture reserved "
+        f"{pool_gb:.3f} GB for its pool")
     timings.update(rel_fro_pinned=rel_p, rel_fro_free=rel_f,
                    expert_choice_flips_free=flips_free,
                    expert_choices=n_choices, first_generate_ms=t_gen * 1e3,
                    k1_launches_by_body=bodies, k2_launches_by_body=bodies_k2,
                    prefill_counts=counts, prefill_dropped=dropped,
-                   load_ms=t_load * 1e3, k5_load_launches_by_body=load_bodies)
+                   load_ms=t_load * 1e3, k5_load_launches_by_body=load_bodies,
+                   peak_gb=peak_gb, load_peak_gb=load_peak_gb,
+                   serve_peak_gb=serve_peak_gb, held_gb=held_gb,
+                   allocated_with_graph_gb=graph_gb, graph_static_gb=static_gb,
+                   graph_pool_reserved_gb=pool_gb)
     del engine
     torch.cuda.empty_cache()
     return load, launches, timings, check["logits"]
@@ -4212,8 +4588,11 @@ def phase_family(torch, gp, gg, counters, cfgs, models, serve, arch, seed,
     (K1 by body, K2 by body for an MoE), K1 and K2 against their plain
     versions on every distinct packed weight at the rows the path gives
     them (served_shape_checks), prefill logits against the plain versions
-    on the card. Returns (load launches, generate launches, results)."""
+    on the card, and the decode graph against the eager loop
+    (``graph_against_eager``). Returns (load launches, generate launches,
+    results)."""
     from repro_torch.models import moe
+    from repro_torch.serve import graphs
     full, cfg, scfg, prefix = family_config(cfgs, serve, arch)
     depth = cfg.num_layers
     want = family_counts(cfg)
@@ -4300,6 +4679,15 @@ def phase_family(torch, gp, gg, counters, cfgs, models, serve, arch, seed,
             or tokens.max() >= cfg.vocab_size:
         raise AssertionError(f"{arch}: bad tokens {tokens.shape}")
     log(f"  tokens[0] = {tokens[0].tolist()}")
+    graphed = engine._graphed
+    if graphed:
+        graph_check = graph_against_eager(torch, counters, engine, batch,
+                                          FAMILY_STEPS, arch)
+        # Held against a replay's kernel records in the timing process.
+        graph_check["credit_by_class"] = credit_by_class(decode_graph(engine).credit)
+    else:
+        graph_check = dict(eager=graphs.eager_reason(cfg))
+        log(f"  {arch}: decode eager on the card: {graph_check['eager']}")
 
     # -- K1 / K2 at the served shapes against their plain versions ---------
     # The rows the path gives K1: 2 (decode, the prefill's LM head), the
@@ -4363,10 +4751,34 @@ def phase_family(torch, gp, gg, counters, cfgs, models, serve, arch, seed,
         k1_launches_by_body=bodies, k2_launches_by_body=bodies_k2,
         k1_per_forward=dict(prefill=want["prefill"], decode=want["decode"]),
         k5_load_launches_by_body=load_bodies, served_shapes=shape_rows,
-        odd_n=odd, card=card, tokens0=tokens[0].tolist(), **verdict)
+        odd_n=odd, card=card, tokens0=tokens[0].tolist(),
+        graph_check=graph_check, **verdict)
 
 
 FAMILY_TIMES_TAG = "phase 7 times: "
+
+
+def family_graph_times(torch, engine, caches, tok, pos0) -> dict:
+    """Phase 7's decode step as served: a replay of its captured graph (the
+    token copy, the position fill and the replay), in CUDA events over
+    FAMILY_STEPS // 2 replays and profiled over one, and the capture's ms.
+    Nothing of the graph outlives the call but the engine's own."""
+    graph = engine._decode_graph(caches, FAMILY_PROMPT[0])
+    graph({"caches": caches, "tok": tok, "pos": pos0})
+
+    def replay(i):
+        graph({"tok": tok, "pos": pos0 + i % FAMILY_STEPS})
+    ms = time_ms(replay, FAMILY_STEPS // 2)
+    counts = {}
+    dev, kept, _ = profile_kernels(torch, replay, 1, counts)
+    busy = sum(dev.values()) / 1e3
+    arch = engine.model.cfg.name
+    return dict(graph_decode_ms_per_step=ms, graph_decode_busy_ms=busy,
+                graph_decode_busy_share=busy / ms,
+                graph_capture_ms=graph.capture_ms, graph_records_kept=kept,
+                replay_records=replay_launch_check(
+                    lambda: kernel_counts(torch, replay, 1), graph.credit, 1,
+                    f"{arch}, the decode graph", counts))
 
 
 def family_times_main() -> int:
@@ -4379,11 +4791,16 @@ def family_times_main() -> int:
     prefill forward and 1 decode step: device busy ms and its share of
     the unprofiled forward, with the kernel records kept (the process's
     first profile can miss the host's launch calls: on an H100 it has
-    counted 144 beside qwen3-4b's 7658 kernel records). Prints one line,
-    FAMILY_TIMES_TAG + a JSON object {arch: times}."""
+    counted 144 beside qwen3-4b's 7658 kernel records). The same for the
+    decode step as served, a replay of its captured graph (4 replays in
+    events, 1 profiled), and the capture's ms; a family that
+    ``serve.graphs.EAGER_FAMILIES`` names is reported as eager with its
+    reason. Prints one line, FAMILY_TIMES_TAG + a JSON object {arch:
+    times}."""
     import torch
     from repro_torch import configs as cfgs
     from repro_torch import models, serve
+    from repro_torch.serve import graphs
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     for i, arch in enumerate(FAMILY_DEPTH):
@@ -4414,12 +4831,26 @@ def family_times_main() -> int:
                          prefill_records_kept=kept_p, decode_busy_ms=busy_d,
                          decode_busy_share=busy_d / ms_decode,
                          decode_records_kept=kept_d)
+        graph_line = ""
+        if engine._graphed:
+            out[arch].update(family_graph_times(torch, engine, caches, tok,
+                                                pos0))
+            t = out[arch]
+            graph_line = (f"; graph replay {t['graph_decode_ms_per_step']:.3f} "
+                          f"ms/step, device busy {t['graph_decode_busy_ms']:.3f} "
+                          f"ms ({100 * t['graph_decode_busy_share']:.1f}%, "
+                          f"records kept {t['graph_records_kept']}), capture "
+                          f"{t['graph_capture_ms']:.1f} ms")
+        else:
+            out[arch]["graph"] = graph_line = (
+                f"; decode eager on the card: "
+                f"{graphs.eager_reason(cfg)}")
         log(f"  {arch}: prefill {ms_prefill:.2f} ms, device busy {busy_p:.3f} ms "
             f"({100 * busy_p / ms_prefill:.1f}%, records kept {kept_p}); decode "
-            f"{ms_decode:.3f} ms/step (batch {FAMILY_PROMPT[0]}), device busy "
-            f"{busy_d:.3f} ms ({100 * busy_d / ms_decode:.1f}%, records kept "
-            f"{kept_d}); {time.perf_counter() - t0:.1f} s")
-        del caches, engine, model, batch
+            f"eager {ms_decode:.3f} ms/step (batch {FAMILY_PROMPT[0]}), device "
+            f"busy {busy_d:.3f} ms ({100 * busy_d / ms_decode:.1f}%, records "
+            f"kept {kept_d}){graph_line}; {time.perf_counter() - t0:.1f} s")
+        del caches, engine, model, batch, step
         torch.cuda.empty_cache()
     from repro_torch.core import health
     assert_healthy(health, "phase 7's timing process")
@@ -4459,6 +4890,13 @@ def phase_families(torch, gp, gg, counters, cfgs, models, serve, card) -> tuple:
                              f"{run.returncode})")
     for arch, t in json.loads(times[0][len(FAMILY_TIMES_TAG):]).items():
         results[arch].update(t)
+        # This process's graph credits what the timing process's replay of
+        # the same config's graph was measured to launch.
+        credited = results[arch]["graph_check"].get("credit_by_class")
+        if credited is not None and credited != t.get("replay_records"):
+            raise AssertionError(f"{arch}: the decode graph credits {credited} "
+                                 f"a replay; a replay in the timing process "
+                                 f"launched {t.get('replay_records')}")
     log(f"  timing process {time.perf_counter() - t0:.1f} s; card {card}")
     seconds = time.perf_counter() - t_phase
     log(json.dumps({"families": results, "phase_s": seconds, "card": card}))
@@ -5096,46 +5534,71 @@ def guard_scale_grid(torch, m, k=GUARD_K, n=GUARD_N, rows=GUARD_ROWS) -> dict:
 
 
 def guard_serve(torch, m, cfgs, models, serve) -> dict:
-    """Phase 9 (c): ``kernel_run`` armed at its first hit during
-    ``Engine.generate`` on full-width olmo-1b with packed weights, prompt
-    PROMPT, GUARD_STEPS greedy steps: the call raises naming the spec,
-    nothing is recorded, and the engine's next call gives the tokens of a
-    call made before the fault."""
+    """Phase 9 (c): ``kernel_run`` armed during ``Engine.generate`` on
+    full-width olmo-1b with packed weights, prompt PROMPT, GUARD_STEPS
+    greedy steps. At its first hit (the eager prefill's first contraction)
+    the call raises naming the spec, nothing is recorded, and the engine's
+    next call gives the tokens of a call made before the fault. On a fresh
+    engine, armed at the first hit past the prefill's, it raises at the
+    decode graph's warm-up, naming the spec, keeps no graph, and the next
+    call captures cleanly and gives those tokens again."""
     health, faults = m["health"], m["faults"]
     cfg = dataclasses.replace(cfgs.get_config("olmo-1b"),
                               compute_dtype="bfloat16")
     model = models.build(cfg, device=DEVICE)
-    engine = serve.Engine(model, bf16_tree(torch, model.init(0)),
-                          serve.ServeConfig(max_len=MAX_LEN, pack_weights=True,
-                                            cache_dtype="bfloat16"),
-                          device=DEVICE)
+    params = bf16_tree(torch, model.init(0))
+
+    def engine_():
+        return serve.Engine(model, params, serve.ServeConfig(
+            max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
+            device=DEVICE)
     prompt = torch.randint(0, cfg.vocab_size, PROMPT,
                            generator=torch.Generator().manual_seed(1))
 
-    def generate():
+    def generate(engine):
         return engine.generate({"tokens": prompt}, max_new_tokens=GUARD_STEPS)
-    want = generate()
-    with faults.inject("kernel_run", nth=1):
-        try:
-            generate()
-        except faults.InjectedFault as exc:
-            raised = "\n".join(getattr(exc, "__notes__", []))
-        else:
-            raise AssertionError("phase 9 (c): generate did not raise under "
-                                 "kernel_run:1")
-    after = generate()
+
+    def raises(engine, nth):
+        with faults.inject("kernel_run", nth=nth):
+            try:
+                generate(engine)
+            except faults.InjectedFault as exc:
+                return ("\n".join(getattr(exc, "__notes__", [])),
+                        faults.hits("kernel_run"))
+        raise AssertionError(f"phase 9 (c): generate did not raise under "
+                             f"kernel_run:{nth}")
+    engine = engine_()
+    want = generate(engine)
+    raised, _ = raises(engine, 1)
+    after = generate(engine)
+    fresh = engine_()
+    prefill_hits = 7 * cfg.num_layers + 1
+    raised_warm, hit = raises(fresh, prefill_hits + 1)
+    kept = decode_graph(fresh).graph is not None
+    after_warm = generate(fresh)
+    replays = decode_graph(fresh).replays
     log(f"  (c) kernel_run:1 during generate ({PROMPT[0]}x{PROMPT[1]} + "
-        f"{GUARD_STEPS} steps, packed): raised, {raised!r}; report "
-        f"{json.dumps(health.health_report())}; the next call's tokens equal "
-        f"the first's: {bool((after == want).all())}")
+        f"{GUARD_STEPS} steps, packed): raised in the prefill, {raised!r}; "
+        f"report {json.dumps(health.health_report())}; the next call's tokens "
+        f"equal the first's: {bool((after == want).all())}")
+    log(f"  (c) kernel_run:{prefill_hits + 1} on a fresh engine: raised at hit "
+        f"{hit}, the decode graph's warm-up, {raised_warm!r}; graph kept "
+        f"{kept}; the next call captured and replayed {replays} times, its "
+        f"tokens equal the first's: {bool((after_warm == want).all())}")
     if (health.HEALTH or "lowering" not in raised or after.shape != want.shape
             or not (after == want).all() or want.min() < 0
             or want.max() >= cfg.vocab_size):
         raise AssertionError(f"phase 9 (c): raised {raised!r}, report "
                              f"{health.health_report()}, tokens {after.shape}")
-    del engine, model
+    if ("lowering" not in raised_warm or hit != prefill_hits + 1 or kept
+            or replays != GUARD_STEPS - 1 or not (after_warm == want).all()):
+        raise AssertionError(f"phase 9 (c): at the warm-up raised "
+                             f"{raised_warm!r} at hit {hit}, graph kept {kept}, "
+                             f"{replays} replays")
+    del engine, fresh, model, params
     torch.cuda.empty_cache()
-    return {"raised": raised, "tokens_0": want[0].tolist()}
+    return {"raised": raised, "raised_at_warm_up": raised_warm,
+            "tokens_0": want[0].tolist()}
 
 
 def guard_launcher(torch, m, health, card) -> dict:
@@ -5158,10 +5621,14 @@ def guard_launcher(torch, m, health, card) -> dict:
         res = launch_serve.run(args)
         out["launcher"] = dict(args=" ".join(args),
                                tok_s=res["tok_s"], ms_per_step=res["ms_per_step"],
+                               graphed=res["graphed"],
                                seconds=time.perf_counter() - t0, card=card)
         log(f"  (d) launch.serve {' '.join(args)}: "
             f"{res['tok_s']:.1f} tok/s, {res['ms_per_step']:.2f} ms/decode-step "
-            f"({card}); {out['launcher']['seconds']:.1f} s")
+            f"({'graph' if res['graphed'] else 'eager'}; {card}); "
+            f"{out['launcher']['seconds']:.1f} s")
+        if not res["graphed"]:
+            raise AssertionError("phase 9 (d): the launcher decoded eagerly")
         del res
         torch.cuda.empty_cache()
         with tempfile.TemporaryDirectory(prefix="phase9_") as d:
@@ -5299,7 +5766,8 @@ def phase_serve_quant(torch, gp, counters, serve, packed_run, quantize):
         f"{scale:.3f}, same argmax {same_q}/1 (reported)")
     if rel > 5e-2 or same_tok != 1:
         raise AssertionError("served logits disagree with the plain version")
-    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS)
+    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS,
+                            counters, f"olmo-1b {quantize}")
     timings.update(rel_fro=rel, rel_fro_vs_float=rel_q,
                    max_err_vs_float_of_scale=err_q / scale,
                    first_generate_ms=t_gen * 1e3, k1_launches_by_body=bodies,
@@ -5363,7 +5831,8 @@ def phase_mixtral_quant(torch, gp, gg, counters, cfgs, models, serve,
     log(f"  prefill logits against phase 3's float logits: rel_fro={rel_q:.3e}, "
         f"max_abs_err={err_q:.3e} = {err_q / scale:.3e} of the logit scale "
         f"{scale:.3f}, same argmax {same_q}/4 (reported)")
-    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS)
+    timings = serve_timings(torch, engine, prompt, STEPS, KQ_KERNEL_TAGS,
+                            counters, f"mixtral-8x22b {MIXTRAL_QUANT}")
     timings.update(rel_fro_pinned=check["rel_p"], rel_fro_free=check["rel_f"],
                    expert_choice_flips_free=check["flips_free"],
                    rel_fro_vs_float=rel_q, max_err_vs_float_of_scale=err_q / scale,
@@ -6108,6 +6577,57 @@ class Counters:
         return out
 
 
+def graph_summary(served, cont, families) -> dict:
+    """Each served path's decode graph beside its eager loop: decode
+    ms/step end to end, the step alone (a replay, an eager forward), the
+    device-busy share of each, the capture's ms, and whether tokens and
+    launches by body were equal; phase 2b's runs and batched step; phase
+    7's eight configs."""
+    out = {}
+    for path, t in served.items():
+        g, e, check = t, t["eager"], t["graph_check"]
+        out[path] = dict(
+            graph_ms_per_step=g["decode_ms_per_step"],
+            eager_ms_per_step=e["decode_ms_per_step"],
+            graph_replay_ms=g["model_decode_ms"],
+            eager_forward_ms=e["model_decode_ms"],
+            graph_busy_ms=g["decode_device_busy_ms"],
+            eager_busy_ms=e["decode_device_busy_ms"],
+            graph_busy_share_of_replay=g["decode_device_busy_share"],
+            eager_busy_share_of_forward=e["decode_device_busy_share"],
+            graph_busy_share=g["generate_device_busy_share"],
+            graph_busy_share_range=g["generate_device_busy_share_range"],
+            eager_busy_share=e["generate_device_busy_share"],
+            eager_busy_share_range=e["generate_device_busy_share_range"],
+            capture_ms=check["capture_ms"], warmup_ms=check["warmup_ms"],
+            tokens_bitwise_equal=check["tokens_bitwise_equal"],
+            launches_equal=check["launches_equal"],
+            replay_records=check["replay_records"])
+    out["olmo-1b continuous"] = dict(
+        runs={r["label"]: dict(graph_tokens_per_s=r["tokens_per_s"],
+                               eager_tokens_per_s=r["eager"]["tokens_per_s"],
+                               graph_ms_per_step=r["ms_per_step"],
+                               eager_ms_per_step=r["eager"]["ms_per_step"],
+                               capture_ms=r["capture_ms"],
+                               equal_to_eager=r["equal_to_eager"],
+                               replay_records=r["replay_records"])
+              for r in cont["runs"]},
+        graph_step=dict(ms=cont["batched_step_ms"],
+                        host_ms=cont["batched_step_host_ms"],
+                        busy_ms=cont["batched_step_device_busy_ms"],
+                        busy_share=cont["device_busy_share"]),
+        eager_step=cont["eager_step"],
+        graph_step_equal_to_eager=cont["graph_step_equal_to_eager"])
+    for arch, r in families.items():
+        out[arch] = {k: r[k] for k in (
+            "decode_ms_per_step", "decode_busy_share",
+            "graph_decode_ms_per_step", "graph_decode_busy_share",
+            "graph_capture_ms", "graph") if k in r}
+        out[arch]["tokens_bitwise_equal"] = r["graph_check"].get(
+            "tokens_bitwise_equal")
+    return out
+
+
 def forward_sum(rows, kernel, m, key, counts):
     """A per-shape column summed over one forward's calls (``counts``:
     (K, N) -> calls in the forward)."""
@@ -6268,17 +6788,17 @@ def main(argv) -> int:
         return planted_faults(torch, build, fa, cfgs, shapes,
                               dict(pack=pk, gp=gp, gv=gv, gg=gg, gt=gt, ref=ref,
                                    tf=tf))
-    counters = Counters([gp.gemm_packed_fused_a, gg.gemm_grouped_packed_ragged,
-                         gg.gemm_grouped_packed, pk.pack_a, pk.pack_b,
-                         pk.pack_b_grouped, gp.gemm_packed, gt.gemm_tiled,
-                         gv.matmul_vsx_like, gv.matmul_vsx_like_packed,
-                         fa.flash_attention])
+    from repro_torch.kernels import counted_wrappers
+    counters = Counters(counted_wrappers())
 
     at_phase("phase 1: build + kernel vs plain")
     with healthy(health, "phase 1"):
         t0 = time.perf_counter()
         paths = build.build_all()
         log(f"  built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dump_all_sass(paths.values())
+        log(f"  SASS of every library dumped in {time.perf_counter() - t0:.1f} s")
         for name, path in paths.items():
             lines = path.with_suffix(".log").read_text().splitlines() \
                 if path.with_suffix(".log").exists() else []
@@ -6297,6 +6817,7 @@ def main(argv) -> int:
         log(f"  gemm_tiled SASS: {check_k7_sass(paths['gemm_tiled'])}")
         log(f"  flash_attention SASS: {check_k4_sass(paths['flash_attention'])}")
         log(f"  pack SASS: {check_k5_sass(paths['pack'])}")
+        SASS_CACHE.clear()
         timer_checks = [timer_check(torch, "phase 1, a fresh process")]
         table, main_err = phase_kernels(torch, gp, ref, tf, pk)
         grouped_rows, grouped_err = phase_grouped(torch, gg, ref, tf)
@@ -6630,6 +7151,12 @@ def main(argv) -> int:
                   "per shape",
           work="one ops.attention call at each of A1-A6 (bf16), summed",
           shapes=attn_rows, ops_launches=ops_counts, card=card)
+    log(json.dumps({"graphs": graph_summary(
+        {"olmo-1b packed": serve_t, "mixtral-8x22b packed": mix_t,
+         **quant_cells, "olmo-1b raw": raw_t}, cont_t, families), "card": card}))
+    # Every credited launch count above was held to the kernel records of
+    # the replays it credits (else the run stopped there).
+    log(json.dumps({"replay_launch_checks": REPLAY_CHECKS, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -29,9 +29,15 @@ the lowering, and the registry records nothing. An asynchronous device
 fault (an illegal address, a trap in a kernel) surfaces at a later
 synchronisation, far from the call that caused it, and leaves the context
 unusable, so it ends the run in any case. The opt-in numerics guard
-(``REPRO_NUMERICS_GUARD``) reads each output back, so it synchronises; the
-port runs eagerly, so it checks every guarded call, and on the card a
-non-finite output raises :class:`~repro_torch.core.health.NumericsError`.
+(``REPRO_NUMERICS_GUARD``) reads each output back, so it synchronises, and
+on the card a non-finite output raises
+:class:`~repro_torch.core.health.NumericsError`. An eager call is checked
+every time. A served step on the card is a captured CUDA graph
+(``serve.graphs``): the runner, its environment reads and the fault sites
+of the lowerings run in the step's warm-up and capture passes only, never
+on a replay, and the guard reads nothing back while the capture is under
+way (``health.numerics_guard_active``), as the reference's guard decides
+once, at trace time.
 """
 from __future__ import annotations
 
@@ -321,7 +327,11 @@ def run_guarded(spec: ContractionSpec, chosen: Lowering,
     propagates, so a genuine contract violation still surfaces. On the card
     that entry is the winner: its failure propagates with a note naming the
     spec, and a non-finite output under the guard raises
-    :class:`~repro_torch.core.health.NumericsError`."""
+    :class:`~repro_torch.core.health.NumericsError`.
+
+    Inside a captured served step (``serve.graphs``) this runs at the
+    warm-up and the capture only; a replay runs none of it, and during the
+    capture the guard makes no read-back (``health.numerics_guard_active``)."""
     chain, i, low = None, 0, chosen
     while True:
         failure = None
@@ -331,7 +341,7 @@ def run_guarded(spec: ContractionSpec, chosen: Lowering,
             raise
         except Exception as exc:  # noqa: BLE001 — classify, then degrade
             failure = exc
-        if failure is None and not (health.numerics_guard_enabled()
+        if failure is None and not (health.numerics_guard_active()
                                     and health.has_nonfinite(out)):
             return out
         if chain is None:
@@ -365,7 +375,7 @@ def check_explicit_numerics(spec: ContractionSpec, low: Lowering,
                             out) -> None:
     """The explicit side of the numerics guard: an explicit choice never
     degrades, so under the guard a non-finite output raises."""
-    if health.numerics_guard_enabled() and health.has_nonfinite(out):
+    if health.numerics_guard_active() and health.has_nonfinite(out):
         raise health.NumericsError(
             f"non-finite values in output of explicit lowering {low.name!r} "
             f"for {spec.describe()} ({health.ENV_NUMERICS_GUARD})")

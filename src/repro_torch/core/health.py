@@ -22,7 +22,8 @@ Failure classes (:data:`FAILURE_CLASSES`):
 :func:`classify_failure` maps an exception to a class: an exception that
 declares ``failure_class`` (injected faults, :class:`NumericsError`) wins;
 otherwise the type / message is matched. The numerics guard is opt-in
-because it reads the value back (a synchronization on the card).
+because it reads the value back (a synchronization on the card), and it
+reads nothing while a CUDA graph is captured (:func:`numerics_guard_active`).
 
 This module is the port's copy of the JAX package's ``core/health.py``:
 the same classes, states, events, counters and reports.
@@ -54,6 +55,23 @@ def numerics_guard_enabled() -> bool:
     """Opt-in NaN/Inf output guard (``REPRO_NUMERICS_GUARD=1``)."""
     return os.environ.get(ENV_NUMERICS_GUARD, "").lower() in (
         "1", "true", "on", "yes")
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False with no
+    CUDA in this torch)."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:  # torch built without CUDA
+        return False
+
+
+def numerics_guard_active() -> bool:
+    """The numerics guard armed and free to read back: never while a CUDA
+    graph is being captured, where a read-back is illegal. The reference's
+    guard is eager-only too: a jit'd step decides at trace time
+    (``serve.graphs``: the warm-up step before a capture still checks)."""
+    return numerics_guard_enabled() and not capturing()
 
 
 def has_nonfinite(out) -> bool:

@@ -190,6 +190,12 @@ class GroupedPackedWeight(_PackedCommon):
                              f"weight stack is E={self.e}, K={self.k}")
 
     def _check_pair(self, up: "GroupedPackedWeight") -> None:
+        # Widths first: stacks of different N can pad to the same buffer
+        # under one plan, and the kernel would store only the gate's N.
+        if (self.e, self.k, self.n) != (up.e, up.k, up.n):
+            raise ValueError(
+                "silu_gate pair must have one geometry: gate E, K, N = "
+                f"{self.e}, {self.k}, {self.n}; up {up.e}, {up.k}, {up.n}")
         if self.plan != up.plan or self.packed.shape != up.packed.shape:
             raise ValueError("silu_gate pair must share plan and geometry "
                              f"({self.plan} vs {up.plan})")

@@ -35,7 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dtypes import dtype_name
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ref import attention_mask
 
@@ -281,5 +281,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        stream=stream)
 
 
-flash_attention.launches = 0
-flash_attention.variants = dict.fromkeys(ATTENTION_BODIES, 0)
+counts_launches(flash_attention, ATTENTION_BODIES)

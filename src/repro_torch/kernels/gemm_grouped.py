@@ -32,7 +32,7 @@ import torch
 from repro_torch.core.dtypes import dtype_name
 from repro_torch.core.epilogue import as_epilogue_spec
 from repro_torch.core.tile_format import TileFormat
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels.common import (EPILOGUE_CODES, acc_dtype_for, cdiv,
                                         kernel_epilogue_name)
 from repro_torch.kernels.gemm_packed import (_A_DTYPES, _B_DTYPES, _BM_CHOICES,
@@ -379,5 +379,4 @@ def gemm_grouped_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int, *,
 
 
 for _fn in (gemm_grouped_packed_ragged, gemm_grouped_packed):
-    _fn.launches = 0
-    _fn.variants = dict.fromkeys(GROUPED_BODIES, 0)
+    counts_launches(_fn, GROUPED_BODIES)

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.core.dtypes import dtype_name
 from repro_torch.core.tile_format import TileFormat
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels import gemm_tiled as gt
 from repro_torch.kernels.common import (EPILOGUE_CODES, KERNEL_EPILOGUES,
                                         acc_dtype_for, cdiv, finalize,
@@ -320,8 +320,7 @@ def _launch(a, b_packed, n, c, *, out_dtype, **kw) -> torch.Tensor:
     return out
 
 
-gemm_packed_fused_a.launches = 0
-gemm_packed_fused_a.variants = dict.fromkeys(FUSED_BODIES, 0)
+counts_launches(gemm_packed_fused_a, FUSED_BODIES)
 
 
 # ---------------------------------------------------------------------------
@@ -489,5 +488,4 @@ def gemm_packed(a_packed: torch.Tensor, b_packed: torch.Tensor, m: int,
     return out
 
 
-gemm_packed.launches = 0
-gemm_packed.variants = dict.fromkeys(PACKED_VARIANTS, 0)
+counts_launches(gemm_packed, PACKED_VARIANTS)

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.dtypes import dtype_name
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels.common import (EPILOGUE_CODES, acc_dtype_for, cdiv,
                                         finalize, kernel_epilogue_name,
                                         plain_acc)
@@ -358,5 +358,4 @@ def gemm_tiled(a: torch.Tensor, b: torch.Tensor,
                        single_block=single_block, stream=stream)
 
 
-gemm_tiled.launches = 0
-gemm_tiled.variants = dict.fromkeys(TILED_BODIES, 0)
+counts_launches(gemm_tiled, TILED_BODIES)

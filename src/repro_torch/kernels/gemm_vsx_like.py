@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core.dtypes import dtype_name
 from repro_torch.core.tile_format import TileFormat, cdiv
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels import gemm_tiled as gt
 from repro_torch.kernels.common import acc_dtype_for, plain_acc
 from repro_torch.kernels.ref import unpack_b_ref
@@ -149,7 +149,5 @@ def matmul_vsx_like_packed(a: torch.Tensor, b_packed: torch.Tensor, n: int,
                    wrapper=matmul_vsx_like_packed)
 
 
-matmul_vsx_like.launches = 0
-matmul_vsx_like_packed.launches = 0
-matmul_vsx_like.variants = dict.fromkeys(VARIANTS, 0)
-matmul_vsx_like_packed.variants = dict.fromkeys(VARIANTS, 0)
+counts_launches(matmul_vsx_like, VARIANTS)
+counts_launches(matmul_vsx_like_packed, VARIANTS)

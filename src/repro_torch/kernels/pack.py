@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.tile_format import (TileFormat, as_tile_format, cdiv,
                                           quantize_tiles)
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts_launches
 from repro_torch.kernels.ref import pack_a_ref, pack_b_grouped_ref, pack_b_ref
 from repro_torch.testing import faults
 
@@ -308,5 +308,4 @@ def pack_b_grouped(b: torch.Tensor, bk, bn: Optional[int] = None,
 
 
 for _fn in (pack_a, pack_b, pack_b_grouped):
-    _fn.launches = 0
-    _fn.variants = dict.fromkeys(PACK_BODIES, 0)
+    counts_launches(_fn, PACK_BODIES)

@@ -9,9 +9,11 @@ checkpoint in the reference's file format, as ``launch.train`` writes it.
 A VLM gets a batch of patch embeddings, an encoder-decoder one of audio
 frame embeddings, drawn from the same seed as the prompts. After the
 reference's lines it prints the dispatch-health report
-(``core.health.health_report()``); on the card, where no contraction
-degrades (a failing kernel raises), a report that is not empty fails the
-run with exit code 1.
+(``core.health.health_report()``), then whether the decode step is a
+replayed CUDA graph (the engine's default on the card, ``serve.graphs``;
+the steady-state ms/decode-step is then the graph's) or eager; on the
+card, where no contraction degrades (a failing kernel raises), a health
+report that is not empty fails the run with exit code 1.
 
   PYTHONPATH=src python3 -m repro_torch.launch.serve --arch olmo-1b \\
       --requests 8 --prompt-len 16 --new 32 [--ckpt-dir /tmp/ckpt] \\
@@ -95,8 +97,11 @@ def run(argv=None) -> dict:
     print("first request:", out[0][:16].tolist())
     report = health.health_report()
     print("health:", json.dumps(report) if report else "no degradation")
+    print("decode step:", "a captured CUDA graph, replayed"
+          if engine._graphed else "eager")
     return {"cfg": cfg, "tokens": out, "seconds": dt, "tok_s": tok_s,
-            "ms_per_step": ms_step, "health": report,
+            "ms_per_step": ms_step, "graphed": engine._graphed,
+            "health": report,
             "on_card": torch.device(args.device).type == "cuda"}
 
 

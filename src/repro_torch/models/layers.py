@@ -146,7 +146,9 @@ def sinusoidal_embedding(seq_len: int, d_model: int,
     """[seq_len, d_model] f32: sin on the even columns, cos on the odd."""
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None]
-    angle = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d_model)
+    # Scalars stay on the host: a host tensor copied to the card per call
+    # would synchronise, which a captured decode step (whisper's) forbids.
+    angle = pos / torch.pow(10000.0, dim / d_model)
     emb = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
     emb[:, 0::2] = torch.sin(angle)
     emb[:, 1::2] = torch.cos(angle)
@@ -246,8 +248,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask |= (qpb < prefix_len) & (kpb < prefix_len)
         if kv_valid is not None:
             mask &= kv_valid[:, None, :]
-        logits = torch.where(mask[:, None, None], logits,
-                             torch.tensor(-1e30, device=dev))
+        logits = torch.where(mask[:, None, None], logits, -1e30)
         p = torch.softmax(logits, dim=-1)
         # The weights are rounded to V's dtype before the value product.
         out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).to(torch.float32),

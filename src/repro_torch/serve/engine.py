@@ -27,10 +27,24 @@
     process-global registries of ``repro_torch.core.health``.
   * The engine runs on the card by default, and raises without one; pass
     ``device="cpu"`` to run on the CPU.
+  * On the card ``generate``'s decode loop replays a captured CUDA graph
+    (``serve.graphs.StepGraph``), one per batch width and cache layout, as
+    the reference jits its decode: prefill's caches are copied into the
+    graph's static caches, each step's token and position into their
+    static buffers, and the greedy argmax runs inside the graph. A sampled
+    decode (temperature > 0) draws on the host from the graph's static
+    logits. The engine's graphs share one memory pool, and the prefill's
+    caches are freed once copied in. On the CPU, and for a family that
+    ``serve.graphs.EAGER_FAMILIES`` names, the loop runs eagerly; setting
+    the private ``Engine._graphed`` to False runs it eagerly on the card
+    too, the path a graph is compared with. Prefill stays eager (its shape
+    follows the prompt), and so does ``decode_request``, the front end's
+    batch-1 step over a cache per request.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,6 +58,7 @@ from repro_torch.models import Model
 from repro_torch.models.layers import pack_model_params
 from repro_torch.models.moe import GROUP_SIZE, _capacity
 from repro_torch.models.model_registry import resolve_device
+from repro_torch.serve import graphs
 
 
 @dataclasses.dataclass
@@ -142,6 +157,12 @@ class Engine:
         self.cfg = cfg
         self.dispatch_report = serving_dispatch_report(
             model.cfg, cfg, params, on_card=self.device.type == "cuda")
+        # Decode through captured graphs on the card (False: the eager loop).
+        self._graphed = (self.device.type == "cuda"
+                         and graphs.eager_reason(model.cfg) is None)
+        self._graphs: Dict[tuple, graphs.StepGraph] = {}
+        # One memory pool for all of them (made at the first capture).
+        self._graph_pool = None
 
     @torch.inference_mode()
     def _prefill(self, batch):
@@ -160,11 +181,13 @@ class Engine:
         is healthy. Each entry records a ``(spec, lowering)`` that failed
         under guarded dispatch (``contraction.run_guarded``): its failure
         count, classified cause, the fallback that took over and the last
-        failure's detail. The port runs eagerly, so every contraction of
-        every step is guarded, not only the first trace of a program as in
-        the reference's jit'd engine. On the card a failing contraction
-        raises instead (no other lowering takes over there), so nothing
-        of dispatch is recorded. The registry is process-global
+        failure's detail. On the CPU every contraction of every step is
+        guarded. On the card a failing contraction raises instead (no other
+        lowering takes over there), so nothing of dispatch is recorded, and
+        the decode step is a captured graph: its contractions are guarded
+        at the warm-up step and the capture pass only, as the reference's
+        jit'd engine guards the first trace of a program; a replay runs no
+        guard. The registry is process-global
         (``repro_torch.core.health.HEALTH``): engines sharing a process
         share the report."""
         return health.health_report()
@@ -241,10 +264,60 @@ class Engine:
             {**_to_device(inputs, self.device), "tokens": tokens})
         out = []
         tok = self.sample_tokens(last_logits, rids, 0)[:, None]
+        step = None
+        if self._graphed:
+            step = self._decode_graph(caches, b)
+            # The graph's static caches take the prefill's, which go: one
+            # copy of the cache is alive through the decode.
+            graphs.copy_in(step.static["caches"], caches)
+            caches = None
         for i in range(max_new_tokens):
             out.append(tok.cpu().numpy())
-            pos = torch.full((b,), prefix + prompt_len + i, dtype=torch.long,
-                             device=self.device)
-            logits, caches = self._decode(caches, tok.to(torch.long), pos)
-            tok = self.sample_tokens(logits[:, 0], rids, i + 1)[:, None]
+            at = prefix + prompt_len + i
+            if step is None:
+                pos = torch.full((b,), at, dtype=torch.long,
+                                 device=self.device)
+                logits, caches = self._decode(caches, tok.to(torch.long), pos)
+                tok = self.sample_tokens(logits[:, 0], rids, i + 1)[:, None]
+                continue
+            res = step({"tok": tok, "pos": at})
+            tok = (res["next"] if self.cfg.temperature <= 0.0 else
+                   self.sample_tokens(res["logits"], rids, i + 1)[:, None])
         return np.concatenate(out, axis=1)
+
+    def _decode_graph(self, caches, b: int) -> graphs.StepGraph:
+        """The decode step's graph for ``b`` rows of caches of this layout
+        (its key: the caches' structure, shapes and dtypes): static caches,
+        token [B, 1] and position [B], the argmax inside (captured on the
+        card, run over the static tree on the CPU). The engine's graphs
+        share one memory pool, as they replay one at a time on one stream:
+        a graph's outputs hold until the engine's next replay of any width."""
+        key = graphs.signature(caches)
+        step = self._graphs.get(key)
+        on_card = self.device.type == "cuda"
+        if on_card and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        if step is None:
+            static = {"caches": graphs.static_like(caches),
+                      "tok": torch.zeros((b, 1), dtype=torch.long,
+                                         device=self.device),
+                      "pos": torch.zeros((b,), dtype=torch.long,
+                                         device=self.device)}
+            step = graphs.StepGraph(
+                functools.partial(_decode_body, self.model, self.params),
+                static, capture=on_card, pool=self._graph_pool)
+            self._graphs[key] = step
+        return step
+
+
+def _decode_body(model: Model, params, static) -> dict:
+    """The captured decode: the model's step over the static tree, its
+    functional leaves copied back, the logits and their argmax. A function
+    of the model and its weights, not of the engine, so that the graph
+    holds no reference back to the engine that holds it."""
+    logits, caches = model.decode(params, static["caches"], static["tok"],
+                                  static["pos"])
+    graphs.copy_back(static["caches"], caches)
+    logits = logits[:, 0]
+    return {"logits": logits,
+            "next": torch.argmax(logits, dim=-1).to(torch.int32)[:, None]}

@@ -37,13 +37,24 @@ the front end's request-lifecycle contract:
   guarding: a non-finite logits row under ``REPRO_NUMERICS_GUARD=1``
   evicts that row only.
 
-The batched step is a plain eager function, no kernel of its own (the JAX
-package's step is plain ``jnp`` too): :meth:`PagedKVCache.gather` copies
-``pool[:, tables]`` into the dense per-layer view, the unchanged
-``model.decode`` runs on it (its in-place write of the new position lands
-in the copy), and :meth:`PagedKVCache.scatter` commits the one position
-each row wrote — only after a clean step. Dead rows (null tables, token 0,
-position 0) write into the null block and are never read.
+The batched step has no kernel of its own (the JAX package's step is
+plain ``jnp`` too): :meth:`PagedKVCache.gather` copies ``pool[:, tables]``
+into the dense per-layer view, the unchanged ``model.decode`` runs on it
+(its in-place write of the new position lands in the copy), and
+:meth:`PagedKVCache.scatter` commits the one position each row wrote —
+only after a clean step. Dead rows (null tables, token 0, position 0)
+write into the null block and are never read. On the card the gather and
+the decode are one captured CUDA graph (``serve.graphs.StepGraph``) over
+static ``tables`` / ``tok`` / ``pos`` buffers of width ``max_live``, as
+the JAX package compiles its step once: the bisection re-run and the
+resume replay go through the same graph with their dead rows, the scatter
+stays outside it, after a clean step, and so do the host fault sites
+(``batch_step``, ``engine_step``, ``kv_alloc``, ``admission``,
+``sample``), which fire per tick as before. The graph belongs to the
+scheduler, since the capture holds its pool's address (the JAX package
+keys its compiled step by the engine and the geometry). The private
+``_graphed`` (the engine's choice; False runs the step eagerly) is the
+switch the card's tests compare the two paths with.
 
 **One deliberate change of mechanism from the JAX package.** There, the
 bisection re-run and the resume replay run a row ALONE on the batch-1
@@ -74,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -81,10 +93,20 @@ import numpy as np
 import torch
 
 from repro_torch.core import health
+from repro_torch.serve import graphs
 from repro_torch.serve.frontend import RETRYABLE_CLASSES, VirtualClock  # noqa: F401
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.requests import Overloaded, Request, RequestResult
 from repro_torch.testing import faults
+
+
+def _step_body(kv: PagedKVCache, model, params, static) -> dict:
+    """The captured batched step: gather the rows of the static tables
+    from ``kv``'s pool, decode them (a function of the pool and the model,
+    not of the scheduler, so that its graph holds no reference back)."""
+    logits, caches = model.decode(params, kv.gather(static["tables"]),
+                                  static["tok"], static["pos"])
+    return {"logits": logits[:, 0], "caches": caches}
 
 
 @dataclasses.dataclass
@@ -160,6 +182,10 @@ class ContinuousScheduler:
         self.results: Dict[int, RequestResult] = {}
         self._seen: set = set()
         self._admit_seq = 0
+        # The batched step through a graph (the engine's choice; False: the
+        # eager step), built at the first step.
+        self._graphed = engine._graphed
+        self._step_graph: Optional[graphs.StepGraph] = None
 
     # ----- the shared batched decode step ---------------------------------
 
@@ -169,13 +195,40 @@ class ContinuousScheduler:
         """One decode step at width ``max_live``: gather each row's blocks
         into the dense view, run the model's decode. Returns (logits
         [max_live, V], the caches holding each row's write); the pool is
-        untouched until :meth:`_commit_pool`."""
+        untouched until :meth:`_commit_pool`. Through the step's graph
+        when ``_graphed``: its outputs are static, overwritten by the next
+        step."""
+        if self._graphed:
+            step = self._graph()
+            out = step({"tables": tables, "tok": tokens, "pos": pos})
+            return out["logits"], (out["caches"], step.static["tables"],
+                                   step.static["pos"])
         dev = self.engine.device
         tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
         pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
         logits, caches = self.engine._decode(self.kv.gather(tables), tok,
                                              pos_t)
         return logits[:, 0], (caches, tables, pos_t)
+
+    def _graph(self) -> graphs.StepGraph:
+        """This scheduler's batched step as a graph over static ``tables``
+        [max_live, blocks a slot], ``tok`` [max_live, 1] and ``pos``
+        [max_live]: the gather from this scheduler's pool and the decode,
+        captured on the card (run over the static tree on the CPU). It
+        belongs to the scheduler, not to the engine: the capture holds this
+        pool's address."""
+        if self._step_graph is None:
+            dev, width = self.engine.device, self.cfg.max_live
+            static = {"tables": torch.zeros_like(self.kv.device_tables()),
+                      "tok": torch.zeros((width, 1), dtype=torch.long,
+                                         device=dev),
+                      "pos": torch.zeros((width,), dtype=torch.long,
+                                         device=dev)}
+            self._step_graph = graphs.StepGraph(
+                functools.partial(_step_body, self.kv, self.engine.model,
+                                  self.engine.params),
+                static, capture=dev.type == "cuda")
+        return self._step_graph
 
     @torch.inference_mode()
     def _commit_pool(self, written) -> None:

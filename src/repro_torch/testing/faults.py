@@ -32,8 +32,10 @@ typo must not silently disarm a fault matrix).
 
 Determinism: hit counters are process-global and increase monotonically
 per site; :func:`reset` (or the :class:`inject` context manager tests use)
-zeroes them so that every test sees hit #1 first. The port runs eagerly,
-so a probe fires once per call of the code around it.
+zeroes them so that every test sees hit #1 first. An eager call fires a
+probe once per call of the code around it; a captured served step
+(``repro_torch.serve.graphs``) fires the probes of its body in its warm-up
+and capture passes only, never on a replay.
 """
 from __future__ import annotations
 

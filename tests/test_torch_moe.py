@@ -198,6 +198,79 @@ def test_dispatch_report_names_the_grouped_lowerings():
 
 
 # ---------------------------------------------------------------------------
+# The silu-gate pair's geometry: a gate and an up stack of other widths
+# ---------------------------------------------------------------------------
+
+def _pair_inputs(up_shape, seed=0):
+    """The gate [2, 64, 8] and an up stack of ``up_shape`` packed with the
+    gate's plan (stacks of N 8 and 12 pad to one buffer under it), and a
+    [2, 4, 64] activation with its [2, 1, 4, 64] ragged form and counts."""
+    rng = np.random.default_rng(seed)
+    wg = rng.standard_normal((2, 64, 8)).astype(np.float32)
+    wu = rng.standard_normal(up_shape).astype(np.float32)
+    a = rng.standard_normal((2, 4, 64)).astype(np.float32)
+    counts = np.array([[4], [2]], np.int32)
+    return wg, wu, a, counts
+
+
+def _port_pair(wg, wu):
+    gate = GroupedPackedWeight.pack(torch.as_tensor(wg), n_b_streams=2)
+    return gate, GroupedPackedWeight.pack(torch.as_tensor(wu), plan=gate.plan)
+
+
+def _port_silu_gate(gate, up, a, counts, ragged):
+    a = torch.as_tensor(a)
+    if ragged:
+        return gate.silu_gate(up, a.reshape(2, 1, 4, a.shape[-1]),
+                              counts=torch.as_tensor(counts))
+    return gate.silu_gate(up, a)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["packed", "ragged"])
+@pytest.mark.parametrize("up_shape", [(2, 64, 12), (2, 48, 8), (3, 64, 8)],
+                         ids=["n", "k", "e"])
+def test_silu_gate_pair_of_another_geometry_raises(up_shape, ragged):
+    """A pair whose N, K or E differ raises ValueError before any lowering
+    runs (the probe of N 8 against 12 returned a truncated [2, 4, 8]
+    product before the check compared widths)."""
+    wg, wu, a, counts = _pair_inputs(up_shape)
+    gate, up = _port_pair(wg, wu)
+    with pytest.raises(ValueError, match="one geometry"):
+        _port_silu_gate(gate, up, a, counts, ragged)
+
+
+def test_reference_silu_gate_raises_on_the_pair_of_other_widths():
+    """The reference refuses the same pair (N 8 against 12, packed with the
+    gate's plan) in its count-free form: its product of the two streams
+    cannot broadcast."""
+    wg, wu, a, _ = _pair_inputs((2, 64, 12))
+    gate = RefGroupedPackedWeight.pack(jnp.asarray(wg), n_b_streams=2)
+    up = RefGroupedPackedWeight.pack(jnp.asarray(wu), plan=gate.plan)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        gate.silu_gate(up, jnp.asarray(a))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["packed", "ragged"])
+def test_matched_silu_gate_pair_matches_reference(ragged):
+    """A pair of one geometry still runs: silu(a @ Wg) * (a @ Wu) within
+    1e-5 of the reference's on the same numpy inputs (f32)."""
+    wg, wu, a, counts = _pair_inputs((2, 64, 8), seed=1)
+    gate, up = _port_pair(wg, wu)
+    got = _port_silu_gate(gate, up, a, counts, ragged).numpy()
+    rgate = RefGroupedPackedWeight.pack(jnp.asarray(wg), n_b_streams=2)
+    rup = RefGroupedPackedWeight.pack(jnp.asarray(wu), plan=rgate.plan)
+    if ragged:
+        want = rgate.silu_gate(rup, jnp.asarray(a.reshape(2, 1, 4, 64)),
+                               counts=jnp.asarray(counts))
+    else:
+        want = rgate.silu_gate(rup, jnp.asarray(a))
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
 # On the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 

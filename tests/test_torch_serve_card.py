@@ -119,6 +119,9 @@ def test_batched_row_is_bitwise_the_row_alone(device):
         pos[row] = slot.req.tokens.shape[0] + len(slot.emitted) - 1
     gp.gemm_packed_fused_a.launches = 0
     logits, _ = cs._step(cs.kv.device_tables(), tokens, pos)
+    # On the card the step's logits are its graph's static output, which
+    # the row steps below overwrite.
+    logits = logits.clone()
     launched = gp.gemm_packed_fused_a.launches
     for row in cs._live:
         alone, _ = cs._row_step(row, int(tokens[row, 0]), int(pos[row]))
