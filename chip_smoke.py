@@ -108,11 +108,17 @@ Phases (any failure exits non-zero and prints no result line):
      graph (``repro_torch.serve.graphs``): the counted call's first step
      warms it up and captures it, every later step replays it, and the
      replays' launches (credited by the graph) are counted as eager ones.
-     Then generate through the graph and eagerly (``Engine._graphed =
+     Then generate through the graphs and eagerly (``Engine._graphed =
      False``): greedy tokens bitwise equal and launches by body equal, else
      the run fails; each timed end to end (decode ms/step) and alone (an
      eager decode forward, a graph replay), with its device-busy share by
      torch.profiler (over eager steps, over replays) and the capture's ms.
+     The prefill is a graph per prompt shape (the counted call's prefill
+     is its eager warm-up, the next call captures): its logits and the
+     caches it writes bitwise the eager prefill's, its ms as served and
+     its replay's against the eager forward (CUDA events), the replay's
+     busy share (torch.profiler) and kernel records held to its credit,
+     its capture's ms (``prefill_graph_check``; likewise in 3, 3b, 3c, 5).
   2b. Serve the same olmo-1b (phase 2's bf16 weights, packed again at
      load) through the serving stack: ``ContinuousScheduler`` (max_live 8,
      block_size 16, max_len 256, bf16 cache) over its paged KV pool, on 24
@@ -133,7 +139,14 @@ Phases (any failure exits non-zero and prints no result line):
      (gather and decode; the scatter outside): each of (i)-(iv) runs
      through it and eagerly, with the same tokens, statistics, lifecycle
      events and launches by body, else the run fails; the step at 8 rows
-     is bitwise the eager step's and timed both ways.
+     is bitwise the eager step's and timed both ways. The engine's
+     prefills (admissions, resumes) go through its prefill graphs in the
+     graph runs and eagerly in the eager runs: each run prints the prefill
+     graphs captured and replayed and the host ms a batched step with the
+     prefills included. The batch-1 front end runs on the graphs (the
+     prefill's and the width-1 decode graph, a slot's caches copied in and
+     back each step, the copy timed) and eagerly: its streams bitwise
+     equal, else the run fails, and the tokens/s of each.
   3. Serve mixtral-8x22b at its published widths (d_model 6144, 48 heads /
      8 KV heads x 128, d_ff 16384, 8 experts top-2, vocab 32768) with its
      depth cut to 4 of 56 layers — the only cut, forced by memory (4
@@ -210,7 +223,16 @@ Phases (any failure exits non-zero and prints no result line):
      prefill ms and decode ms/step, eager and as a graph replay (CUDA
      events), and their device busy time (torch.profiler); a family that
      ``serve.graphs.EAGER_FAMILIES`` names decodes eagerly, printed with
-     its reason.
+     its reason. In the main process each config's prefill graph (captured
+     by the graph run) must give the eager prefill's logits and caches
+     bitwise; in the timing process its call as served and its replay in
+     CUDA events, the replay's busy share, its logits bitwise and its
+     kernel records, held to the main process's credit. For phi3-mini,
+     hymba-1.5b and whisper-base the timing process also traces the
+     prefill's error against the plain versions stage by stage (each
+     layer's residual stream, whisper's encoder output, the logits): the
+     two paths run apart, and the error each stage adds on the plain
+     path's input (``prefill_layer_errors``).
   8. Train full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16
      compute over f32 masters, remat) through the launcher's entry point,
      ``repro_torch.launch.train.main`` (4 x 512 Markov tokens a step, 6
@@ -247,12 +269,13 @@ Phases (any failure exits non-zero and prints no result line):
      ``packed_weight`` raise ``NumericsError`` naming the spec. What each
      spec ran and raised is printed. (c) ``kernel_run`` armed at its
      first hit during ``Engine.generate`` on full-width olmo-1b, packed,
-     4 x 128 + 8 steps: the call raises in the prefill naming the spec,
+     4 x 128 + 8 steps (the prefill graph's capture: its first call ran
+     before the fault): the call raises in the prefill naming the spec,
      nothing is recorded, and the same engine's next call gives the
      tokens of a call before the fault; on a fresh engine, armed at the
      first hit past the prefill's, it raises at the decode graph's
      warm-up naming the spec, no graph is kept, and the next call
-     captures and gives those tokens. (d)
+     warms up again, captures at its second step and gives those tokens. (d)
      ``launch.serve`` on the card with no device flag, full-width
      olmo-1b, 4 requests x 128 + 16 tokens: tokens/s and ms/decode-step
      beside the card's line; then ``launch.train.main`` at the tiny
@@ -3154,6 +3177,11 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
     return launches, rows, grows, variants
 
 
+# The margin profile_kernels spins for before and after the profiled
+# calls: about 10 ms of an H100's clock.
+PROFILE_MARGIN_CYCLES = 20_000_000
+
+
 def profile_kernels(torch, fn, reps, counts=None) -> tuple:
     """torch.profiler (CUPTI) over ``reps`` calls of ``fn(i)``, after one
     unprofiled call: ({kernel name: device us summed over the calls}, the
@@ -3167,16 +3195,26 @@ def profile_kernels(torch, fn, reps, counts=None) -> tuple:
     fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # A spin kernel before and after the calls: the profiler drops a
+        # device record that falls outside its window on the host's clock,
+        # and the two clocks drift apart over a long process (late in the
+        # smoke a replay's profile read one record short, three times).
+        torch.cuda._sleep(PROFILE_MARGIN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(reps):
             fn(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda._sleep(PROFILE_MARGIN_CYCLES)
+        torch.cuda.synchronize()
     dev, records, launched = {}, 0, 0
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = getattr(ev, "self_cuda_time_total", 0.0)
+        if "spin_kernel" in ev.key:
+            continue
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             if t > 0:
                 dev[ev.key] = t
@@ -3187,6 +3225,7 @@ def profile_kernels(torch, fn, reps, counts=None) -> tuple:
             continue
         if "LaunchKernel" in ev.key:
             launched += ev.count
+    launched = max(launched - 2, 0)   # the two spin kernels
     kept = f"{records}/{launched}" if launched else f"{records}/not seen"
     return dev, kept, wall_ms
 
@@ -3337,16 +3376,108 @@ def kernel_counts(torch, fn, reps) -> dict:
     return counts
 
 
-def decode_graph(engine):
-    """The engine's one decode graph (phases 2-5 serve one batch width)."""
-    (step,) = engine._graphs.values()
+def decode_graph(engine, width):
+    """The engine's decode graph of ``width`` rows (phases 2-5 serve one
+    batch width; a ``prefill_request`` also makes the width-1 graph whose
+    static caches its prefill writes). The prefill's graphs are kept apart
+    (``engine._prefill_graphs``)."""
+    (step,) = [g for g in engine._graphs.values()
+               if g.static["tok"].shape[0] == width]
     return step
+
+
+class eager_steps:
+    """Within the block the engine runs its eager prefill and decode
+    (``_graphed = False``): the route a graph is compared with, and the one
+    a run on swapped kernels must take, since a capture there would keep
+    the swap."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        self.graphed = self.engine._graphed
+        self.engine._graphed = False
+
+    def __exit__(self, *exc):
+        self.engine._graphed = self.graphed
+
+
+def prefill_graph_of(engine, batch):
+    """The engine's prefill graph for ``batch``'s signature."""
+    from repro_torch.serve import graphs
+    return engine._prefill_graphs[graphs.signature(batch)]
+
+
+def prefill_graph_bitwise(torch, engine, batch) -> tuple:
+    """The engine's prefill graph for ``batch``, called until a call has
+    replayed it, against the eager prefill: (its logits bitwise the eager
+    prefill's, the caches it writes bitwise, the graph)."""
+    from repro_torch.serve import graphs
+    logits_e, caches_e = engine._prefill(batch)
+    for _ in range(3):
+        logits_g, caches_g = engine._graphed_prefill(batch)
+        step = prefill_graph_of(engine, batch)
+        if step.replays:
+            break
+    torch.cuda.synchronize()
+    leaves = [list(graphs._leaves(c)) for c in (caches_g, caches_e)]
+    caches_equal = len(leaves[0]) == len(leaves[1]) and all(
+        torch.equal(a, b) for a, b in zip(*leaves))
+    return bool(torch.equal(logits_g, logits_e)), caches_equal, step
+
+
+def prefill_graph_check(torch, engine, batch, label, reps=3) -> dict:
+    """The prefill's graph for ``batch`` (the model-format batch on the
+    card, as ``generate`` builds it) against the eager prefill: called
+    until it has captured, then once more (a replay); its logits and the
+    caches it writes bitwise the eager prefill's, else the run fails. Then
+    each timed in CUDA events (``reps`` calls: the eager forward, and the
+    graph's call as served, its input copy and replay), the replay alone
+    timed and profiled (torch.profiler): its device busy share against the
+    replay alone, and its kernel records held to the graph's credit
+    (``replay_launch_check``). Returns what it measured."""
+    t0 = time.perf_counter()
+    logits_equal, caches_equal, step = prefill_graph_bitwise(torch, engine,
+                                                             batch)
+    eager_ms = time_ms(lambda i: engine._prefill(batch), reps)
+    graph_ms = time_ms(lambda i: engine._graphed_prefill(batch), reps)
+    replay_ms = time_ms(lambda i: step.graph.replay(), reps)
+    counts = {}
+    dev, kept, _ = profile_kernels(torch, lambda i: step.graph.replay(), 1,
+                                   counts)
+    busy = sum(dev.values()) / 1e3
+    out = dict(logits_bitwise_equal=logits_equal,
+               caches_bitwise_equal=caches_equal, eager_ms=eager_ms,
+               graph_ms=graph_ms, replay_ms=replay_ms, replay_busy_ms=busy,
+               replay_busy_share=busy / replay_ms, records_kept=kept,
+               warmup_ms=step.warmup_ms, capture_ms=step.capture_ms,
+               capture_reserved_bytes=step.capture_reserved_bytes,
+               tokens_shape=list(batch["tokens"].shape))
+    log(f"  {label}, the prefill graph ({tuple(batch['tokens'].shape)}): logits "
+        f"bitwise the eager prefill's {logits_equal}, caches {caches_equal}; "
+        f"eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms as served, replay "
+        f"alone {replay_ms:.3f} ms (CUDA events, {reps} calls), device busy "
+        f"{busy:.3f} ms = {100 * busy / replay_ms:.1f}% of the replay (records "
+        f"kept {kept}); warm-up {step.warmup_ms:.1f} ms, capture "
+        f"{step.capture_ms:.1f} ms, reserved "
+        f"{step.capture_reserved_bytes / 1e6:.1f} MB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (logits_equal and caches_equal):
+        raise AssertionError(f"{label}: the prefill graph differs from the "
+                             f"eager prefill: logits {logits_equal}, caches "
+                             f"{caches_equal}")
+    out["replay_records"] = replay_launch_check(
+        lambda: kernel_counts(torch, lambda i: step.graph.replay(), 1),
+        step.credit, 1, f"{label}, the prefill graph", counts)
+    return out
 
 
 def graph_against_eager(torch, counters, engine, batch, steps, label) -> dict:
     """``Engine.generate`` of ``steps`` greedy steps through the engine's
-    decode graph (captured by an earlier call, so every step replays it)
-    and eagerly (``engine._graphed = False``), the counters at 0 before
+    decode graph (captured by an earlier call, so every step replays it,
+    else warmed up at its first step and captured at its second) and
+    eagerly (``engine._graphed = False``), the counters at 0 before
     each: the greedy tokens must be bitwise equal, and the launches by body
     of the replays equal to the eager steps'. Returns what it found."""
     import numpy as np
@@ -3361,17 +3492,23 @@ def graph_against_eager(torch, counters, engine, batch, steps, label) -> dict:
             engine._graphed = True
         runs[mode] = (tokens, counters.read(), counters.variants())
     (tok_g, n_g, by_g), (tok_e, n_e, by_e) = runs["graph"], runs["eager"]
-    step = decode_graph(engine)
+    step = decode_graph(engine, batch["tokens"].shape[0])
+    pre = [g for g in engine._prefill_graphs.values()
+           if g.static["tokens"].shape == tuple(batch["tokens"].shape)]
     out = dict(tokens_bitwise_equal=bool(np.array_equal(tok_g, tok_e)),
                launches_equal=n_g == n_e and by_g == by_e,
                launches={k: v for k, v in n_g.items() if v},
                replays=step.replays, warmup_ms=step.warmup_ms,
-               capture_ms=step.capture_ms)
-    log(f"  {label}, graph against eager ({steps} steps, each a replay): "
-        f"greedy tokens bitwise equal {out['tokens_bitwise_equal']}; launches "
-        f"by body equal {out['launches_equal']} ({out['launches']}); first "
-        f"step {step.warmup_ms:.1f} ms warm-up + {step.capture_ms:.1f} ms "
-        f"capture; {step.replays} replays so far")
+               capture_ms=step.capture_ms,
+               prefill_replays=sum(g.replays for g in pre))
+    log(f"  {label}, graph against eager ({steps} steps, each a replay; the "
+        f"prefill through its graph, then eagerly): greedy tokens bitwise "
+        f"equal {out['tokens_bitwise_equal']}; launches by body equal "
+        f"{out['launches_equal']} ({out['launches']}); warm-up (its first "
+        f"step, host ms to issue) {step.warmup_ms:.1f} ms, capture (its "
+        f"second) {step.capture_ms:.1f} ms; "
+        f"{step.replays} decode replays, {out['prefill_replays']} prefill "
+        f"replays so far")
     if not (out["tokens_bitwise_equal"] and out["launches_equal"]):
         raise AssertionError(f"{label}: the decode graph differs from the eager "
                              f"loop: tokens {out['tokens_bitwise_equal']}, "
@@ -3438,7 +3575,7 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags, counters,
     _, caches = engine._prefill(batch)
     tok = torch.zeros((b, 1), dtype=torch.long, device=DEVICE)
     pos0 = prompt.shape[1]
-    graph = decode_graph(engine)
+    graph = decode_graph(engine, b)
     graph({"caches": caches, "tok": tok, "pos": pos0})
 
     def step(i):
@@ -3485,8 +3622,10 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags, counters,
             check["replay_records"] = replay_launch_check(
                 lambda: kernel_counts(torch, replay, steps_p), graph.credit,
                 steps_p, f"{label}, the decode graph", counts)
+    prefill = prefill_graph_check(torch, engine, batch, label)
     return dict(modes["graph"], model_prefill_ms=ms_prefill,
-                eager=modes["eager"], graph_check=check)
+                eager=modes["eager"], graph_check=check,
+                prefill_graph=prefill)
 
 
 # The raw prefill's kernels in a profile: K5's three bodies ("k5_"), K1's
@@ -3627,8 +3766,8 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
     # -- logits against the plain version on the card ----------------------
     # The reference forward swaps the kernel for its plain version where the
     # packed-weight lowering calls it, for this one prefill only.
-    logits_k, _ = engine.prefill_request(prompt[0])
-    with plain_kernels(gp, None):
+    logits_k = engine.prefill_request(prompt[0])[0].clone()
+    with plain_kernels(gp, None), eager_steps(engine):
         logits_p, _ = engine.prefill_request(prompt[0])
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits_k).all()):
@@ -3673,21 +3812,60 @@ def continuous_requests(serve, vocab, n=CONT_REQUESTS, seed=7):
 
 
 class ForwardCount:
-    """The forwards of a scheduler's run, counted: the model's prefills (an
-    Engine built on ``model`` calls these; prefills of more than 16 rows
-    apart: their projections take K1's wgmma body, every other forward
-    tc_stream) and the batched steps that ran (``count_steps``: each call
-    of a scheduler's ``_step`` runs one decode forward, eagerly or as a
-    graph's warm-up or replay)."""
+    """The forwards of a scheduler's run, counted: the model's prefills
+    (prefills of more than 16 rows apart: their projections take K1's wgmma
+    body, every other forward tc_stream) and the batched steps that ran
+    (``count_steps``: each call of a scheduler's ``_step`` runs one decode
+    forward, eagerly or as a graph's warm-up or replay). A prefill runs
+    eagerly (an Engine built on ``model`` calls these: its eager prefill,
+    or a prefill graph's warm-up; a capture pass, which runs no forward, is
+    not counted) or as a replay of one of the engine's prefill graphs
+    (``watch(engine)``; read from the graphs' replay counts)."""
 
     def __init__(self, model):
-        self.prefills = self.long_prefills = self.decodes = 0
+        from repro_torch.core import health
+        self.eager_prefills = self.eager_long = self.decodes = 0
+        self._engine = None
+        self._base = (0, 0, 0)
 
         def prefill(params, batch, **kw):
-            self.prefills += 1
-            self.long_prefills += int(batch["tokens"].shape[1] > 16)
+            if not health.capturing():
+                self.eager_prefills += 1
+                self.eager_long += int(batch["tokens"].shape[1] > 16)
             return model.prefill(params, batch, **kw)
         self.model = dataclasses.replace(model, prefill=prefill)
+
+    def watch(self, engine):
+        """Count the replays of ``engine``'s prefill graphs too (held by a
+        weak reference: the engine's model holds this counter)."""
+        import weakref
+        self._engine = weakref.ref(engine)
+        self._base = self._graphs()
+
+    def _graphs(self) -> tuple:
+        """(replays, replays of prompts over 16 tokens, graphs captured) of
+        the watched engine's prefill graphs."""
+        engine = self._engine() if self._engine is not None else None
+        steps = list(engine._prefill_graphs.values()) if engine else []
+        return (sum(g.replays for g in steps),
+                sum(g.replays for g in steps
+                    if g.static["tokens"].shape[1] > 16),
+                sum(g.graph is not None for g in steps))
+
+    @property
+    def prefills(self) -> int:
+        return self.eager_prefills + self._graphs()[0] - self._base[0]
+
+    @property
+    def long_prefills(self) -> int:
+        return self.eager_long + self._graphs()[1] - self._base[1]
+
+    def prefill_graphs(self) -> dict:
+        """The prefill graphs' captures and replays since the last reset,
+        and the prefills that ran eagerly (warm-ups, or the eager route)."""
+        now = self._graphs()
+        return dict(captures=now[2] - self._base[2],
+                    replays=now[0] - self._base[0], eager=self.eager_prefills)
 
     def count_steps(self, cs):
         step = cs._step
@@ -3698,13 +3876,51 @@ class ForwardCount:
         cs._step = counted
 
     def reset(self):
-        self.prefills = self.long_prefills = self.decodes = 0
+        self.eager_prefills = self.eager_long = self.decodes = 0
+        self._base = self._graphs()
+
+
+def prefill_replays(engine) -> dict:
+    """{signature: replays so far} of the engine's prefill graphs."""
+    return {k: g.replays for k, g in engine._prefill_graphs.items()}
+
+
+def prefill_replay_checks(torch, engine, before, label) -> dict:
+    """The prefill graphs replayed since ``before`` (``prefill_replays``)
+    held to their credit (``replay_launch_check``, one profiled replay
+    each): the shortest prompt and the longest, whose projections take
+    K1's tc_stream body at 16 tokens and wgmma above. Returns the records
+    by prompt length."""
+    replayed = sorted((g for k, g in engine._prefill_graphs.items()
+                       if g.replays > before.get(k, 0)),
+                      key=lambda g: g.static["tokens"].shape[1])
+    out = {}
+    for g in replayed[:1] + replayed[1:][-1:]:
+        shape = tuple(g.static["tokens"].shape)
+        out[shape[1]] = replay_launch_check(
+            lambda g=g: kernel_counts(torch, lambda i: g.graph.replay(), 1),
+            g.credit, 1, f"{label}, the prefill graph of {shape}")
+    return out
+
+
+def prefill_shares(counts) -> str:
+    """A run's prefills through the graphs (``ForwardCount.prefill_graphs``)
+    by kind: eager warm-ups, captures (each also replays) and replays."""
+    n = counts["eager"] + counts["replays"]
+    if not n:
+        return "none"
+    return (f"{n} prefills, {counts['eager']} warm-ups "
+            f"({100 * counts['eager'] / n:.1f}%), {counts['captures']} "
+            f"captures ({100 * counts['captures'] / n:.1f}%), "
+            f"{counts['replays']} replays ({100 * counts['replays'] / n:.1f}%, "
+            f"the captures' own among them)")
 
 
 def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
                    fault=None, record=None, graphed=True, **cfg):
     """Serve ``reqs`` (all at t = 0) through a fresh ContinuousScheduler,
-    its batched step a captured graph (``graphed``) or eager, counted:
+    its batched step and the engine's prefills through their captured
+    graphs (``graphed``) or eager, counted:
     conservation and a drained pool, K1 the only kernel, every launch on
     tc_stream or wgmma (113 a forward: 112 projections and the LM head; a
     prefill's projections on wgmma). ``fault`` arms batch_step at those
@@ -3719,7 +3935,9 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
         queue_capacity=len(reqs), max_live=CONT_LIVE, block_size=CONT_BLOCK,
         max_retries=1, **cfg))
     cs._graphed = graphed
+    engine._graphed = graphed
     fwd.count_steps(cs)
+    replays_before = prefill_replays(engine)
     if record is not None:
         commit = cs._commit_rows
 
@@ -3743,7 +3961,9 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
         cs.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    engine._graphed = True
     launches, bodies = counters.read(), launches_by_body(counters)
+    prefill_graphs = fwd.prefill_graphs()
     s = cs.stats()
     events = {}
     for rec in engine.serve_report()["requests"].values():
@@ -3770,7 +3990,7 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
                prefills=fwd.prefills, decode_steps=fwd.decodes, peak_blocks=peak,
                kv_blocks=cs.kv.alloc.capacity, pool_bytes=cs.kv.pool_bytes(),
                stats=s, events=events, k1_launches=launches["gemm_packed_fused_a"],
-               k1_launches_by_body=bodies)
+               k1_launches_by_body=bodies, prefill_graphs=prefill_graphs)
     if graphed:
         # What a replay of the scheduler's step launches, measured: one
         # replay profiled (the graph alone: its credit is not applied, and
@@ -3780,13 +4000,16 @@ def continuous_run(torch, serve, engine, counters, fwd, reqs, label, *,
                    warmup_ms=sg.warmup_ms,
                    replay_records=replay_launch_check(
                        lambda: kernel_counts(torch, lambda i: sg.graph.replay(), 1),
-                       sg.credit, 1, f"{label}, the scheduler's step"))
+                       sg.credit, 1, f"{label}, the scheduler's step"),
+                   prefill_replay_records=prefill_replay_checks(
+                       torch, engine, replays_before, label))
     log(f"  {label}, {'graph' if graphed else 'eager'}: {n_tok} tokens in "
         f"{wall:.2f} s = {n_tok / wall:.1f} tokens/s, "
         f"{out['ms_per_step']:.2f} ms a batched step (host clock, the run's "
         f"prefills included); {fwd.prefills} prefills, {fwd.decodes} batched "
         f"steps"
-        + (f" ({out['replays']} replays, capture {out['capture_ms']:.1f} ms)"
+        + (f" ({out['replays']} replays, capture {out['capture_ms']:.1f} ms; "
+           f"prefills through their graphs: {prefill_shares(prefill_graphs)})"
            if graphed else "") + ", peak "
         f"{peak}/{cs.kv.alloc.capacity} KV blocks, pool {cs.kv.pool_bytes()} "
         f"bytes; completed {s['completed']} evicted {s['evicted']} preempted "
@@ -3827,6 +4050,7 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         max_len=MAX_LEN, pack_weights=True, cache_dtype="bfloat16"),
         device=DEVICE)
     torch.cuda.synchronize()
+    fwd.watch(engine)
     load, load_bodies = counters.read(), launches_by_body(counters, "pack_b")
     log(f"  Engine (packed, max_len {MAX_LEN}, bf16 cache) in "
         f"{time.perf_counter() - t0:.2f} s; load launches {load}, K5 by body "
@@ -3858,11 +4082,14 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
                     launches_by_body=run_g["k1_launches_by_body"]
                     == run_e["k1_launches_by_body"])
         run_g["eager"] = {k: run_e[k] for k in ("wall_s", "tokens_per_s",
-                                                 "ms_per_step", "decode_steps")}
+                                                 "ms_per_step", "decode_steps",
+                                                 "prefills")}
         run_g["equal_to_eager"] = same
         log(f"  {label}: graph against eager: {same}; "
             f"{run_g['tokens_per_s']:.1f} against {run_e['tokens_per_s']:.1f} "
-            f"tokens/s")
+            f"tokens/s; host ms per batched step, the run's prefills included, "
+            f"{run_g['ms_per_step']:.2f} against {run_e['ms_per_step']:.2f}; "
+            f"prefill graphs {run_g['prefill_graphs']}")
         if not all(same.values()):
             raise AssertionError(f"{label}: the graph's run differs from the "
                                  f"eager run: {same}")
@@ -3987,6 +4214,8 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
             rec_1[int(rids[0]), int(step)] = logits[0].clone()
         return sample(logits, rids, step)
     engine.sample_tokens = sample_1
+    fwd.reset()
+    fe_before = prefill_replays(engine)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in subset:
@@ -3994,6 +4223,24 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
     fe.drain()
     torch.cuda.synchronize()
     fe_wall = time.perf_counter() - t0
+    fe_prefills = fwd.prefill_graphs()
+    fe_decode = decode_graph(engine, 1)
+    # What the front end's replays launched, measured: the width-1 decode
+    # graph and its prefill graphs, each held to its credit.
+    fe_records = dict(
+        decode=replay_launch_check(
+            lambda: kernel_counts(torch, lambda i: fe_decode.graph.replay(), 1),
+            fe_decode.credit, 1, "batch-1 front end, the width-1 decode graph"),
+        prefill=prefill_replay_checks(torch, engine, fe_before,
+                                      "batch-1 front end"))
+    # What the batch-1 graph route adds to a step: one slot's caches copied
+    # into the graph's static caches and, at the commit, back.
+    from repro_torch.serve import graphs
+    slot_caches = graphs.clone(fe_decode.static["caches"])
+    fe_copy_ms = time_ms(lambda i: (
+        graphs.copy_in(fe_decode.static["caches"], slot_caches),
+        graphs.copy_back(slot_caches, fe_decode.static["caches"])), 8)
+    del slot_caches
     # Back to the class's method: an instance attribute holding the bound
     # method would be a cycle that keeps the engine, its weights and its
     # graphs alive past the phase, until a garbage collection.
@@ -4001,6 +4248,37 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
     health.clear_serve()
     fe_tok = {rid: res.tokens.tolist() for rid, res in fe.results.items()}
     fe_n = sum(len(t) for t in fe_tok.values())
+    # The same requests through the eager front end (the engine's eager
+    # prefill and decode): the streams must be bitwise the graphs'.
+    fe_e = serve.StreamFrontend(engine, serve.StreamConfig(
+        queue_capacity=CONT_SUBSET, max_live=CONT_LIVE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eager_steps(engine):
+        for r in subset:
+            fe_e.submit(r)
+        fe_e.drain()
+        torch.cuda.synchronize()
+    fe_e_wall = time.perf_counter() - t0
+    health.clear_serve()
+    fe_e_status = {rid: (res.status, res.tokens.tolist())
+                   for rid, res in fe_e.results.items()}
+    fe_status = {rid: (res.status, res.tokens.tolist())
+                 for rid, res in fe.results.items()}
+    fe_bitwise = fe_status == fe_e_status
+    log(f"  batch-1 StreamFrontend on the graphs (the prefill's, one per prompt "
+        f"length: {prefill_shares(fe_prefills)}; the width-1 decode graph: "
+        f"{fe_decode.replays} replays so far, capture "
+        f"{fe_decode.capture_ms:.1f} ms; a slot's caches copied in and back "
+        f"{fe_copy_ms:.3f} ms a step, CUDA events): {fe_n} tokens in "
+        f"{fe_wall:.2f} s = "
+        f"{fe_n / fe_wall:.1f} tokens/s; eager {fe_n} tokens in "
+        f"{fe_e_wall:.2f} s = {fe_n / fe_e_wall:.1f} tokens/s "
+        f"({fe_e_wall / fe_wall:.2f}x); streams bitwise the eager front "
+        f"end's {fe_bitwise}")
+    if not fe_bitwise:
+        raise AssertionError("the batch-1 front end's streams on the graphs "
+                             "differ from its eager streams")
     fe_same = sum(a == b for rid in fe_tok for a, b in zip(fe_tok[rid], tok_b[rid]))
     if fe_n != sub_b["tokens"]:
         raise AssertionError("the batch-1 front end emitted another count")
@@ -4029,7 +4307,8 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         f"{sub_b['tokens_per_s']:.1f} tokens/s = "
         f"{sub_b['tokens_per_s'] * fe_wall / fe_n:.2f}x; greedy tokens equal "
         f"{fe_same}/{fe_n} (reported only)")
-    del cs, fe, engine
+    fe_replays = fe_decode.replays
+    del cs, fe, fe_e, fe_decode, engine
     out = dict(runs=[run_i, run_ii, run_iii, run_iv],
                **step_t["graph"], eager_step=step_t["eager"],
                graph_step_equal_to_eager=eager_equal,
@@ -4038,6 +4317,12 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
                rows_alone_equal=alone_equal, batch1_rows_equal=b1_equal,
                batch1_max_abs_diff=b1_max, subset_scheduler=sub_b,
                subset_frontend_tokens_per_s=fe_n / fe_wall,
+               subset_frontend_eager_tokens_per_s=fe_n / fe_e_wall,
+               frontend_graph_bitwise_eager=fe_bitwise,
+               frontend_prefill_graphs=fe_prefills,
+               frontend_replay_records=fe_records,
+               frontend_decode_replays=fe_replays,
+               frontend_copy_ms=fe_copy_ms,
                batched_over_batch1=sub_b["tokens_per_s"] * fe_wall / fe_n,
                frontend_equal_tokens=fe_same / fe_n,
                frontend_rows_compared=pairs, frontend_rows_bitwise=bitwise,
@@ -4108,7 +4393,7 @@ def phase_serve_raw(torch, counters, ctr, serve, packed_run):
                              f"K5 {k5_bodies}")
     check_tokens(tokens, cfg)
 
-    logits_raw, _ = engine.prefill_request(prompt[0])
+    logits_raw = engine.prefill_request(prompt[0])[0].clone()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits_raw).all()):
         raise AssertionError("non-finite logits")
@@ -4374,15 +4659,22 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
     serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     peak_gb = max(load_peak_gb, serve_peak_gb)
     graph_gb = torch.cuda.memory_allocated() / 1e9
-    graph = decode_graph(engine)
+    graph = decode_graph(engine, PROMPT[0])
     static_gb = graph.static_bytes / 1e9
     pool_gb = graph.capture_reserved_bytes / 1e9
+    # The prefill's graph writes the decode graph's static caches and
+    # shares its pool: its capture reserves the pool's new segments only.
+    prefill_pool_gb = sum(g.capture_reserved_bytes or 0 for g in
+                          engine._prefill_graphs.values()) / 1e9
     log(f"  memory: {held_gb:.2f} GB held from earlier phases at the start; "
         f"peak to the end of the load {load_peak_gb:.2f} GB, over the served "
         f"runs {serve_peak_gb:.2f} GB; {graph_gb:.2f} GB allocated with the "
-        f"decode graph alive, of which its static tree {static_gb:.3f} GB "
-        f"(the caches, max_len {MAX_LEN}), and its capture reserved "
-        f"{pool_gb:.3f} GB for its pool")
+        f"graphs alive, of which the decode graph's static tree "
+        f"{static_gb:.3f} GB (the caches, max_len {MAX_LEN}, which the "
+        f"prefill graph writes too); the decode graph's capture reserved "
+        f"{pool_gb:.3f} GB for the pool, the "
+        f"{len(engine._prefill_graphs)} prefill graph(s)' "
+        f"{prefill_pool_gb:.3f} GB more")
     timings.update(rel_fro_pinned=rel_p, rel_fro_free=rel_f,
                    expert_choice_flips_free=flips_free,
                    expert_choices=n_choices, first_generate_ms=t_gen * 1e3,
@@ -4392,7 +4684,8 @@ def phase_mixtral(torch, gp, gg, counters, cfgs, models, serve):
                    peak_gb=peak_gb, load_peak_gb=load_peak_gb,
                    serve_peak_gb=serve_peak_gb, held_gb=held_gb,
                    allocated_with_graph_gb=graph_gb, graph_static_gb=static_gb,
-                   graph_pool_reserved_gb=pool_gb)
+                   graph_pool_reserved_gb=pool_gb,
+                   prefill_graph_pool_reserved_gb=prefill_pool_gb)
     del engine
     torch.cuda.empty_cache()
     return load, launches, timings, check["logits"]
@@ -4684,7 +4977,23 @@ def phase_family(torch, gp, gg, counters, cfgs, models, serve, arch, seed,
         graph_check = graph_against_eager(torch, counters, engine, batch,
                                           FAMILY_STEPS, arch)
         # Held against a replay's kernel records in the timing process.
-        graph_check["credit_by_class"] = credit_by_class(decode_graph(engine).credit)
+        graph_check["credit_by_class"] = credit_by_class(
+            decode_graph(engine, FAMILY_PROMPT[0]).credit)
+        # The prefill's graph, captured by graph_against_eager's run, against
+        # the eager prefill (bitwise); timed and held to its records in the
+        # timing process, against this credit.
+        *equal, step = prefill_graph_bitwise(torch, engine, batch)
+        graph_check.update(prefill_logits_bitwise_equal=equal[0],
+                           prefill_caches_bitwise_equal=equal[1],
+                           prefill_replays=step.replays,
+                           prefill_capture_ms=step.capture_ms,
+                           prefill_credit_by_class=credit_by_class(step.credit))
+        log(f"  {arch}, the prefill graph ({step.replays} replays): logits "
+            f"bitwise the eager prefill's {equal[0]}, caches {equal[1]}; "
+            f"capture {step.capture_ms:.1f} ms")
+        if not all(equal) or step.graph is None:
+            raise AssertionError(f"{arch}: the prefill graph differs from the "
+                                 f"eager prefill")
     else:
         graph_check = dict(eager=graphs.eager_reason(cfg))
         log(f"  {arch}: decode eager on the card: {graph_check['eager']}")
@@ -4781,6 +5090,130 @@ def family_graph_times(torch, engine, caches, tok, pos0) -> dict:
                     f"{arch}, the decode graph", counts))
 
 
+def family_prefill_graph_times(torch, engine, batch) -> dict:
+    """Phase 7's prefill as served: its graph (the first call the eager
+    warm-up, the second the capture) against the eager prefill. A replay's
+    logits and caches bitwise the eager prefill's, else the run fails; the graph's
+    call (the input copy and the replay) and the replay alone in CUDA
+    events (2 calls), the replay profiled once: its device busy share
+    against the replay alone, and its kernel records, which phase 7's main
+    process holds to its own graph's credit."""
+    equal, caches_equal, step = prefill_graph_bitwise(torch, engine, batch)
+    arch = engine.model.cfg.name
+    if not (equal and caches_equal) or step.graph is None:
+        raise AssertionError(f"{arch}: the prefill graph's logits differ from "
+                             f"the eager prefill's")
+    ms = time_ms(lambda i: engine._graphed_prefill(batch), 2)
+    replay_ms = time_ms(lambda i: step.graph.replay(), 2)
+    counts = {}
+    dev, kept, _ = profile_kernels(torch, lambda i: step.graph.replay(), 1,
+                                   counts)
+    busy = sum(dev.values()) / 1e3
+    return dict(prefill_graph_ms=ms, prefill_replay_ms=replay_ms,
+                prefill_graph_busy_ms=busy,
+                prefill_graph_busy_share=busy / replay_ms,
+                prefill_graph_records_kept=kept,
+                prefill_logits_bitwise_equal=equal,
+                prefill_capture_ms=step.capture_ms,
+                prefill_replay_records=replay_launch_check(
+                    lambda: kernel_counts(torch, lambda i: step.graph.replay(), 1),
+                    step.credit, 1, f"{arch}, the prefill graph", counts))
+
+
+# The configs whose prefill error is traced layer by layer in phase 7's
+# timing process: the two nearest the 5e-2 gate and one far below it.
+LAYER_CURVE_ARCHS = ("phi3-mini-3.8b", "hymba-1.5b", "whisper-base")
+
+
+def prefill_stages(torch, cfg, params, batch) -> tuple:
+    """The served prefill (no caches kept) as stages, each
+    ``fn(state) -> state`` over a state (x, the encoder's output or None):
+    each layer (an encoder-decoder's encoder layers, its encoder's output,
+    then its decoder layers), then the final norm and the last position's
+    logits. Returns (the first state, [(name, fn, the component of the
+    state it writes: 0 or 1)])."""
+    import functools
+
+    from repro_torch.core.dtypes import torch_dtype
+    from repro_torch.models import attention as attn
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
+                                           lm_logits)
+    compute = torch_dtype(cfg.compute_dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+
+    def logits(state):
+        x = apply_norm(cfg, params["final_norm"], state[0])
+        return lm_logits(cfg, params, x[:, -1:])[:, 0], state[1]
+    stages = []
+    if not cfg.is_encoder_decoder:
+        def layer(p, state):
+            return transformer.prefill_block(cfg, p, state[0], positions, 0)[0], None
+        stages += [(f"layer {i}", functools.partial(layer, p), 0)
+                   for i, p in enumerate(params["layers"])]
+        return ((embed_tokens(cfg, params, tokens, compute), None),
+                stages + [("logits", logits, 0)])
+
+    def enc_layer(lp, state):
+        c = state[0]
+        h = apply_norm(cfg, lp["norm1"], c)
+        c = c + attn.self_attention(cfg, lp["attn"], h, positions=None,
+                                    causal=False)
+        return c + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["norm2"], c)), None
+
+    def enc_out(state):
+        x = encdec._with_positions(cfg, embed_tokens(cfg, params, tokens,
+                                                     compute))
+        return x, apply_norm(cfg, params["encoder"]["final_norm"], state[0])
+
+    def dec_layer(lp, state):
+        ck, cv = attn.encode_kv(cfg, lp["xattn"], state[1])
+        return encdec._dec_block(cfg, lp, state[0], ck, cv, positions)[0], state[1]
+    stages += [(f"encoder {i}", functools.partial(enc_layer, lp), 0)
+               for i, lp in enumerate(params["encoder"]["layers"])]
+    stages.append(("encoder out", enc_out, 1))
+    stages += [(f"decoder {i}", functools.partial(dec_layer, lp), 0)
+               for i, lp in enumerate(params["layers"])]
+    first = encdec._with_positions(cfg, batch["frames"].to(compute))
+    return (first, None), stages + [("logits", logits, 0)]
+
+
+def prefill_layer_errors(torch, gp, engine, batch) -> dict:
+    """The served prefill, stage by stage (``prefill_stages``), on the
+    kernels against the plain versions (``plain_kernels``) on the card:
+    ``drift``, each stage's relative Frobenius error with the two paths run
+    apart from the same embedding (what the logits gate reads at the end),
+    and ``local``, the error one stage adds: the stage on the kernels over
+    the plain path's state before it, against the plain path's state
+    after it."""
+    cfg, params = engine.model.cfg, engine.params
+    first, stages = prefill_stages(torch, cfg, params, batch)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def run(plain):
+        states, state = [], first
+        with (plain_kernels(gp, None) if plain else contextlib.nullcontext()), \
+                torch.inference_mode():
+            for _, fn, _ in stages:
+                state = fn(state)
+                states.append(state)
+        return states
+    kernel, plain = run(False), run(True)
+    local = []
+    with torch.inference_mode():
+        for i, (_, fn, part) in enumerate(stages):
+            got = fn(plain[i - 1] if i else first)
+            local.append(rel(got[part], plain[i][part]))
+    drift = [rel(k[part], p[part]) for k, p, (_, _, part) in
+             zip(kernel, plain, stages)]
+    return dict(stages=[name for name, _, _ in stages], drift=drift,
+                local=local)
+
+
 def family_times_main() -> int:
     """Phase 7's times, in a process of their own that phase_families
     starts: late in the smoke's process torch.profiler loses its kernel
@@ -4800,6 +5233,7 @@ def family_times_main() -> int:
     import torch
     from repro_torch import configs as cfgs
     from repro_torch import models, serve
+    from repro_torch.kernels import gemm_packed as gp
     from repro_torch.serve import graphs
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -4841,6 +5275,15 @@ def family_times_main() -> int:
                           f"ms ({100 * t['graph_decode_busy_share']:.1f}%, "
                           f"records kept {t['graph_records_kept']}), capture "
                           f"{t['graph_capture_ms']:.1f} ms")
+            out[arch].update(family_prefill_graph_times(torch, engine, batch))
+            graph_line += (
+                f"; prefill graph {t['prefill_graph_ms']:.2f} ms as served, "
+                f"replay {t['prefill_replay_ms']:.2f} ms, device busy "
+                f"{t['prefill_graph_busy_ms']:.3f} ms "
+                f"({100 * t['prefill_graph_busy_share']:.1f}% of the replay, "
+                f"records kept {t['prefill_graph_records_kept']}), logits "
+                f"bitwise the eager prefill's {t['prefill_logits_bitwise_equal']}"
+                f", capture {t['prefill_capture_ms']:.1f} ms")
         else:
             out[arch]["graph"] = graph_line = (
                 f"; decode eager on the card: "
@@ -4850,6 +5293,19 @@ def family_times_main() -> int:
             f"eager {ms_decode:.3f} ms/step (batch {FAMILY_PROMPT[0]}), device "
             f"busy {busy_d:.3f} ms ({100 * busy_d / ms_decode:.1f}%, records "
             f"kept {kept_d}){graph_line}; {time.perf_counter() - t0:.1f} s")
+        if arch in LAYER_CURVE_ARCHS:
+            t1 = time.perf_counter()
+            curve = out[arch]["layer_errors"] = prefill_layer_errors(
+                torch, gp, engine, batch)
+            local = sorted(curve["local"][:-1])
+            log(f"  {arch}: prefill layer by layer, kernels against the plain "
+                f"versions (relative Frobenius; {time.perf_counter() - t1:.1f} s)"
+                f": the logits {curve['drift'][-1]:.3e} apart (the gate: 5e-2); "
+                f"largest error one stage adds {local[-1]:.3e}, median "
+                f"{local[len(local) // 2]:.3e}")
+            for name, d, l_ in zip(curve["stages"], curve["drift"],
+                                   curve["local"]):
+                log(f"    {name:>12}: apart {d:.3e}, added {l_:.3e}")
         del caches, engine, model, batch, step
         torch.cuda.empty_cache()
     from repro_torch.core import health
@@ -4892,11 +5348,13 @@ def phase_families(torch, gp, gg, counters, cfgs, models, serve, card) -> tuple:
         results[arch].update(t)
         # This process's graph credits what the timing process's replay of
         # the same config's graph was measured to launch.
-        credited = results[arch]["graph_check"].get("credit_by_class")
-        if credited is not None and credited != t.get("replay_records"):
-            raise AssertionError(f"{arch}: the decode graph credits {credited} "
-                                 f"a replay; a replay in the timing process "
-                                 f"launched {t.get('replay_records')}")
+        for what, key in (("decode", ""), ("prefill", "prefill_")):
+            credited = results[arch]["graph_check"].get(key + "credit_by_class")
+            if credited is not None and credited != t.get(key + "replay_records"):
+                raise AssertionError(
+                    f"{arch}: the {what} graph credits {credited} a replay; a "
+                    f"replay in the timing process launched "
+                    f"{t.get(key + 'replay_records')}")
     log(f"  timing process {time.perf_counter() - t0:.1f} s; card {card}")
     seconds = time.perf_counter() - t_phase
     log(json.dumps({"families": results, "phase_s": seconds, "card": card}))
@@ -5536,12 +5994,14 @@ def guard_scale_grid(torch, m, k=GUARD_K, n=GUARD_N, rows=GUARD_ROWS) -> dict:
 def guard_serve(torch, m, cfgs, models, serve) -> dict:
     """Phase 9 (c): ``kernel_run`` armed during ``Engine.generate`` on
     full-width olmo-1b with packed weights, prompt PROMPT, GUARD_STEPS
-    greedy steps. At its first hit (the eager prefill's first contraction)
+    greedy steps. At its first hit (the first contraction of the prefill
+    graph's capture, the engine's first call having been its warm-up)
     the call raises naming the spec, nothing is recorded, and the engine's
     next call gives the tokens of a call made before the fault. On a fresh
     engine, armed at the first hit past the prefill's, it raises at the
     decode graph's warm-up, naming the spec, keeps no graph, and the next
-    call captures cleanly and gives those tokens again."""
+    call warms up again, captures at its second step and gives those tokens
+    again."""
     health, faults = m["health"], m["faults"]
     cfg = dataclasses.replace(cfgs.get_config("olmo-1b"),
                               compute_dtype="bfloat16")
@@ -5574,16 +6034,17 @@ def guard_serve(torch, m, cfgs, models, serve) -> dict:
     fresh = engine_()
     prefill_hits = 7 * cfg.num_layers + 1
     raised_warm, hit = raises(fresh, prefill_hits + 1)
-    kept = decode_graph(fresh).graph is not None
+    kept = decode_graph(fresh, PROMPT[0]).graph is not None
     after_warm = generate(fresh)
-    replays = decode_graph(fresh).replays
+    replays = decode_graph(fresh, PROMPT[0]).replays
     log(f"  (c) kernel_run:1 during generate ({PROMPT[0]}x{PROMPT[1]} + "
         f"{GUARD_STEPS} steps, packed): raised in the prefill, {raised!r}; "
         f"report {json.dumps(health.health_report())}; the next call's tokens "
         f"equal the first's: {bool((after == want).all())}")
     log(f"  (c) kernel_run:{prefill_hits + 1} on a fresh engine: raised at hit "
         f"{hit}, the decode graph's warm-up, {raised_warm!r}; graph kept "
-        f"{kept}; the next call captured and replayed {replays} times, its "
+        f"{kept}; the next call warmed up, captured and replayed {replays} "
+        f"times, its "
         f"tokens equal the first's: {bool((after_warm == want).all())}")
     if (health.HEALTH or "lowering" not in raised or after.shape != want.shape
             or not (after == want).all() or want.min() < 0
@@ -5748,8 +6209,8 @@ def phase_serve_quant(torch, gp, counters, serve, packed_run, quantize):
     if bodies != want_bodies:
         raise AssertionError(f"K1 launches by body {bodies}")
     check_tokens(tokens, cfg)
-    logits_k, _ = engine.prefill_request(prompt[0])
-    with plain_kernels(gp, None):
+    logits_k = engine.prefill_request(prompt[0])[0].clone()
+    with plain_kernels(gp, None), eager_steps(engine):
         logits_p, _ = engine.prefill_request(prompt[0])
     torch.cuda.synchronize()
     if not bool(torch.isfinite(logits_k).all()):
@@ -6602,7 +7063,8 @@ def graph_summary(served, cont, families) -> dict:
             capture_ms=check["capture_ms"], warmup_ms=check["warmup_ms"],
             tokens_bitwise_equal=check["tokens_bitwise_equal"],
             launches_equal=check["launches_equal"],
-            replay_records=check["replay_records"])
+            replay_records=check["replay_records"],
+            prefill_graph=t["prefill_graph"])
     out["olmo-1b continuous"] = dict(
         runs={r["label"]: dict(graph_tokens_per_s=r["tokens_per_s"],
                                eager_tokens_per_s=r["eager"]["tokens_per_s"],
@@ -6610,8 +7072,13 @@ def graph_summary(served, cont, families) -> dict:
                                eager_ms_per_step=r["eager"]["ms_per_step"],
                                capture_ms=r["capture_ms"],
                                equal_to_eager=r["equal_to_eager"],
-                               replay_records=r["replay_records"])
+                               replay_records=r["replay_records"],
+                               prefill_graphs=r["prefill_graphs"])
               for r in cont["runs"]},
+        frontend=dict(graph_tokens_per_s=cont["subset_frontend_tokens_per_s"],
+                      eager_tokens_per_s=cont["subset_frontend_eager_tokens_per_s"],
+                      streams_bitwise_eager=cont["frontend_graph_bitwise_eager"],
+                      prefill_graphs=cont["frontend_prefill_graphs"]),
         graph_step=dict(ms=cont["batched_step_ms"],
                         host_ms=cont["batched_step_host_ms"],
                         busy_ms=cont["batched_step_device_busy_ms"],
@@ -6622,7 +7089,9 @@ def graph_summary(served, cont, families) -> dict:
         out[arch] = {k: r[k] for k in (
             "decode_ms_per_step", "decode_busy_share",
             "graph_decode_ms_per_step", "graph_decode_busy_share",
-            "graph_capture_ms", "graph") if k in r}
+            "graph_capture_ms", "graph", "prefill_ms", "prefill_busy_share",
+            "prefill_graph_ms", "prefill_replay_ms", "prefill_graph_busy_share",
+            "prefill_capture_ms", "prefill_logits_bitwise_equal") if k in r}
         out[arch]["tokens_bitwise_equal"] = r["graph_check"].get(
             "tokens_bitwise_equal")
     return out

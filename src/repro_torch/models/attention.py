@@ -59,22 +59,32 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
-                       max_len: int, dtype) -> dict:
+                       max_len: int, dtype, out: Optional[dict] = None
+                       ) -> dict:
     """The decode ring-buffer cache from prefill K/V [B,S,Hkv,D]: slot s
-    holds the latest position congruent to s (mod slots)."""
+    holds the latest position congruent to s (mod slots). ``out`` (a cache
+    of this layer, of ``dtype``) takes it in place and is returned."""
     b, s, hkv, d = k.shape
     window = _window(cfg)
     slots = min(max_len, window) if window else max_len
     if slots >= s:
-        shape = (b, slots, hkv, d)
-        kc = torch.zeros(shape, dtype=dtype, device=k.device)
-        vc = torch.zeros(shape, dtype=dtype, device=k.device)
-        kc[:, :s] = k
-        vc[:, :s] = v
-        return {"k": kc, "v": vc}
+        if out is None:
+            shape = (b, slots, hkv, d)
+            out = {"k": torch.zeros(shape, dtype=dtype, device=k.device),
+                   "v": torch.zeros(shape, dtype=dtype, device=k.device)}
+        else:
+            out["k"][:, s:].zero_()
+            out["v"][:, s:].zero_()
+        out["k"][:, :s] = k
+        out["v"][:, :s] = v
+        return out
     slot_ids = torch.arange(slots, device=k.device)
     src = (s - 1) - ((s - 1 - slot_ids) % slots)
-    return {"k": k[:, src].to(dtype), "v": v[:, src].to(dtype)}
+    if out is None:
+        return {"k": k[:, src].to(dtype), "v": v[:, src].to(dtype)}
+    out["k"].copy_(k[:, src])
+    out["v"].copy_(v[:, src])
+    return out
 
 
 def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,

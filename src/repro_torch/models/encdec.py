@@ -116,9 +116,12 @@ def forward(cfg: ModelConfig, params: dict, frames: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
             tokens: torch.Tensor, *, max_len: Optional[int] = None,
-            cache_dtype=None) -> Tuple[torch.Tensor, List[dict]]:
+            cache_dtype=None, caches: Optional[List[dict]] = None
+            ) -> Tuple[torch.Tensor, List[dict]]:
     """Encoder pass, then the decoder's prompt: (last-position logits
-    [B, V], per-layer caches {"kv", "cross_k", "cross_v"})."""
+    [B, V], per-layer caches {"kv", "cross_k", "cross_v"}). ``caches``
+    (decode caches of this width, ``max_len`` and ``cache_dtype``) take
+    the caches in place and are returned: no cache is allocated."""
     compute = torch_dtype(cfg.compute_dtype)
     cache_dtype = cache_dtype or compute
     enc_out = encode(cfg, params, frames, remat=False)
@@ -126,14 +129,20 @@ def prefill(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     max_len = max_len or s
     x = _with_positions(cfg, embed_tokens(cfg, params, tokens, compute))
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    outs = caches if caches is not None else [None] * len(params["layers"])
     caches = []
-    for lp in params["layers"]:
+    for lp, out in zip(params["layers"], outs):
         ck, cv = attn.encode_kv(cfg, lp["xattn"], enc_out)
         x, (k, v) = _dec_block(cfg, lp, x, ck, cv, positions)
-        caches.append({"kv": attn.cache_from_prefill(cfg, k, v, max_len,
-                                                     cache_dtype),
-                       "cross_k": ck.to(cache_dtype),
-                       "cross_v": cv.to(cache_dtype)})
+        kv = attn.cache_from_prefill(cfg, k, v, max_len, cache_dtype,
+                                     out=None if out is None else out["kv"])
+        if out is None:
+            caches.append({"kv": kv, "cross_k": ck.to(cache_dtype),
+                           "cross_v": cv.to(cache_dtype)})
+        else:
+            out["cross_k"].copy_(ck)
+            out["cross_v"].copy_(cv)
+            caches.append(out)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], caches
 

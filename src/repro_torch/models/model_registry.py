@@ -3,7 +3,8 @@
 
   init(seed) -> params           (random f32 weights, made on the device)
   forward(params, batch, remat=True) -> (logits [B, S, V] f32, moe_aux)
-  prefill(params, batch, max_len, cache_dtype) -> (last logits, caches)
+  prefill(params, batch, max_len, cache_dtype, caches=None)
+      -> (last logits, caches)   (``caches`` given: written in place)
   decode(params, caches, token, pos) -> (logits, caches)
 
 Batches hold ``"tokens"`` [B, S] ints; a VLM's also ``"patches"`` [B, P, d]
@@ -58,10 +59,11 @@ def build(cfg: ModelConfig, device=None) -> Model:
             return encdec.forward(cfg, params, batch["frames"],
                                   batch["tokens"], remat=remat)
 
-        def prefill(params, batch, max_len=None, cache_dtype=None):
+        def prefill(params, batch, max_len=None, cache_dtype=None,
+                    caches=None):
             return encdec.prefill(cfg, params, batch["frames"],
                                   batch["tokens"], max_len=max_len,
-                                  cache_dtype=cache_dtype)
+                                  cache_dtype=cache_dtype, caches=caches)
     else:
         def forward(params, batch, remat: bool = True):
             prefix = batch.get("patches") if cfg.family == "vlm" else None
@@ -72,11 +74,12 @@ def build(cfg: ModelConfig, device=None) -> Model:
                 logits = logits[:, prefix.shape[1]:]  # text positions only
             return logits, aux
 
-        def prefill(params, batch, max_len=None, cache_dtype=None):
+        def prefill(params, batch, max_len=None, cache_dtype=None,
+                    caches=None):
             prefix = batch.get("patches") if cfg.family == "vlm" else None
             return transformer.prefill(cfg, params, batch["tokens"],
                                        prefix_embeds=prefix, max_len=max_len,
-                                       cache_dtype=cache_dtype)
+                                       cache_dtype=cache_dtype, caches=caches)
 
     return Model(
         cfg=cfg, device=dev, init=init, forward=forward, prefill=prefill,

@@ -117,12 +117,14 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 def prefill_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                   positions: torch.Tensor, prefix_len: int,
-                  max_len: Optional[int] = None, cache_dtype=None
+                  max_len: Optional[int] = None, cache_dtype=None,
+                  out: Optional[dict] = None
                   ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
     """One layer over a whole sequence: (x, this layer's decode cache, its
     MoE aux loss). With ``max_len`` None (the train forward) no cache is
-    built and the dict is empty."""
-    cache: dict = {}
+    built and the dict is empty. ``out`` (a decode cache of this layer)
+    takes the cache in place and is returned as it."""
+    cache: dict = {} if out is None else out
     keep = max_len is not None
     h = apply_norm(cfg, p["norm1"], x)
     a_out = s_out = None
@@ -132,14 +134,20 @@ def prefill_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                                             return_kv=True)
         if keep:
             cache["kv"] = attn.cache_from_prefill(cfg, k, v, max_len,
-                                                  cache_dtype)
+                                                  cache_dtype,
+                                                  out=cache.get("kv"))
     if cfg.parallel_block:
         return (x + a_out + apply_mlp(cfg, p["mlp"], h), cache,
                 _no_aux(x))
     if cfg.has_ssm:
         if keep:
-            s_out, cache["ssm"] = ssm_mod.apply_ssm(cfg, p["ssm"], h,
-                                                    return_state=True)
+            s_out, state = ssm_mod.apply_ssm(cfg, p["ssm"], h,
+                                             return_state=True)
+            if out is None:
+                cache["ssm"] = state
+            else:
+                for name, t in state.items():
+                    cache["ssm"][name].copy_(t)
         else:
             s_out = ssm_mod.apply_ssm(cfg, p["ssm"], h)
     x, aux = _mix_and_ffn(cfg, p, x, a_out, s_out)
@@ -208,12 +216,15 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             prefix_embeds: Optional[torch.Tensor] = None,
-            max_len: Optional[int] = None, cache_dtype=None
+            max_len: Optional[int] = None, cache_dtype=None,
+            caches: Optional[List[dict]] = None
             ) -> Tuple[torch.Tensor, List[dict]]:
     """Prompt processing: (last-position logits [B, V], per-layer caches).
     ``prefix_embeds`` [B, P, d] (the VLM's patch embeddings) go before the
     tokens and attend to each other both ways; ``max_len`` must hold them
-    too."""
+    too. ``caches`` (decode caches of this width, ``max_len`` and
+    ``cache_dtype``) take the caches in place and are returned: no cache
+    is allocated."""
     compute = torch_dtype(cfg.compute_dtype)
     cache_dtype = cache_dtype or compute
     x = embed_tokens(cfg, params, tokens, compute)
@@ -224,10 +235,11 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     b, s, _ = x.shape
     max_len = max_len or s
     positions = _positions(b, s, tokens.device)
+    outs = caches if caches is not None else [None] * len(params["layers"])
     caches = []
-    for p in params["layers"]:
+    for p, out in zip(params["layers"], outs):
         x, cache, _ = prefill_block(cfg, p, x, positions, prefix_len,
-                                    max_len, cache_dtype)
+                                    max_len, cache_dtype, out)
         caches.append(cache)
     x = apply_norm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params, x[:, -1:])[:, 0], caches

@@ -27,19 +27,30 @@
     process-global registries of ``repro_torch.core.health``.
   * The engine runs on the card by default, and raises without one; pass
     ``device="cpu"`` to run on the CPU.
-  * On the card ``generate``'s decode loop replays a captured CUDA graph
-    (``serve.graphs.StepGraph``), one per batch width and cache layout, as
-    the reference jits its decode: prefill's caches are copied into the
-    graph's static caches, each step's token and position into their
-    static buffers, and the greedy argmax runs inside the graph. A sampled
-    decode (temperature > 0) draws on the host from the graph's static
-    logits. The engine's graphs share one memory pool, and the prefill's
-    caches are freed once copied in. On the CPU, and for a family that
-    ``serve.graphs.EAGER_FAMILIES`` names, the loop runs eagerly; setting
-    the private ``Engine._graphed`` to False runs it eagerly on the card
-    too, the path a graph is compared with. Prefill stays eager (its shape
-    follows the prompt), and so does ``decode_request``, the front end's
-    batch-1 step over a cache per request.
+  * On the card the engine's steps replay captured CUDA graphs
+    (``serve.graphs.StepGraph``), as the reference jits its prefill and
+    its decode. The decode: one graph per batch width and cache layout,
+    each step's token and position copied into its static buffers, the
+    greedy argmax inside the graph; a sampled decode (temperature > 0)
+    draws on the host from the graph's static logits. The prefill: one
+    graph per input signature (``tokens`` [B, S], with ``patches`` or
+    ``frames``), as the reference compiles one program per shape; prompts
+    are never padded (an SSM's state and its causal conv would take the
+    pad tokens in). Each graph's first call runs eagerly on the capture
+    stream (its warm-up), the second captures, every later call replays.
+    The caches' shapes depend on the width, ``max_len`` and the layout,
+    never on S, so each prefill graph writes its caches in place into the
+    static caches of the decode graph of its width and layout:
+    ``generate`` runs a prefill replay, then decode replays, with one copy
+    of the caches alive. ``prefill_request`` / ``decode_request`` (the
+    front end's batch-1 steps) run the width-1 graphs: ``prefill_request``
+    returns copies the caller keeps; ``decode_request`` copies the
+    request's caches into the width-1 decode graph's static caches and
+    returns those, which the next call overwrites. The engine's graphs
+    share one memory pool. On the CPU, and for a family
+    that ``serve.graphs.EAGER_FAMILIES`` names, the steps run eagerly;
+    setting the private ``Engine._graphed`` to False runs them eagerly on
+    the card too, the path a graph is compared with.
 """
 from __future__ import annotations
 
@@ -157,10 +168,14 @@ class Engine:
         self.cfg = cfg
         self.dispatch_report = serving_dispatch_report(
             model.cfg, cfg, params, on_card=self.device.type == "cuda")
-        # Decode through captured graphs on the card (False: the eager loop).
+        # Prefill and decode through captured graphs on the card (False:
+        # the eager steps).
         self._graphed = (self.device.type == "cuda"
                          and graphs.eager_reason(model.cfg) is None)
+        # The decode graphs by cache layout, the prefill graphs by input
+        # signature.
         self._graphs: Dict[tuple, graphs.StepGraph] = {}
+        self._prefill_graphs: Dict[tuple, graphs.StepGraph] = {}
         # One memory pool for all of them (made at the first capture).
         self._graph_pool = None
 
@@ -236,12 +251,29 @@ class Engine:
 
     def prefill_request(self, tokens) -> tuple:
         """Prefill ONE request's prompt ([S] ints) in its own batch-1 slot:
-        (last-position logits [1, V], decode caches)."""
-        return self._prefill({"tokens": self._tokens(tokens)[None]})
+        (last-position logits [1, V], decode caches), the caller's to keep.
+        Through the graphs (``_graphed``) they are copies of the prefill
+        graph's static outputs, which the engine's next step overwrites."""
+        batch = {"tokens": self._tokens(tokens)[None]}
+        if self._graphed:
+            return tuple(graphs.clone(self._graphed_prefill(batch)))
+        return self._prefill(batch)
 
     def decode_request(self, caches, token, pos: int) -> tuple:
         """One decode step for one request: ``token`` [1, 1] at absolute
-        position ``pos``. Writes the caches in place."""
+        position ``pos``: (logits [1, 1, V], caches). Eagerly it writes
+        ``caches`` in place. Through the graphs (``_graphed``) it copies
+        them into the width-1 decode graph's static caches, replays, and
+        returns the static logits and caches, which the next call
+        overwrites; ``caches`` is left as it was. Either way a caller
+        that keeps ``caches`` across steps copies the returned caches back
+        into them (``graphs.copy_back``: nothing to copy for a leaf written
+        in place)."""
+        if self._graphed:
+            step = self._decode_graph(caches, 1)
+            res = step({"caches": caches, "tok": self._tokens(token),
+                        "pos": pos})
+            return res["logits"][:, None], step.static["caches"]
         pos_v = torch.full((1,), pos, dtype=torch.long, device=self.device)
         return self._decode(caches, self._tokens(token), pos_v)
 
@@ -260,17 +292,18 @@ class Engine:
         rids = np.arange(b) if request_ids is None else np.asarray(request_ids)
         inputs = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
                   else v for k, v in batch.items() if k != "tokens"}
-        last_logits, caches = self._prefill(
-            {**_to_device(inputs, self.device), "tokens": tokens})
-        out = []
-        tok = self.sample_tokens(last_logits, rids, 0)[:, None]
+        batch = {**_to_device(inputs, self.device), "tokens": tokens}
         step = None
         if self._graphed:
+            # The prefill writes the decode graph's static caches: one copy
+            # of the cache is alive through the decode.
+            last_logits, caches = self._graphed_prefill(batch)
             step = self._decode_graph(caches, b)
-            # The graph's static caches take the prefill's, which go: one
-            # copy of the cache is alive through the decode.
-            graphs.copy_in(step.static["caches"], caches)
             caches = None
+        else:
+            last_logits, caches = self._prefill(batch)
+        out = []
+        tok = self.sample_tokens(last_logits, rids, 0)[:, None]
         for i in range(max_new_tokens):
             out.append(tok.cpu().numpy())
             at = prefix + prompt_len + i
@@ -294,9 +327,6 @@ class Engine:
         a graph's outputs hold until the engine's next replay of any width."""
         key = graphs.signature(caches)
         step = self._graphs.get(key)
-        on_card = self.device.type == "cuda"
-        if on_card and self._graph_pool is None:
-            self._graph_pool = torch.cuda.graph_pool_handle()
         if step is None:
             static = {"caches": graphs.static_like(caches),
                       "tok": torch.zeros((b, 1), dtype=torch.long,
@@ -305,9 +335,58 @@ class Engine:
                                          device=self.device)}
             step = graphs.StepGraph(
                 functools.partial(_decode_body, self.model, self.params),
-                static, capture=on_card, pool=self._graph_pool)
+                static, capture=self.device.type == "cuda",
+                pool=self._pool())
             self._graphs[key] = step
         return step
+
+    def _pool(self):
+        """The memory pool the engine's graphs share (None on the CPU)."""
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _graphed_prefill(self, batch) -> tuple:
+        """The prefill through its graph for ``batch``'s signature (the
+        model-format batch on the device): (last-position logits [B, V],
+        the static caches of the decode graph of this width and layout,
+        which hold the prefill's caches). The signature's first call is
+        the eager warm-up, which finds the caches' layout: its caches are
+        copied into that decode graph's static caches, and the graph's body
+        writes there from then on."""
+        key = graphs.signature(batch)
+        step = self._prefill_graphs.get(key)
+        if step is None:
+            step = graphs.StepGraph(
+                functools.partial(_prefill_body, self.model, self.params,
+                                  self.cfg.max_len,
+                                  torch_dtype(self.cfg.cache_dtype)),
+                graphs.static_like(batch), capture=self.device.type == "cuda",
+                pool=self._pool())
+            self._prefill_graphs[key] = step
+        out = step(batch)
+        if "caches" in out:
+            decode = self._decode_graph(out["caches"],
+                                        batch["tokens"].shape[0])
+            graphs.copy_in(decode.static["caches"], out["caches"])
+            step.static["caches"] = decode.static["caches"]
+        return out["logits"], step.static["caches"]
+
+
+def _prefill_body(model: Model, params, max_len: int, cache_dtype,
+                  static) -> dict:
+    """The captured prefill: the model's prefill over the static batch,
+    writing its caches into the static caches (``static["caches"]``, the
+    decode graph's) in place, and its last-position logits. Before the
+    static caches are known (the warm-up, which finds their layout) it
+    returns the caches it made instead."""
+    batch = {k: v for k, v in static.items() if k != "caches"}
+    logits, caches = model.prefill(params, batch, max_len=max_len,
+                                   cache_dtype=cache_dtype,
+                                   caches=static.get("caches"))
+    if "caches" not in static:
+        return {"logits": logits, "caches": caches}
+    return {"logits": logits}
 
 
 def _decode_body(model: Model, params, static) -> dict:

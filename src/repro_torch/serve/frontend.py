@@ -56,6 +56,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import health
+from repro_torch.serve import graphs
 from repro_torch.serve.requests import Overloaded, Request, RequestResult
 from repro_torch.testing import faults
 
@@ -221,13 +222,20 @@ class StreamFrontend:
                                       f"{cause}: {exc}")
             break
         # Commit only after a fully clean step: a retried or evicted step
-        # leaves the slot as it was. The port's decode writes position
-        # ``pos`` into the caches it is given in place, before a later
+        # leaves the slot as it was. The prefill's caches are the slot's to
+        # keep. A decode step through the engine's graphs ran on the graph's
+        # static caches, which the next request's step overwrites: they are
+        # copied back into the slot's own here. The eager decode writes
+        # position ``pos`` into the slot's caches in place (only a
+        # functional leaf, an SSM state, is copied back), before a later
         # failure of the same step (the ``sample`` corruption) can happen;
         # a retry writes the same value to the same position before it
         # reads it, and an eviction drops the caches, so both stay bitwise.
         tok = self.engine.sample_tokens(logits, [rid], step_idx)
-        slot.caches = caches
+        if slot.caches is None:
+            slot.caches = caches
+        else:
+            graphs.copy_back(slot.caches, caches)
         slot.last_tok = tok[:, None]
         slot.emitted.append(int(tok[0]))
         if len(slot.emitted) >= slot.budget:

@@ -3,8 +3,9 @@ served step. The reference never runs a served step eagerly: its
 ``Engine`` jits prefill, decode and the argmax
 (``src/repro/serve/engine.py:166-183``) and its continuous scheduler
 compiles the batched step once (``src/repro/serve/scheduler.py``
-``_build_step``). On the card the port captures the engine's decode and
-the scheduler's batched step into CUDA graphs with :class:`StepGraph`.
+``_build_step``). On the card the port captures the engine's prefill and
+decode and the scheduler's batched step into CUDA graphs with
+:class:`StepGraph`.
 
 **The static tree.** A step is ``body(static) -> outputs`` over a dict of
 tensors (nested dicts and lists allowed) whose addresses are fixed for the
@@ -16,17 +17,20 @@ of writing in place (an SSM layer's state) has it copied back into its
 static slot by the body itself (:func:`copy_back`), so the copy is part of
 the graph.
 
-**Capture.** On the card the first call runs the body once eagerly on the
-capture stream: that warm-up is the call's own step. It builds the
+**Capture.** On the card a graph's first call runs the body once eagerly
+on the capture stream: that warm-up is the call's own step. It builds the
 kernels, makes each kernel's first ``cudaFuncSetAttribute`` call and fires
-any armed fault site. The body is then captured into a
-``torch.cuda.CUDAGraph``, and every later call replays it. An exception in
-the warm-up or the capture discards the graph, ends the capture and
-propagates as it was raised (with the note that names a failing
-contraction's spec); the next call captures again. Nothing falls back to
-the eager path: a family whose decode cannot be captured is named in
-:data:`EAGER_FAMILIES` with its reason, and runs eagerly by that entry
-only.
+any armed fault site. The second call captures the body into a
+``torch.cuda.CUDAGraph`` and replays it, and every later call replays it:
+a step seen once (a prompt length served once) costs one eager step and
+no capture. Every graph warms up and captures on one side stream a device
+(:func:`capture_stream`). An exception in the warm-up or the capture
+discards the graph, ends the capture and propagates as it was raised
+(with the note that names a failing contraction's spec); the next call
+warms up again after a failed warm-up, captures again after a failed
+capture. Nothing falls back to the eager path: a family whose decode
+cannot be captured is named in :data:`EAGER_FAMILIES` with its reason, and
+runs eagerly by that entry only.
 
 **What runs once.** A replay runs no Python. Dispatch, the guarded runner,
 the environment reads (``REPRO_FAULT``, ``REPRO_NUMERICS_GUARD``,
@@ -64,6 +68,22 @@ from repro_torch import kernels
 EAGER_FAMILIES: Tuple[Tuple[str, str], ...] = ()
 
 
+# The side stream every graph warms up and captures on, one a device.
+# torch keeps a cuBLAS workspace (32 MiB on an H100) for each stream a
+# product has run on and never frees it: a stream a graph kept one such
+# workspace for every prompt length a server had seen.
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def capture_stream() -> "torch.cuda.Stream":
+    """The current device's capture stream (made at its first use)."""
+    device = torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def eager_reason(model_cfg) -> Optional[str]:
     """Why ``model_cfg``'s decode runs eagerly on the card (its family's
     entry in :data:`EAGER_FAMILIES`), or None when it is captured."""
@@ -77,18 +97,23 @@ def eager_reason(model_cfg) -> Optional[str]:
 def static_like(tree):
     """A tree of the same structure whose tensor leaves are new zeroed
     tensors of the leaves' shapes, dtypes and devices."""
+    return _like(tree, torch.zeros_like)
+
+
+def _like(tree, make):
     if isinstance(tree, dict):
-        return {k: static_like(v) for k, v in tree.items()}
+        return {k: _like(v, make) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [static_like(v) for v in tree]
-    return torch.zeros_like(tree) if torch.is_tensor(tree) else tree
+        return [_like(v, make) for v in tree]
+    return make(tree) if torch.is_tensor(tree) else tree
 
 
 def signature(tree) -> tuple:
     """A hashable key of a tree's structure and its leaves' shapes and
-    dtypes: two trees of one signature share a static tree."""
+    dtypes, a dict's keys in sorted order: two trees of one signature share
+    a static tree."""
     if isinstance(tree, dict):
-        return tuple((k, signature(v)) for k, v in tree.items())
+        return tuple((k, signature(tree[k])) for k in sorted(tree))
     if isinstance(tree, (list, tuple)):
         return tuple(signature(v) for v in tree)
     if torch.is_tensor(tree):
@@ -98,26 +123,59 @@ def signature(tree) -> tuple:
 
 def copy_in(static, value) -> None:
     """Copy ``value`` into the static tree ``static`` leaf by leaf: a
-    tensor or numpy array by ``copy_``, a Python number by ``fill_``. A
-    dict ``value`` may hold only some of ``static``'s keys."""
+    tensor or numpy array by copy, a Python number by ``fill_``. A dict
+    ``value`` may hold only some of ``static``'s keys. The tensor leaves
+    go in one multi-tensor copy where they share a device and a dtype: a
+    batch-1 slot's caches are dozens of leaves, each a launch of its own
+    otherwise."""
+    pairs = []
+    _pair_in(static, value, pairs)
+    _copy(pairs)
+
+
+def _pair_in(static, value, pairs) -> None:
     if isinstance(value, dict):
         for k, v in value.items():
-            copy_in(static[k], v)
+            _pair_in(static[k], v, pairs)
     elif isinstance(value, (list, tuple)):
         if len(value) != len(static):
             raise ValueError(f"{len(value)} leaves for a static list of "
                              f"{len(static)}")
         for s, v in zip(static, value):
-            copy_in(s, v)
+            _pair_in(s, v, pairs)
     elif torch.is_tensor(value):
         if value.shape != static.shape:
             raise ValueError(f"input of shape {tuple(value.shape)} for a "
                              f"static leaf of {tuple(static.shape)}")
-        static.copy_(value)
+        if value is not static:
+            pairs.append((static, value))
     elif isinstance(value, np.ndarray):
-        copy_in(static, torch.from_numpy(value))
+        _pair_in(static, torch.from_numpy(value), pairs)
     else:
         static.fill_(value)
+
+
+def _copy(pairs) -> None:
+    """``dst.copy_(src)`` for each pair: those of one device and dtype in
+    one ``torch._foreach_copy_``, the others one by one. Under inference
+    mode, as the served steps run: the engine's outputs (a request's
+    caches) are inference tensors, written in place only there."""
+    same = [(d, s) for d, s in pairs
+            if d.device == s.device and d.dtype == s.dtype]
+    with torch.inference_mode():
+        if same:
+            torch._foreach_copy_([d for d, _ in same], [s for _, s in same])
+        for d, s in pairs:
+            if d.device != s.device or d.dtype != s.dtype:
+                d.copy_(s)
+
+
+def clone(tree):
+    """A copy of ``tree`` whose tensor leaves are new tensors: what a caller
+    keeps of a graph's static outputs, which the next replay overwrites."""
+    out = _like(tree, torch.empty_like)
+    copy_in(out, tree)
+    return out
 
 
 def copy_back(static, new) -> None:
@@ -125,14 +183,20 @@ def copy_back(static, new) -> None:
     into its static slot: the functional outputs of a decode (a new SSM
     state) land where the next step reads them. Leaves written in place
     (the KV caches) are the static tensors themselves and are skipped."""
+    pairs = []
+    _pair_back(static, new, pairs)
+    _copy(pairs)
+
+
+def _pair_back(static, new, pairs) -> None:
     if isinstance(static, dict):
         for k, v in static.items():
-            copy_back(v, new[k])
+            _pair_back(v, new[k], pairs)
     elif isinstance(static, (list, tuple)):
         for s, v in zip(static, new):
-            copy_back(s, v)
+            _pair_back(s, v, pairs)
     elif torch.is_tensor(static) and new is not static:
-        static.copy_(new)
+        pairs.append((static, new))
 
 
 # ---------------------------------------------------------------------------
@@ -182,11 +246,13 @@ class StepGraph:
     with other graphs that replay one at a time on one stream; by default
     the graph has its own. The body should hold no reference to the
     graph's owner: a cycle through it would keep the owner, its weights
-    and the graph alive until a garbage collection. ``warmup_ms`` and
-    ``capture_ms`` time the first call's two passes (host clock,
-    synchronised); ``capture_reserved_bytes`` is the device memory the
-    capture reserved (its pool's new segments) and :attr:`static_bytes`
-    the static tree's; ``replays`` counts the replays. Calls run under
+    and the graph alive until a garbage collection. The first call is the
+    warm-up, the second captures and replays. ``warmup_ms`` (host clock,
+    not synchronised: the time to issue the warm-up) and ``capture_ms``
+    (host clock, synchronised) time the two passes;
+    ``capture_reserved_bytes`` is the device memory the capture reserved
+    (its pool's new segments) and :attr:`static_bytes` the static tree's;
+    ``replays`` counts the replays. Calls run under
     ``torch.inference_mode``: a served step."""
 
     def __init__(self, body: Callable, static: dict, *, capture: bool,
@@ -201,7 +267,7 @@ class StepGraph:
         self.credit: Optional[LaunchCredit] = None
         self.replays = 0
         self.warmup_ms = self.capture_ms = self.capture_reserved_bytes = None
-        self._stream = None
+        self._warmed = False
 
     @property
     def static_bytes(self) -> int:
@@ -214,17 +280,25 @@ class StepGraph:
             if not self.capture:
                 return self.body(self.static)
             if self.graph is None:
-                return self._warm_up_and_capture()
+                if not self._warmed:
+                    return self._timed_warm_up()
+                self._timed_capture()
             self.graph.replay()
             self.credit.apply()
             self.replays += 1
             return self.outputs
 
-    def _warm_up_and_capture(self):
+    def _timed_warm_up(self):
+        t0 = time.perf_counter()
+        self._warmed = False
+        out = self._warm_up()
+        self._warmed = True
+        self.warmup_ms = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _timed_capture(self) -> None:
         wrappers = self._wrappers or kernels.counted_wrappers()
         t0 = time.perf_counter()
-        out = self._warm_up()
-        t1 = time.perf_counter()
         reserved = torch.cuda.memory_reserved()
         before = launch_counts(wrappers)
         try:
@@ -234,14 +308,14 @@ class StepGraph:
             credit = LaunchCredit(before, launch_counts(wrappers))
             credit.apply(-1)
         self.graph, self.outputs, self.credit = graph, outputs, credit
-        self.warmup_ms = (t1 - t0) * 1e3
-        self.capture_ms = (time.perf_counter() - t1) * 1e3
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.capture_reserved_bytes = torch.cuda.memory_reserved() - reserved
-        return out
 
     def _warm_up(self):
-        """The eager warm-up on the capture stream: this call's step."""
-        self._stream = stream = torch.cuda.Stream()
+        """The eager warm-up on the capture stream: this call's step. The
+        card is not synchronised: a step seen once costs what an eager step
+        costs."""
+        stream = capture_stream()
         current = torch.cuda.current_stream()
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
@@ -251,13 +325,15 @@ class StepGraph:
         # one: keep their memory from reuse until this stream's reads end.
         for t in _leaves(out):
             t.record_stream(current)
-        torch.cuda.synchronize()
         return out
 
     def _capture_graph(self):
         """Capture the body on the warm-up's stream: (graph, its static
         outputs). On an exception the capture is ended and the exception
         propagates."""
+        # The capture starts from an idle card: this call's input copies
+        # and the work before it done.
+        torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         # No cyclic garbage collection during the capture: a graph it freed
         # (another step's, unreachable) would be destroyed mid-capture, a
@@ -265,7 +341,7 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(capture_stream()):
                 graph.capture_begin(pool=self.pool)
                 try:
                     outputs = self.body(self.static)

@@ -54,7 +54,12 @@ stays outside it, after a clean step, and so do the host fault sites
 scheduler, since the capture holds its pool's address (the JAX package
 keys its compiled step by the engine and the geometry). The private
 ``_graphed`` (the engine's choice; False runs the step eagerly) is the
-switch the card's tests compare the two paths with.
+switch the card's tests compare the two paths with. Admissions and
+resumes prefill through ``Engine.prefill_request``, which on the card
+replays the engine's prefill graph of the prompt's length (a length's
+first prefill runs eagerly, its second captures); the caches it returns
+are the engine's static caches, which ``insert_dense`` copies into the
+pool before the engine runs again.
 
 **One deliberate change of mechanism from the JAX package.** There, the
 bisection re-run and the resume replay run a row ALONE on the batch-1

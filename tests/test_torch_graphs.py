@@ -227,26 +227,37 @@ def test_graphs_hold_no_reference_back_to_their_owner():
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-130m"])
 def test_generate_frees_the_prefill_caches_before_the_decode(monkeypatch, arch):
-    """The prefill's caches are copied into the graph's static caches and
-    freed before the first decode step: one copy of the cache is alive
-    through the decode."""
+    """One copy of the cache is alive through the decode: the caches the
+    prefill graph's first call (the warm-up) makes are copied into the
+    decode graph's static caches and freed before the first decode step,
+    and its body writes the static caches themselves."""
     _, port, cfg = _engines(arch, True)
     port._graphed = True
-    prefill, refs, alive = port._prefill, [], []
+    prefill, refs, alive = port.model.prefill, [], []
 
-    def spy(batch):
-        logits, caches = prefill(batch)
+    def spy(params, batch, **kw):
+        logits, caches = prefill(params, batch, **kw)
         refs.extend(weakref.ref(t) for t in graphs._leaves(caches))
         return logits, caches
-    port._prefill = spy
+    port.model = dataclasses.replace(port.model, prefill=spy)
     call = graphs.StepGraph.__call__
 
     def counted(self, inputs):
-        alive.append(sum(r() is not None for r in refs))
+        if "tok" in inputs:   # a decode step
+            static = {id(t) for t in graphs._leaves(self.static["caches"])}
+            alive.append(sum(r() is not None and id(r()) not in static
+                             for r in refs))
         return call(self, inputs)
     monkeypatch.setattr(graphs.StepGraph, "__call__", counted)
-    port.generate(_batch(cfg, seed=2), 3)
-    assert refs and alive == [0, 0, 0]
+    for _ in range(2):
+        port.generate(_batch(cfg, seed=2), 3)
+    assert len(port._prefill_graphs) == 1
+    (decode,) = port._graphs.values()
+    static = list(graphs._leaves(decode.static["caches"]))
+    # The second prefill returned the static caches' own tensors.
+    assert len(refs) == 2 * len(static)
+    assert all(r() is t for r, t in zip(refs[len(static):], static))
+    assert refs and alive == [0] * 6
 
 
 # ---------------------------------------------------------------------------
@@ -377,19 +388,22 @@ def test_replays_credit_the_capture_counts(calls):
 
 
 def test_failed_capture_counts_nothing_and_captures_again():
-    """A capture that raises leaves no graph and no count of its own, lets
-    the exception through, and the next call captures again."""
+    """A capture (the second call's) that raises leaves no graph and no
+    count of its own, lets the exception through, and the next call
+    captures again, without another warm-up."""
     k1, k5 = _stub_wrappers()
     step = _StubStepGraph(_counting_body(k1, k5), {"x": torch.zeros(())},
                           capture=True, wrappers=(k1, k5))
     step.fail = True
+    step({})                                             # the warm-up
+    assert step.graph is None
     with pytest.raises(RuntimeError, match="capture failed"):
         step({})
     assert step.graph is None and step.credit is None
     assert k1.variants == {"tc_stream": 2, "wgmma": 1}   # the warm-up
     step({})
     step({})
-    assert step.graph is not None and step.replays == 1
+    assert step.graph is not None and step.replays == 2
     assert k1.variants == {"tc_stream": 6, "wgmma": 3}
     assert k5.launches == 3
 
