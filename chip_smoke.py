@@ -119,6 +119,10 @@ Phases (any failure exits non-zero and prints no result line):
      its replay's against the eager forward (CUDA events), the replay's
      busy share (torch.profiler) and kernel records held to its credit,
      its capture's ms (``prefill_graph_check``; likewise in 3, 3b, 3c, 5).
+     Then a sampled decode (temperature 0.7): the decode graph's replays
+     feeding the sampler's graph (Gumbel-argmax on the device, one graph
+     per logits shape), its tokens bitwise the eager loop's, and its
+     ms/step beside the greedy one's, in turns (``sampled_decode_check``).
   2b. Serve the same olmo-1b (phase 2's bf16 weights, packed again at
      load) through the serving stack: ``ContinuousScheduler`` (max_live 8,
      block_size 16, max_len 256, bf16 cache) over its paged KV pool, on 24
@@ -130,7 +134,10 @@ Phases (any failure exits non-zero and prints no result line):
      must close conservation and drain the pool, launch K1 only (113 a
      forward: a prefill's projections on wgmma, every other launch on
      tc_stream), and (ii)'s tokens and (iii)'s survivors must equal (i)'s
-     bit for bit. Then one batched step at 8 live rows: each row bitwise
+     bit for bit; then (i) greedy again on the graphs (every prefill a
+     replay) and (i) sampled at temperature 0.7, through the graphs and
+     eagerly: its tokens/s beside the greedy pass's and the sampler's
+     graphs (full width and width 1). Then one batched step at 8 live rows: each row bitwise
      the same row run with the others dead (the check), against the
      batch-1 decode (reported only), the step, gather and scatter timed,
      the device-busy share by torch.profiler; and the first 8 requests
@@ -236,8 +243,12 @@ Phases (any failure exits non-zero and prints no result line):
   8. Train full-width olmo-1b (16 layers, d_model 2048, vocab 50304, bf16
      compute over f32 masters, remat) through the launcher's entry point,
      ``repro_torch.launch.train.main`` (4 x 512 Markov tokens a step, 6
-     steps): every loss finite, step 6's below step 1's, and the launches
-     by body equal to the counts derived from the config
+     steps), its step a captured CUDA graph (the first step its warm-up,
+     the second its capture, the rest replays; its credit equal to the
+     kernel records of a replay of the same step's graph in the timing
+     process): every loss finite, step 6's below step 1's, and
+     the launches by body (the warm-up's counted, the replays' credited)
+     equal to the counts derived from the config
      (``train_step_counts``: K5 + K1 on wgmma for the forward, the
      recomputed layers and both products of the backward through
      ``core.autograd``, K7 only where the planner picks it, nothing
@@ -250,9 +261,12 @@ Phases (any failure exits non-zero and prints no result line):
      Frobenius error). (c) At 2 of 16 layers:
      2 steps, a checkpoint, 2 more; restored into fresh trees, the state
      bitwise the saved one and the same 2 steps bitwise the same losses.
-     Then, in a fresh process, the step's ms (host clock and CUDA
-     events), tokens/s, peak memory and device busy share
-     (torch.profiler).
+     (d) At 2 of 16 layers: 4 graphed steps bitwise 4 eager steps from the
+     same init and batches (metrics, params, moments, step). Then, in a
+     fresh process, the eager step, the graphed step and the graphed step
+     on ``torch_matmul``: each one's ms (host clock and CUDA events),
+     tokens/s, peak memory, device busy share (torch.profiler), and the
+     graph's capture ms and pool bytes.
   9. Guarded dispatch and the serving launcher, bf16. (a) No fault: a
      packed [2048, 8192] weight (olmo-1b's gate / up) at M 4 (K1
      tc_stream) and 512 (K1 wgmma), the same weight raw at M 4 (K7) and
@@ -3628,6 +3642,88 @@ def serve_timings(torch, engine, prompt, steps, kernel_tags, counters,
                 prefill_graph=prefill)
 
 
+# The sampled decode (phases 2 and 2b): the temperature and the seed.
+SAMPLE_TEMPERATURE, SAMPLE_SEED = 0.7, 11
+
+
+class sampled:
+    """Within the block the engine samples at SAMPLE_TEMPERATURE (its
+    draws keyed by SAMPLE_SEED); its greedy config is restored after."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        self.cfg = self.engine.cfg
+        self.engine.cfg = dataclasses.replace(
+            self.cfg, temperature=SAMPLE_TEMPERATURE, seed=SAMPLE_SEED)
+
+    def __exit__(self, *exc):
+        self.engine.cfg = self.cfg
+
+
+def sampled_decode_check(torch, engine, prompt, steps, label) -> dict:
+    """A sampled ``Engine.generate`` (SAMPLE_TEMPERATURE) through the
+    graphs, the decode graph's replays feeding the sampler's graph (one for
+    the batch's logits shape: its warm-up, its capture, then replays),
+    against the eager loop and its eager draws: the tokens must be bitwise
+    equal, and the sampler's graph must have replayed. Then warm calls on
+    the graphs, greedy and sampled in turns, 3 rounds (host clock,
+    synchronised): ms a decode step of each as ``serve_timings`` takes it
+    ((``steps`` steps - 1 step) / (steps - 1)), and their difference."""
+    import numpy as np
+    batch = {"tokens": prompt}
+    with sampled(engine):
+        tok_g = engine.generate(batch, max_new_tokens=steps)
+        with eager_steps(engine):
+            tok_e = engine.generate(batch, max_new_tokens=steps)
+        torch.cuda.synchronize()
+        tok_g2 = engine.generate(batch, max_new_tokens=steps)
+    greedy = engine.generate(batch, max_new_tokens=steps)
+    (graph,) = [g for g in engine._sample_graphs.values()
+                if g.static["logits"].shape[0] == prompt.shape[0]]
+    bitwise = bool(np.array_equal(tok_g, tok_e)) and bool(
+        np.array_equal(tok_g2, tok_g))
+    times = {"greedy": ([], []), "sampled": ([], [])}
+    for rnd in range(3):
+        order = ("greedy", "sampled") if rnd % 2 == 0 else ("sampled", "greedy")
+        for mode in order:
+            for n_new, into in ((steps, times[mode][0]), (1, times[mode][1])):
+                with (sampled(engine) if mode == "sampled"
+                      else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    engine.generate(batch, max_new_tokens=n_new)
+                    torch.cuda.synchronize()
+                    into.append((time.perf_counter() - t0) * 1e3)
+    ms = {mode: (sum(a) / len(a) - sum(b) / len(b)) / (steps - 1)
+          for mode, (a, b) in times.items()}
+    pairs = [((s - s1) - (g - g1)) / (steps - 1) for s, s1, g, g1 in zip(
+        *times["sampled"], *times["greedy"])]
+    out = dict(temperature=SAMPLE_TEMPERATURE, tokens_bitwise_eager=bitwise,
+               tokens_differ_from_greedy=not np.array_equal(tok_g, greedy),
+               sampler_replays=graph.replays,
+               sampler_capture_ms=graph.capture_ms,
+               sampled_ms_per_step=ms["sampled"],
+               greedy_ms_per_step=ms["greedy"],
+               sampled_minus_greedy_ms=ms["sampled"] - ms["greedy"],
+               sampled_minus_greedy_range=[min(pairs), max(pairs)],
+               sampled_tokens_per_s=prompt.shape[0] * 1e3 / ms["sampled"])
+    log(f"  {label}, sampled decode (T {SAMPLE_TEMPERATURE}), graphs against "
+        f"eager: tokens bitwise {bitwise} (differ from greedy "
+        f"{out['tokens_differ_from_greedy']}); the sampler's graph "
+        f"{graph.replays} replays, capture {graph.capture_ms:.1f} ms; warm "
+        f"generate on the graphs, 3 rounds in turns: sampled "
+        f"{ms['sampled']:.3f} ms/step, greedy {ms['greedy']:.3f} ms/step, "
+        f"difference {ms['sampled'] - ms['greedy']:.3f} ms (rounds "
+        f"{min(pairs):.3f}-{max(pairs):.3f}); "
+        f"{out['sampled_tokens_per_s']:.1f} tokens/s sampled")
+    if not bitwise or not graph.replays:
+        raise AssertionError(f"{label}: the sampled decode on the graphs "
+                             f"differs from the eager one, or its sampler's "
+                             f"graph never replayed")
+    return out
+
+
 # The raw prefill's kernels in a profile: K5's three bodies ("k5_"), K1's
 # wgmma body (on NaturalA with packed B), the last-position LM head on K7's
 # tc_stream (NaturalB).
@@ -3786,6 +3882,8 @@ def phase_serve(torch, gp, counters, cfgs, models, serve):
 
     timings = serve_timings(torch, engine, prompt, STEPS, K1_KERNEL_TAGS,
                             counters, "olmo-1b packed")
+    timings["sampled"] = sampled_decode_check(torch, engine, prompt, STEPS,
+                                              "olmo-1b packed")
     timings.update(rel_fro=rel, first_generate_ms=t_gen * 1e3,
                    k1_launches_by_body=bodies, load_ms=t_load * 1e3,
                    k5_load_launches_by_body=load_bodies)
@@ -4116,6 +4214,34 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
                                              and toks != tok_i[rid]):
             raise AssertionError(f"(iii): request {rid} differs from (i)")
     run_iv, tok_iv = both("(iv) int8 pool", kv_quantize="int8")
+    # (i) greedy once more on the graphs, every prefill now a replay (the
+    # run sampling is compared with), then (i) sampled.
+    run_ig, tok_ig, launched = continuous_run(torch, serve, engine, counters,
+                                              fwd, reqs, "(i) greedy again")
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    if tok_ig != tok_i:
+        raise AssertionError("(i) greedy again: streams differ from (i)'s")
+    with sampled(engine):
+        run_s, tok_s = both(f"(i) sampled, T {SAMPLE_TEMPERATURE}")
+    # The scheduler samples at its full width; a row's first token, at its
+    # admission, at width 1.
+    sample_widths = sorted(g.static["logits"].shape[0]
+                           for g in engine._sample_graphs.values())
+    run_s["sampler_graphs"] = {"widths": sample_widths, "replays": sum(
+        g.replays for g in engine._sample_graphs.values())}
+    run_s["tokens_differ_from_i"] = sum(
+        a != b for rid in tok_i for a, b in zip(tok_i[rid], tok_s[rid]))
+    run_s["greedy_again_tokens_per_s"] = run_ig["tokens_per_s"]
+    run_s["greedy_again_ms_per_step"] = run_ig["ms_per_step"]
+    log(f"  (i) sampled: {run_s['tokens_per_s']:.1f} tokens/s on the graphs, "
+        f"{run_s['ms_per_step']:.2f} ms a batched step, against (i) greedy "
+        f"again {run_ig['tokens_per_s']:.1f}, {run_ig['ms_per_step']:.2f} ms "
+        f"(every prefill of both a replay); sampler graphs "
+        f"{run_s['sampler_graphs']}; {run_s['tokens_differ_from_i']} of "
+        f"{run_i['tokens']} tokens differ from (i)'s")
+    if not run_s["sampler_graphs"]["replays"]:
+        raise AssertionError("(i) sampled: the sampler's graphs never replayed")
     same = sum(a == b for rid in tok_i for a, b in zip(tok_i[rid], tok_iv[rid]))
     run_iv["share_equal_to_i"] = same / run_i["tokens"]
     log(f"  (iv) int8 pool: {same}/{run_i['tokens']} tokens equal to (i)'s "
@@ -4309,7 +4435,7 @@ def phase_serve_continuous(torch, counters, serve, packed_run):
         f"{fe_same}/{fe_n} (reported only)")
     fe_replays = fe_decode.replays
     del cs, fe, fe_e, fe_decode, engine
-    out = dict(runs=[run_i, run_ii, run_iii, run_iv],
+    out = dict(runs=[run_i, run_ii, run_iii, run_iv, run_s],
                **step_t["graph"], eager_step=step_t["eager"],
                graph_step_equal_to_eager=eager_equal,
                gather_ms=gather_ms, scatter_ms=scatter_ms,
@@ -5583,7 +5709,8 @@ def train_grad_gate(torch, counters, models, cfg, batch) -> dict:
 def train_ckpt_round_trip(torch, models, cfg, data) -> dict:
     """(c) At CKPT_LAYERS of the config's layers: 2 steps, save, 2 more;
     restore into fresh trees: the state bitwise the saved one, and the
-    same 2 steps from it give the same losses, bit for bit."""
+    same 2 steps from it (the restored trees copied into the graphed
+    step's static tree) give the same losses, bit for bit."""
     import shutil
     import tempfile
     from repro_torch.launch import train as launch
@@ -5599,7 +5726,8 @@ def train_ckpt_round_trip(torch, models, cfg, data) -> dict:
     s = opt.init_state(p)
     for i in range(2):
         p, s, _ = step(p, s, batches[i])
-    saved = {"params": p, "opt": s}
+    # A copy: the step writes its trees in place, the next steps included.
+    saved = opt.tree_map(torch.clone, {"params": p, "opt": s})
     tmp = tempfile.mkdtemp(prefix="phase8_ckpt_")
     try:
         t0 = time.perf_counter()
@@ -5638,42 +5766,100 @@ def train_ckpt_round_trip(torch, models, cfg, data) -> dict:
     return out
 
 
-def train_times_main() -> int:
-    """Phase 8's times, in a process of their own (as phase 7's: late in
-    the smoke's process torch.profiler loses its records): full-width
-    olmo-1b, the launcher's train step on its first batch, one warm step,
-    then TRAIN_TIMED steps by the host clock (synchronized) and by CUDA
-    events, peak memory over them, and torch.profiler over one more:
-    device busy ms and its share of the step. Prints one line,
-    TRAIN_TIMES_TAG + a JSON object."""
-    import torch
-    from repro_torch import models
-    from repro_torch.data.pipeline import DataConfig, MarkovLM
+GRAPH_STEPS = 4    # (d): graphed steps against eager ones
+
+
+def train_graph_bitwise(torch, models, cfg, data) -> dict:
+    """(d) Full width at CKPT_LAYERS of the config's layers: GRAPH_STEPS
+    steps of the graphed step (``make_train_step``: its warm-up, its
+    capture, then replays) against GRAPH_STEPS of the functional eager
+    step (``TrainStep._eager``) from the same init and batches: every
+    step's metrics, and the params, moments and step after, bit for bit;
+    the static leaves at their addresses."""
     from repro_torch.launch import train as launch
     from repro_torch.train import optimizer as opt
     from repro_torch.train.loop import TrainConfig, make_train_step
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = launch.preset_config(TRAIN_ARCH, "full")
+    cut = dataclasses.replace(cfg, num_layers=CKPT_LAYERS)
+    model = models.build(cut, device=DEVICE)
+    step = make_train_step(model, TrainConfig(optim=opt.AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=GRAPH_STEPS)))
+    batches = [launch.device_batch(data.batch_at(i), DEVICE)
+               for i in range(GRAPH_STEPS)]
+    p = model.init(0)
+    s = opt.init_state(p)
+    ptrs = [t.data_ptr() for t in opt.tree_leaves((p, s))]
+    ep = model.init(0)
+    es = opt.init_state(ep)
+    metrics_equal, losses = [], []
+    for b in batches:
+        p, s, m = step(p, s, b)
+        ep, es, em = step._eager(ep, es, b)
+        metrics_equal.append(all(torch.equal(m[k], em[k]) for k in m))
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    state_equal = all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(opt.tree_leaves((p, s)), opt.tree_leaves((ep, es))))
+    same_ptrs = [t.data_ptr() for t in opt.tree_leaves((p, s))] == ptrs
+    g = step.graph
+    out = dict(layers=CKPT_LAYERS, steps=GRAPH_STEPS, losses=losses,
+               metrics_bitwise=metrics_equal, state_bitwise=state_equal,
+               static_addresses_kept=same_ptrs, replays=g.replays,
+               warmup_ms=g.warmup_ms, capture_ms=g.capture_ms,
+               capture_reserved_bytes=g.capture_reserved_bytes,
+               static_bytes=g.static_bytes)
+    log(f"  (d) graphed step at {CKPT_LAYERS} of {cfg.num_layers} layers, "
+        f"{GRAPH_STEPS} steps against the eager step: metrics bitwise "
+        f"{metrics_equal}, params / moments / step bitwise {state_equal}, "
+        f"static addresses kept {same_ptrs}; {g.replays} replays, capture "
+        f"{g.capture_ms:.1f} ms, pool {g.capture_reserved_bytes / 1e9:.3f} GB, "
+        f"static tree {g.static_bytes / 1e9:.3f} GB; losses {losses}")
+    if not (all(metrics_equal) and state_equal and same_ptrs
+            and g.replays == GRAPH_STEPS - 1):
+        raise AssertionError("phase 8 (d): the graphed steps are not bitwise "
+                             "the eager steps")
+    return out
+
+
+TRAIN_TIMED = 3     # timed steps after the warm ones
+
+
+def train_step_times(torch, launch, models, opt, loop, cfg, batch, label,
+                     graphed) -> dict:
+    """One train step's times on a fresh model and state: the launcher's
+    step (``make_train_step``: captured, ``graphed``) or its functional
+    eager step (``TrainStep._eager``). Two calls first (the graph's
+    warm-up and capture; two eager steps), then one more warm call and
+    TRAIN_TIMED steps by CUDA events and by the host clock (synchronised
+    at the end), peak memory allocated from the first call on and memory
+    reserved after, and torch.profiler over one more step: device busy ms,
+    its share of the step, K1's and K5's device ms; for the graph, the
+    port's kernel records of that replay held to its credit
+    (``replay_launch_check``)."""
     model = models.build(cfg, device=DEVICE)
+    step = loop.make_train_step(model, loop.TrainConfig(optim=opt.AdamWConfig(
+        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)))
+    run = step if graphed else step._eager
     state = {"p": model.init(0)}
     state["s"] = opt.init_state(state["p"])
-    step = make_train_step(model, TrainConfig(optim=opt.AdamWConfig(
-        lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)))
-    data = MarkovLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                               global_batch=TRAIN_BATCH))
-    batch = launch.device_batch(data.batch_at(0), DEVICE)
-
-    def one(i):
-        state["p"], state["s"], _ = step(state["p"], state["s"], batch)
-    one(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timed = 2
+    base = torch.cuda.memory_allocated()
+
+    def one(i):
+        state["p"], state["s"], _ = run(state["p"], state["s"], batch)
     t0 = time.perf_counter()
-    ms_events = time_ms(one, timed)   # one more warm call inside, then timed
-    host_ms = (time.perf_counter() - t0) * 1e3 / (timed + 1)
+    one(0)
+    one(1)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ms_events = time_ms(one, TRAIN_TIMED)   # one more warm call inside
+    host_ms = (time.perf_counter() - t0) * 1e3 / (TRAIN_TIMED + 1)
     peak = torch.cuda.max_memory_allocated()
-    dev, kept, wall = profile_kernels(torch, one, 1)
+    reserved = torch.cuda.memory_reserved()
+    counts = {}
+    dev, kept, wall = profile_kernels(torch, one, 1, counts)
     busy = sum(dev.values()) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     # K1's wgmma body and K5's bodies by their kernel names (no other
@@ -5684,16 +5870,67 @@ def train_times_main() -> int:
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms_events / 1e3),
                busy_ms=busy, busy_share=busy / ms_events,
                k1_device_ms=k1_ms, k5_device_ms=k5_ms,
-               **train_step_bounds(cfg, TRAIN_BATCH * TRAIN_SEQ),
+               first_two_calls_ms=first_ms,
                top_kernels_ms={k[:80]: v / 1e3 for k, v in top},
                profiled_wall_ms=wall, records_kept=kept,
-               peak_memory_gb=peak / 1e9)
-    log(f"  step {ms_events:.1f} ms (events), {host_ms:.1f} ms (host clock); "
-        f"{out['tokens_per_s']:.0f} tokens/s; device busy {busy:.1f} ms "
-        f"({100 * busy / ms_events:.1f}%, records kept {kept}); peak "
-        f"{peak / 1e9:.2f} GB; device ms K1 {k1_ms:.2f} (GEMM bound "
-        f"{out['gemm_bound_ms']:.2f}), K5 {k5_ms:.2f} (bound "
-        f"{out['pack_bound_ms']:.2f})")
+               peak_memory_gb=peak / 1e9, state_gb=base / 1e9,
+               reserved_gb=reserved / 1e9)
+    if graphed:
+        g = step.graph
+        out.update(capture_ms=g.capture_ms, warmup_ms=g.warmup_ms,
+                   pool_gb=g.capture_reserved_bytes / 1e9,
+                   static_gb=g.static_bytes / 1e9, replays=g.replays,
+                   replay_records=replay_launch_check(
+                       lambda: kernel_counts(torch, one, 1), g.credit, 1,
+                       f"phase 8, {label}'s replay", counts))
+    log(f"  {label}: step {ms_events:.1f} ms (events), {host_ms:.1f} ms "
+        f"(host clock); {out['tokens_per_s']:.0f} tokens/s; device busy "
+        f"{busy:.1f} ms ({100 * busy / ms_events:.1f}%, records kept {kept}); "
+        f"peak {peak / 1e9:.2f} GB allocated (params and state "
+        f"{base / 1e9:.2f}), {reserved / 1e9:.2f} GB reserved; device ms K1 "
+        f"{k1_ms:.2f}, K5 {k5_ms:.2f}; first two calls {first_ms:.1f} ms"
+        + (f"; capture {out['capture_ms']:.1f} ms, pool {out['pool_gb']:.2f} "
+           f"GB" if graphed else ""))
+    del step, run, state, model, one
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_times_main() -> int:
+    """Phase 8's times, in a process of their own (as phase 7's: late in
+    the smoke's process torch.profiler loses its records): full-width
+    olmo-1b on the launcher's first batch, the eager step, then the
+    captured step (``train_step_times``), then the captured step with
+    every dense contraction on ``torch_matmul`` (named through
+    REPRO_TORCH_GEMM_STRATEGY at its warm-up and capture): the library's
+    step beside K5 + K1's. Prints one line, TRAIN_TIMES_TAG + a JSON
+    object."""
+    import torch
+    from repro_torch import models
+    from repro_torch.data.pipeline import DataConfig, MarkovLM
+    from repro_torch.launch import train as launch
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = launch.preset_config(TRAIN_ARCH, "full")
+    data = MarkovLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=TRAIN_BATCH))
+    batch = launch.device_batch(data.batch_at(0), DEVICE)
+    args = (torch, launch, models, opt, loop, cfg, batch)
+    out = dict(eager=train_step_times(*args, "eager step", graphed=False),
+               graph=train_step_times(*args, "graphed step", graphed=True))
+    with env_set("REPRO_TORCH_GEMM_STRATEGY", "torch_matmul"):
+        out["torch_matmul_graph"] = train_step_times(
+            *args, "graphed step, every product on torch_matmul", graphed=True)
+    out.update(train_step_bounds(cfg, TRAIN_BATCH * TRAIN_SEQ))
+    g, e = out["graph"], out["eager"]
+    log(f"  graph against eager: {g['step_ms_events']:.1f} against "
+        f"{e['step_ms_events']:.1f} ms a step ({e['step_ms_events'] / g['step_ms_events']:.3f}x), "
+        f"{g['tokens_per_s']:.0f} against {e['tokens_per_s']:.0f} tokens/s, "
+        f"busy {100 * g['busy_share']:.1f}% against {100 * e['busy_share']:.1f}%, "
+        f"peak {g['peak_memory_gb']:.2f} against {e['peak_memory_gb']:.2f} GB; "
+        f"GEMM bound {out['gemm_bound_ms']:.2f} ms, pack bound "
+        f"{out['pack_bound_ms']:.2f} ms")
     from repro_torch.core import health
     assert_healthy(health, "phase 8's timing process")
     log(TRAIN_TIMES_TAG + json.dumps(out))
@@ -5701,10 +5938,15 @@ def train_times_main() -> int:
 
 
 def phase_train(torch, counters, models, card) -> tuple:
-    """Phase 8: (a) ``launch.train.main`` at full width (loss falls,
-    launches as derived), each step product at its shape against
-    torch.matmul (``train_shape_checks``), (b) the gradient gate, (c) the checkpoint round trip, then the step's times in a fresh
-    process. Returns (launches of (a), results)."""
+    """Phase 8: (a) ``launch.train.main`` at full width on the captured
+    step (loss falls, launches by body as derived: the warm-up's counted,
+    the replays' credited; its credit equal to the kernel records of the
+    timing process's replay),
+    each step product at its shape against torch.matmul
+    (``train_shape_checks``), (b) the gradient gate, (c) the checkpoint
+    round trip, (d) graphed steps bitwise eager ones, then the step's
+    times, eager and graphed, in a fresh process. Returns (launches of
+    (a), results)."""
     import tempfile
     from repro_torch.data.pipeline import DataConfig, MarkovLM
     from repro_torch.launch import train as launch
@@ -5713,6 +5955,14 @@ def phase_train(torch, counters, models, card) -> tuple:
     res = {"args": " ".join(TRAIN_ARGS)}
     fd, metrics_path = tempfile.mkstemp(prefix="phase8_", suffix=".json")
     os.close(fd)
+    # The launcher's step, kept to hold a replay of its graph to the
+    # kernel records.
+    made, make_step = [], launch.make_train_step
+
+    def keep_step(*args, **kw):
+        made.append(make_step(*args, **kw))
+        return made[-1]
+    launch.make_train_step = keep_step
     try:
         counters.reset()
         t0 = time.perf_counter()
@@ -5724,7 +5974,29 @@ def phase_train(torch, counters, models, card) -> tuple:
         with open(metrics_path) as f:
             history = json.load(f)
     finally:
+        launch.make_train_step = make_step
         os.remove(metrics_path)
+    (step,) = made
+    graph = step.graph
+    res["graph"] = dict(replays=graph.replays, warmup_ms=graph.warmup_ms,
+                        capture_ms=graph.capture_ms,
+                        capture_reserved_bytes=graph.capture_reserved_bytes,
+                        static_bytes=graph.static_bytes,
+                        credit_by_class=credit_by_class(graph.credit))
+    log(f"  (a) the launcher's step: a captured graph, {graph.replays} "
+        f"replays of {TRAIN_STEPS} steps (the first its warm-up, the second "
+        f"its capture); warm-up {graph.warmup_ms:.1f} ms, capture "
+        f"{graph.capture_ms:.1f} ms, pool "
+        f"{graph.capture_reserved_bytes / 1e9:.2f} GB, static tree "
+        f"{graph.static_bytes / 1e9:.2f} GB")
+    if graph.graph is None or graph.replays != TRAIN_STEPS - 1:
+        raise AssertionError(f"phase 8 (a): the launcher's step replayed "
+                             f"{graph.replays} times, want {TRAIN_STEPS - 1}")
+    # A replay of the same graph is profiled in the timing process (late in
+    # this process torch.profiler loses records: run 3 read 450 of 451 K1
+    # records three times), and its records held to this graph's credit.
+    del step, graph, made
+    torch.cuda.empty_cache()
     losses = [h["loss"] for h in history]
     res.update(rc=rc, losses=losses, launches_by_body=by_body,
                history=history)
@@ -5751,6 +6023,8 @@ def phase_train(torch, counters, models, card) -> tuple:
     torch.cuda.empty_cache()
     res["checkpoint"] = train_ckpt_round_trip(torch, models, cfg, data)
     torch.cuda.empty_cache()
+    res["graph_bitwise"] = train_graph_bitwise(torch, models, cfg, data)
+    torch.cuda.empty_cache()
     log("  times, in a fresh process:")
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -5768,6 +6042,13 @@ def phase_train(torch, counters, models, card) -> tuple:
                              f"{run.returncode})")
     res["times"] = json.loads(times[0][len(TRAIN_TIMES_TAG):])
     res["times"]["process_s"] = time.perf_counter() - t0
+    replayed = res["times"]["graph"]["replay_records"]
+    log(f"  (a) the launcher's graph credits {res['graph']['credit_by_class']} "
+        f"a replay; a replay of the same step's graph in the timing process "
+        f"launched {replayed}")
+    if replayed != res["graph"]["credit_by_class"]:
+        raise AssertionError("phase 8 (a): the launcher's graph credits other "
+                             "launches than a replay of its step launched")
     res["phase_s"] = time.perf_counter() - t_phase
     res["card"] = card
     log(json.dumps({"train": {k: v for k, v in res.items() if k != "history"}}))
@@ -7065,6 +7346,8 @@ def graph_summary(served, cont, families) -> dict:
             launches_equal=check["launches_equal"],
             replay_records=check["replay_records"],
             prefill_graph=t["prefill_graph"])
+        if "sampled" in t:
+            out[path]["sampled"] = t["sampled"]
     out["olmo-1b continuous"] = dict(
         runs={r["label"]: dict(graph_tokens_per_s=r["tokens_per_s"],
                                eager_tokens_per_s=r["eager"]["tokens_per_s"],

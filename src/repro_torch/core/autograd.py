@@ -82,10 +82,10 @@ def check_differentiable(spec, low) -> None:
         return
     raise RuntimeError(
         f"lowering {low.name!r} has no backward ({spec.describe()}): a "
-        f"packed or grouped kernel contraction cannot carry a gradient yet "
-        f"(MoE training on the card, gradients through K2 / K3, is an open "
-        f"item of ROADMAP.md Queue 1); train with raw weights, or run the "
-        f"call under torch.no_grad()")
+        f"packed or grouped kernel contraction carries no gradient (the "
+        f"reference trains its experts through grouped_einsum too; a "
+        f"backward through K2 / K3 is held in ROADMAP.md Queue 2); train "
+        f"with raw weights, or run the call under torch.no_grad()")
 
 
 def _act_grad(act: str, z: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:

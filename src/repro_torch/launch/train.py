@@ -6,7 +6,12 @@ config cut and command line, plus ``--device`` (default ``cuda``; pass
 pipeline, mixed precision (f32 masters, the compute dtype per call),
 AdamW, checkpoint / auto-resume in the reference's file format, the
 straggler monitor. There is no mesh: ``--model-parallel`` other than 1
-raises.
+raises. On the card the step replays a captured CUDA graph that updates
+the params and the optimizer state in place (``train.loop.TrainStep``, the
+counterpart of the reference's jit with the two donated): a restored
+checkpoint is the trees its first call adopts, and a checkpoint is read
+from them once the card is synchronised. The straggler monitor times the
+host's time per call, as the reference's times its asynchronous dispatch.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --preset tiny --steps 200 --ckpt-dir /tmp/ckpt --device cpu
@@ -69,6 +74,13 @@ def device_batch(batch: dict, device) -> dict:
     """A pipeline batch (int32 numpy) as long tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device=device, dtype=torch.long)
             for k, v in batch.items()}
+
+
+def _synchronize(device) -> None:
+    """Wait for the card's work: the step's last replay writes the trees a
+    checkpoint reads."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def main(argv=None) -> int:
@@ -140,6 +152,7 @@ def main(argv=None) -> int:
             print(f"  [straggler-monitor] step {step} exceeded EWMA "
                   f"threshold")
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+            _synchronize(dev)
             ckpt.save(args.ckpt_dir, step + 1,
                       {"params": params, "opt": opt_state})
             ckpt.cleanup(args.ckpt_dir, keep_last=3)
@@ -147,6 +160,7 @@ def main(argv=None) -> int:
     dt = time.time() - t_start
     steps_done = args.steps - start_step
     if args.ckpt_dir and steps_done:
+        _synchronize(dev)
         ckpt.save(args.ckpt_dir, args.steps,
                   {"params": params, "opt": opt_state})
     print(f"done: {steps_done} steps in {dt:.1f}s "

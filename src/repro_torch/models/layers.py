@@ -174,11 +174,35 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def remat_call(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` under ``torch.utils.checkpoint`` (not
     reentrant): its activations are dropped after the forward and
-    recomputed in the backward, with the same values."""
-    if remat:
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
-    return fn(*args)
+    recomputed in the backward, with the same values. The models draw no
+    random numbers, so no generator state is saved for the recompute:
+    reading the CUDA generator's state is refused while a stream captures
+    (the train step's graph).
+
+    An exception of the forward is raised after the checkpoint has
+    returned: torch before 2.13 leaves the checkpoint's saved-tensor hooks
+    installed when its function raises, and every later forward of the
+    thread then saves into the failed call's frame (a train step after a
+    failed warm-up fails its backward). The recompute runs ``fn`` as it
+    is, so that the checkpoint's own early stop passes through."""
+    if not remat:
+        return fn(*args)
+    state = {"forward": True, "error": None}
+
+    def run(*a):
+        if not state["forward"]:
+            return fn(*a)
+        try:
+            return fn(*a)
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            state["error"] = exc
+            return None
+    out = torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+    state["forward"] = False
+    if state["error"] is not None:
+        raise state["error"]
+    return out
 
 
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,

@@ -11,11 +11,11 @@
     kernel with the activation in its store epilogue, and the grouped
     ragged kernel for the expert contractions. ``quantize`` stores them as
     int8 / int4 tiles with scales.
-  * Sampling is per request: row r at step t draws from its own
-    ``torch.Generator`` seeded from (seed, request_id, step), so a
-    request's stream never depends on its batch neighbours. The streams
-    differ from the reference's JAX threefry streams; greedy decoding
-    (temperature 0) matches token for token.
+  * Sampling is per request: row r at step t draws by Gumbel-argmax with
+    noise hashed from a key of (seed, request_id, step)
+    (``serve.sampler``), so a request's stream never depends on its batch
+    neighbours. The streams differ from the reference's JAX threefry
+    streams; greedy decoding (temperature 0) matches token for token.
   * Two serving surfaces share the step programs: ``Engine.generate`` runs
     a fixed-size static batch, while ``serve.frontend.StreamFrontend``
     serves a request stream through the per-request step API
@@ -32,11 +32,14 @@
     its decode. The decode: one graph per batch width and cache layout,
     each step's token and position copied into its static buffers, the
     greedy argmax inside the graph; a sampled decode (temperature > 0)
-    draws on the host from the graph's static logits. The prefill: one
-    graph per input signature (``tokens`` [B, S], with ``patches`` or
-    ``frames``), as the reference compiles one program per shape; prompts
-    are never padded (an SSM's state and its causal conv would take the
-    pad tokens in). Each graph's first call runs eagerly on the capture
+    draws from the graph's static logits by the sampler's graph, one per
+    logits shape (the reference jits its draw apart from its decode, one
+    program per logits width): the fault site and the per-row numerics
+    guard of the front end and the scheduler sit between the two. The
+    prefill: one graph per input signature (``tokens`` [B, S], with
+    ``patches`` or ``frames``), as the reference compiles one program per
+    shape; prompts are never padded (an SSM's state and its causal conv
+    would take the pad tokens in). Each graph's first call runs eagerly on the capture
     stream (its warm-up), the second captures, every later call replays.
     The caches' shapes depend on the width, ``max_len`` and the layout,
     never on S, so each prefill graph writes its caches in place into the
@@ -69,7 +72,7 @@ from repro_torch.models import Model
 from repro_torch.models.layers import pack_model_params
 from repro_torch.models.moe import GROUP_SIZE, _capacity
 from repro_torch.models.model_registry import resolve_device
-from repro_torch.serve import graphs
+from repro_torch.serve import graphs, sampler
 
 
 @dataclasses.dataclass
@@ -142,16 +145,6 @@ def _to_device(tree, device):
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
-def _mix64(*vals: int) -> int:
-    """splitmix64 over the values: a generator seed per (seed, rid, step)."""
-    x = 0x9E3779B97F4A7C15
-    for v in vals:
-        x = (x ^ (v & 0xFFFFFFFFFFFFFFFF)) * 0xBF58476D1CE4E5B9 & 0xFFFFFFFFFFFFFFFF
-        x = (x ^ (x >> 31)) * 0x94D049BB133111EB & 0xFFFFFFFFFFFFFFFF
-        x ^= x >> 29
-    return x & 0x7FFFFFFFFFFFFFFF
-
-
 class Engine:
     def __init__(self, model: Model, params, cfg: ServeConfig = ServeConfig(),
                  device=None):
@@ -176,6 +169,8 @@ class Engine:
         # signature.
         self._graphs: Dict[tuple, graphs.StepGraph] = {}
         self._prefill_graphs: Dict[tuple, graphs.StepGraph] = {}
+        # The sampler's graphs by logits shape and temperature.
+        self._sample_graphs: Dict[tuple, graphs.StepGraph] = {}
         # One memory pool for all of them (made at the first capture).
         self._graph_pool = None
 
@@ -225,29 +220,40 @@ class Engine:
 
     def sample_tokens(self, logits: torch.Tensor, request_ids,
                       step) -> torch.Tensor:
-        """One token per row of ``logits`` [B, V]: argmax when greedy, else
-        a draw from ``softmax(row / temperature)`` with the row's own
-        generator, seeded from (seed, request_ids[r], step[r]). A row with
-        NaN / Inf logits (which only the opt-in numerics guard turns into
-        an eviction) takes its argmax, as the reference's Gumbel-argmax
-        draw lands on its first NaN, so an unguarded poisoned row yields a
-        token instead of failing every row sampled with it."""
+        """One token per row of ``logits`` [B, V] (int32 [B], the caller's
+        to keep): argmax when greedy, else the Gumbel-argmax draw from
+        ``softmax(row / temperature)`` keyed by (seed, request_ids[r],
+        step[r]) (``serve.sampler.draw``). A row with NaN / Inf logits
+        (which only the opt-in numerics guard turns into an eviction)
+        takes its argmax, as the reference's Gumbel-argmax draw lands on
+        its first NaN, so an unguarded poisoned row yields a token instead
+        of failing every row sampled with it. The keys are made on the
+        host in one pass; nothing is read back. Through the graphs
+        (``_graphed``) the draw replays the sampler's graph for this
+        logits shape."""
         if self.cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
-        rids = np.asarray(request_ids, np.int64).reshape(-1)
-        steps = np.broadcast_to(np.asarray(step, np.int64), rids.shape)
-        probs = torch.softmax(logits.to(torch.float32) / self.cfg.temperature,
-                              dim=-1)
-        finite = torch.isfinite(probs).all(dim=-1).tolist()
-        out = []
-        for r in range(probs.shape[0]):
-            if not finite[r]:
-                out.append(torch.argmax(logits[r]).reshape(1))
-                continue
-            gen = torch.Generator(device=probs.device)
-            gen.manual_seed(_mix64(self.cfg.seed, int(rids[r]), int(steps[r])))
-            out.append(torch.multinomial(probs[r], 1, generator=gen))
-        return torch.cat(out).to(torch.int32)
+        keys = torch.from_numpy(sampler.row_keys(self.cfg.seed, request_ids,
+                                                 step))
+        if self.device.type == "cuda":
+            keys = keys.pin_memory().to(self.device, non_blocking=True)
+        if not self._graphed:
+            return sampler.draw(logits, keys, self.cfg.temperature)
+        inputs = {"logits": logits, "keys": keys}
+        return self._sample_graph(inputs)(inputs).clone()
+
+    def _sample_graph(self, inputs: dict) -> graphs.StepGraph:
+        """The sampler's graph for the logits' shape and the temperature:
+        static logits [B, V] and keys [B], the draw inside."""
+        key = (graphs.signature(inputs["logits"]), self.cfg.temperature)
+        step = self._sample_graphs.get(key)
+        if step is None:
+            step = graphs.StepGraph(
+                functools.partial(_sample_body, self.cfg.temperature),
+                graphs.static_like(inputs), capture=self.device.type == "cuda",
+                pool=self._pool())
+            self._sample_graphs[key] = step
+        return step
 
     def prefill_request(self, tokens) -> tuple:
         """Prefill ONE request's prompt ([S] ints) in its own batch-1 slot:
@@ -400,3 +406,8 @@ def _decode_body(model: Model, params, static) -> dict:
     logits = logits[:, 0]
     return {"logits": logits,
             "next": torch.argmax(logits, dim=-1).to(torch.int32)[:, None]}
+
+
+def _sample_body(temperature: float, static) -> torch.Tensor:
+    """The captured draw over the static logits and keys."""
+    return sampler.draw(static["logits"], static["keys"], temperature)

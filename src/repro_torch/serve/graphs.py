@@ -1,11 +1,13 @@
-"""Captured served steps: the port's counterpart of ``jax.jit`` over a
-served step. The reference never runs a served step eagerly: its
-``Engine`` jits prefill, decode and the argmax
-(``src/repro/serve/engine.py:166-183``) and its continuous scheduler
+"""Captured steps: the port's counterpart of ``jax.jit`` over a served or
+trained step. The reference never runs such a step eagerly: its
+``Engine`` jits prefill, decode, the argmax and the sampled draw
+(``src/repro/serve/engine.py:166-183``), its continuous scheduler
 compiles the batched step once (``src/repro/serve/scheduler.py``
-``_build_step``). On the card the port captures the engine's prefill and
-decode and the scheduler's batched step into CUDA graphs with
-:class:`StepGraph`.
+``_build_step``) and its launcher jits the train step
+(``src/repro/launch/train.py:123``). On the card the port captures the
+engine's prefill, decode and draw, the scheduler's batched step and the
+train step (``train.loop.TrainStep``, a :class:`StepGraph` with
+``grad=True``) into CUDA graphs with :class:`StepGraph`.
 
 **The static tree.** A step is ``body(static) -> outputs`` over a dict of
 tensors (nested dicts and lists allowed) whose addresses are fixed for the
@@ -54,6 +56,7 @@ CPU tests hold to the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
@@ -253,14 +256,21 @@ class StepGraph:
     ``capture_reserved_bytes`` is the device memory the capture reserved
     (its pool's new segments) and :attr:`static_bytes` the static tree's;
     ``replays`` counts the replays. Calls run under
-    ``torch.inference_mode``: a served step."""
+    ``torch.inference_mode``: a served step. With ``grad=True`` they run
+    in the caller's grad mode instead, so that the body can differentiate
+    (the train step, ``train.loop.make_train_step``): its static tree is
+    made outside inference mode, and the capture starts from an emptied
+    cache, since the warm-up's freed blocks belong to the capture stream
+    and a train step's working set is most of the card's memory."""
 
     def __init__(self, body: Callable, static: dict, *, capture: bool,
-                 wrappers: Optional[Iterable] = None, pool=None):
+                 wrappers: Optional[Iterable] = None, pool=None,
+                 grad: bool = False):
         self.body = body
         self.static = static
         self.capture = capture
         self.pool = pool
+        self.grad = grad
         self._wrappers = None if wrappers is None else tuple(wrappers)
         self.graph = None
         self.outputs = None
@@ -275,7 +285,8 @@ class StepGraph:
         return sum(t.numel() * t.element_size() for t in _leaves(self.static))
 
     def __call__(self, inputs: dict):
-        with torch.inference_mode():
+        mode = contextlib.nullcontext() if self.grad else torch.inference_mode()
+        with mode:
             copy_in(self.static, inputs)
             if not self.capture:
                 return self.body(self.static)
@@ -299,6 +310,9 @@ class StepGraph:
     def _timed_capture(self) -> None:
         wrappers = self._wrappers or kernels.counted_wrappers()
         t0 = time.perf_counter()
+        if self.grad:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         before = launch_counts(wrappers)
         try:

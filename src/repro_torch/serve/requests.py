@@ -44,8 +44,8 @@ from repro_torch.core.health import REQUEST_STATES, TERMINAL_STATES  # noqa: F40
 class Request:
     """One generation request offered to the stream front end.
 
-    ``request_id`` is the caller's identity for the request AND the value
-    the engine seeds the request's sampling generators from
+    ``request_id`` is the caller's identity for the request AND a value
+    the engine keys the request's sampled draws with
     (``Engine.sample_tokens``): a request's token stream depends only on
     (params, prompt, request_id), never on its batch neighbours.
     """

@@ -8,16 +8,22 @@ the raw weights are packed per call (K5, then K1) by the dispatch: no
 packed copy of a weight is kept across calls, so none can outlive an
 optimizer step. Gradients through the kernel contractions come from
 ``core.autograd.KernelContraction``.
+
+On the card the step is captured into a CUDA graph and replayed
+(:class:`TrainStep`), updating the params and the optimizer state in place,
+as the reference jits its step with the two donated.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
 from repro_torch.models import Model
+from repro_torch.serve import graphs
 from repro_torch.train import losses
 from repro_torch.train import optimizer as opt
 from repro_torch.train.optimizer import AdamWConfig, tree_leaves, tree_map
@@ -84,12 +90,11 @@ def _compress(grads: Any, mode: Optional[str]) -> Any:
     return grads
 
 
-def make_train_step(model: Model, train_cfg: TrainConfig
-                    ) -> Callable[[Any, dict, dict], Tuple[Any, dict, dict]]:
-    """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` with metrics ``loss``, ``xent``, ``accuracy``, ``moe_aux``,
-    ``grad_norm`` and ``lr`` (0-d tensors). With microbatches the gradient
-    and metrics are the means over them."""
+def _eager_step(model: Model, train_cfg: TrainConfig
+                ) -> Callable[[Any, dict, dict], Tuple[Any, dict, dict]]:
+    """The functional train step, run eagerly: ``(params, opt_state, batch)
+    -> (new params, new opt_state, metrics)``, new trees every call. With
+    microbatches the gradient and metrics are the means over them."""
     grads_fn = _grads_fn(model, train_cfg)
     n_micro = train_cfg.microbatches
 
@@ -113,6 +118,77 @@ def make_train_step(model: Model, train_cfg: TrainConfig
         return new_params, new_state, dict(metrics, **opt_metrics)
 
     return train_step
+
+
+def _train_body(step: Callable, static: dict) -> dict:
+    """The captured train step: the functional step over the static tree,
+    its new params and optimizer state written into the static leaves (one
+    multi-tensor copy a tree), its metrics returned. A function of the
+    eager step, not of its owner, so that the graph holds no reference
+    back to it."""
+    new_params, new_state, metrics = step(static["params"], static["opt"],
+                                          static["batch"])
+    with torch.no_grad():
+        for old, new in ((static["params"], new_params),
+                         (static["opt"], new_state)):
+            torch._foreach_copy_(tree_leaves(old), tree_leaves(new))
+    return metrics
+
+
+class TrainStep:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the port's counterpart of the reference's
+    ``jax.jit(step_fn, donate_argnums=(0, 1))``, with metrics ``loss``,
+    ``xent``, ``accuracy``, ``moe_aux``, ``grad_norm`` and ``lr`` (0-d
+    tensors).
+
+    **Donation.** The first call adopts the caller's ``params`` and
+    ``opt_state`` tensors as the step's static tree, with no copy, and
+    every call returns those same tensors, written in place: the caller's
+    trees before the call are the step's from then on. A later call that
+    passes other tensors (a restored checkpoint) has them copied in
+    (``graphs.copy_in``), never rebound: the kernels' tensor maps hold the
+    static addresses. The batch is copied into a static batch each call.
+
+    **Where it runs.** On the card the step is a ``serve.graphs.StepGraph``
+    in grad mode: the first call runs the functional step eagerly on the
+    capture stream (its warm-up), the second captures it, and later calls
+    replay it, with the launch counts credited per replay. The metrics
+    are then the graph's static outputs, which the next call overwrites.
+    On the CPU the same body runs eagerly over the static tree: the
+    function the card captures. The values are bitwise those of the
+    functional step (``_eager``, the step a graph is compared with), which
+    returns new trees instead.
+
+    **The guard.** The contractions are guarded, and the fault sites and
+    the numerics guard fire, at the warm-up and the capture only, as the
+    reference checks its jit'd step at trace time; a replay runs no guard
+    (``serve.Engine.health_report``). A failed warm-up or capture raises
+    (naming the failing contraction's spec) and leaves the static tree as
+    it was; the next call warms up, or captures, again."""
+
+    def __init__(self, model: Model, train_cfg: TrainConfig):
+        self._eager = _eager_step(model, train_cfg)
+        self._capture = model.device.type == "cuda"
+        self.graph: Optional[graphs.StepGraph] = None
+
+    def __call__(self, params, opt_state, batch):
+        if self.graph is None:
+            static = {"params": params, "opt": opt_state,
+                      "batch": graphs.static_like(batch)}
+            self.graph = graphs.StepGraph(
+                functools.partial(_train_body, self._eager), static,
+                capture=self._capture, grad=True)
+        metrics = self.graph({"params": params, "opt": opt_state,
+                              "batch": batch})
+        return self.graph.static["params"], self.graph.static["opt"], metrics
+
+
+def make_train_step(model: Model, train_cfg: TrainConfig) -> TrainStep:
+    """The train step of ``model`` (:class:`TrainStep`): captured into a
+    CUDA graph on the card, updating the params and optimizer state in
+    place."""
+    return TrainStep(model, train_cfg)
 
 
 class StragglerMonitor:

@@ -91,8 +91,10 @@ def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
     step = state["step"] + 1
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+    # From the Python floats: a tensor made of them would be a host-to-device
+    # copy, which a stream under capture refuses.
+    b1c = 1 - torch.pow(cfg.b1, stepf)
+    b2c = 1 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, mu, nu):
         g = g.to(torch.float32)

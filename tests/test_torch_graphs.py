@@ -154,15 +154,23 @@ def test_graph_per_batch_width_and_fresh_inputs_each_call():
 
 
 def test_sampled_decode_draws_from_the_graph_logits():
-    """temperature > 0: the draws are made on the host from the graph's
-    logits, with the request's generators: the eager loop's tokens."""
+    """temperature > 0: each step's draw runs the sampler's graph body (one
+    graph for the batch's logits shape, apart from the decode graph) over
+    the decode graph's logits, keyed by (seed, request, step): the eager
+    loop's tokens, which draw eagerly from the eager decode's logits."""
     _, port, cfg = _engines("olmo-1b", True)
     port.cfg = dataclasses.replace(port.cfg, temperature=0.8, seed=5)
     batch = _batch(cfg, seed=6)
     port._graphed = True
     got = port.generate(batch, STEPS)
+    (draw,) = port._sample_graphs.values()
+    assert draw.capture is False
+    assert draw.static["logits"].shape == (PROMPT[0], cfg.vocab_size)
     port._graphed = False
     np.testing.assert_array_equal(port.generate(batch, STEPS), got)
+    greedy = dataclasses.replace(port.cfg, temperature=0.0)
+    port.cfg = greedy
+    assert not np.array_equal(port.generate(batch, STEPS), got)
 
 
 # ---------------------------------------------------------------------------

@@ -257,14 +257,18 @@ def test_save_restore_roundtrip_bitwise(tmp_path):
 
 def test_crash_resume_is_bitwise_identical_to_uninterrupted(tmp_path):
     """Six steps straight against three, a checkpoint, a restore into
-    fresh trees and three more: the same weights, bit for bit."""
+    fresh trees and three more: the same weights, bit for bit. The step
+    updates the trees it adopted at its first call in place (``params0``
+    among them), so the straight run's weights are copied and the second
+    run starts from a fresh init of the same seed."""
     model, params0, step, data = _setup()
     p, s = params0, opt.init_state(params0)
     for i in range(6):
         p, s, _ = step(p, s, _port_batch(data.batch_at(i)))
-    straight = p
+    straight = opt.tree_map(torch.clone, p)
 
-    p, s = params0, opt.init_state(params0)
+    p = model.init(0)
+    s = opt.init_state(p)
     for i in range(3):
         p, s, _ = step(p, s, _port_batch(data.batch_at(i)))
     ckpt.save(str(tmp_path), 3, {"params": p, "opt": s})
