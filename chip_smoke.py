@@ -295,6 +295,16 @@ Phases (any failure exits non-zero and prints no result line):
      beside the card's line; then ``launch.train.main`` at the tiny
      preset into a checkpoint and ``launch.serve`` serving it, whose
      greedy tokens must equal an Engine's on the restored params.
+  10. The multi-device layer, in a process of its own (NCCL is never
+     initialised in this one): ``launch.train.main`` at phase 8's widths
+     for 3 steps with no process group, then under a one-rank NCCL group
+     with ``--model-parallel 1`` (the sharding the identity, the tensors
+     plain): losses bitwise, K1 / K5 launches by body as phase 8 derives
+     them, the step a captured graph in both; then
+     ``parallel.collectives.sp_decode_attention`` on that group at
+     olmo-1b's decode width (B 4, H = Hkv = 16, D 128, S 2048), f32 and
+     bf16, with a window and with invalid slots, against
+     ``ref_decode_attention`` (1e-5 / 2e-2), both timed.
   After every phase (and in phases 7 and 8's timing processes) the
   guarded-dispatch health report must be empty: a contraction that
   degraded fails the run, named with its phase. Phase 9 plants its own
@@ -355,9 +365,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs.paper_gemm import (LARGE_SIZES,  # noqa: E402
+                                            MEDIUM_SIZES, SMALL_SIZES,
+                                            GemmProblem)
+from repro_torch.roofline import hw  # noqa: E402
+
 DEVICE = "cuda"
-H100_BF16_FLOPS = 989e12      # dense tensor-core peak, bf16 (data sheet)
-H100_HBM_BYTES = 3.35e12      # HBM3 bytes/s
+H100_BF16_FLOPS = hw.H100.peak_bf16_flops   # dense tensor-core peak, bf16
+H100_HBM_BYTES = hw.H100.hbm_bw             # HBM3 bytes/s
 
 # (K, N) of every contraction of one olmo-1b forward, with its count: q, k,
 # v, o (2048x2048), gate and up (2048x8192), down (8192x2048), LM head.
@@ -1680,7 +1695,7 @@ def phase_grouped(torch, gg, ref, tf):
     return rows, main_err
 
 
-H100_F32_FLOPS = 67e12        # f32 FMA on the CUDA cores (data sheet)
+H100_F32_FLOPS = hw.H100.peak_f32_flops     # f32 FMA on the CUDA cores
 EPIS = ("none", "relu", "gelu", "silu", "tanh")
 
 
@@ -1694,7 +1709,7 @@ def same_bytes(torch, got, want) -> bool:
 def gemm_bound_ms(m, k, n, a_bytes, b_bytes, out_item, peak):
     """Least time of one GEMM: operations over ``peak`` against A and B
     read once and the [m, n] output written once over the HBM rate."""
-    flops = 2.0 * m * k * n
+    flops = float(GemmProblem(m=m, n=n, k=k).flops)
     nbytes = a_bytes + b_bytes + m * n * out_item
     t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
@@ -2970,7 +2985,7 @@ def phase_ops_checks(torch, ops, counters, ks):
     return counts
 
 
-SWEEP_SIZES = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)  # paper_gemm.py
+SWEEP_SIZES = SMALL_SIZES + MEDIUM_SIZES + LARGE_SIZES  # the paper's §4 grid
 SWEEP_CAP = {"naive": 512, "pluto": 512, "intrinsic": 2048}
 
 # Kernel launches of one call of each dense strategy.
@@ -6056,6 +6071,172 @@ def phase_train(torch, counters, models, card) -> tuple:
     return launched, res
 
 
+# Phase 10: the multi-device layer on the card, in a process of its own
+# (NCCL is never initialised in the smoke's process). (a) The
+# sequence-parallel decode collective under a one-rank NCCL group at
+# olmo-1b's decode width (B 4, H = Hkv = 16, D 128, S 2048), f32 and bf16,
+# with a window and with invalid slots, each against its plain oracle; (b)
+# the train launcher at phase 8's widths for PARALLEL_STEPS steps with no
+# group, then again under the one-rank group with --model-parallel 1: the
+# losses bitwise, the K1 / K5 launches by body as phase 8 derives them, the
+# step a captured graph in both.
+PARALLEL_TAG = "phase 10: "
+PARALLEL_STEPS = 3
+SP_DECODE = dict(b=4, h=16, hkv=16, d=128, s=2048)
+SP_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 2e-2}
+SP_CASES = ((None, 0), (1024, 300))       # (window, invalid slots)
+
+
+def sp_decode_checks(torch, coll, mesh) -> list:
+    """(a): ``sp_decode_attention`` against ``ref_decode_attention`` on the
+    same card tensors, and the ms of each (CUDA events, 20 calls)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    b, h, hkv, d, s = (SP_DECODE[k] for k in ("b", "h", "hkv", "d", "s"))
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for window, invalid in SP_CASES:
+            q = torch.randn((b, h, d), generator=gen, device=DEVICE).to(dt)
+            k = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE).to(dt)
+            v = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE).to(dt)
+            kpos = torch.arange(s, device=DEVICE)[None].repeat(b, 1)
+            kpos[:, :invalid] = -1
+            qpos = torch.full((b,), s - 1, device=DEVICE)
+            args = (q, k, v, kpos, qpos)
+            got = coll.sp_decode_attention(*args, mesh=mesh, window=window)
+            want = coll.ref_decode_attention(*args, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            rows.append(dict(
+                dtype=str(dt), window=window, invalid=invalid,
+                max_abs_err=err, tol=SP_TOL[str(dt)],
+                ok=err <= SP_TOL[str(dt)] and got.dtype == dt
+                and got.shape == want.shape,
+                ms=time_ms(lambda i: coll.sp_decode_attention(
+                    *args, mesh=mesh, window=window), 20),
+                plain_ms=time_ms(lambda i: coll.ref_decode_attention(
+                    *args, window=window), 20)))
+            log(f"  (a) sp_decode_attention {dt} window {window} invalid "
+                f"{invalid}: max|err| {err:.2e} (tol {SP_TOL[str(dt)]}), "
+                f"{rows[-1]['ms']:.4f} ms against the oracle's "
+                f"{rows[-1]['plain_ms']:.4f}")
+    return rows
+
+
+def parallel_train_run(torch, counters, launch, label) -> dict:
+    """(b): one run of ``launch.train.main`` at phase 8's widths, its
+    losses, launches by body and whether its step was a captured graph."""
+    import tempfile
+    fd, path = tempfile.mkstemp(prefix="phase10_", suffix=".json")
+    os.close(fd)
+    made, make_step = [], launch.make_train_step
+
+    def keep_step(*args, **kw):
+        made.append(make_step(*args, **kw))
+        return made[-1]
+    launch.make_train_step = keep_step
+    try:
+        counters.reset()
+        t0 = time.perf_counter()
+        rc = launch.main(TRAIN_ARGS[:-4] + [
+            "--steps", str(PARALLEL_STEPS), "--log-every", "1",
+            "--model-parallel", "1", "--metrics-out", path])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(path) as f:
+            losses = [h["loss"] for h in json.load(f)]
+    finally:
+        launch.make_train_step = make_step
+        os.remove(path)
+    (step,) = made
+    graph = step.graph
+    out = dict(rc=rc, losses=losses, launches_by_body=train_launches(counters),
+               captured=graph.graph is not None,
+               replays=graph.replays, s=seconds)
+    log(f"  (b) {label}: rc {rc}, {seconds:.1f} s, losses {losses}, "
+        f"launches {out['launches_by_body']}, a captured graph "
+        f"{out['captured']} ({graph.replays} replays)")
+    del step, graph, made
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_main() -> int:
+    """Phase 10's process: (b) with no group, then the group joined as
+    ``launch.train`` joins it (``WORLD_SIZE`` 1, NCCL), (b) again and (a).
+    Prints one line, PARALLEL_TAG + a JSON object."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.core import health
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.launch import train as launch
+    from repro_torch.parallel import collectives as coll
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = Counters(counted_wrappers())
+    cfg = launch.preset_config(TRAIN_ARCH, "full")
+    want = {k: {b: c * PARALLEL_STEPS for b, c in v.items()}
+            for k, v in train_step_counts(cfg, TRAIN_BATCH * TRAIN_SEQ).items()}
+    out = {"want_launches_by_body": want}
+    out["no_group"] = parallel_train_run(torch, counters, launch, "no group")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    out["nccl_group"] = parallel_train_run(torch, counters, launch,
+                                           "a one-rank NCCL group")
+    if not (dist.is_initialized() and dist.get_backend() == "nccl"
+            and dist.get_world_size() == 1):
+        raise AssertionError("phase 10: the launcher did not join a "
+                             "one-rank NCCL group")
+    mesh = DeviceMesh(torch.device(DEVICE).type, torch.arange(1),
+                      mesh_dim_names=("model",))
+    out["sp_decode"] = sp_decode_checks(torch, coll, mesh)
+    dist.destroy_process_group()
+    assert_healthy(health, "phase 10's process")
+    log(PARALLEL_TAG + json.dumps(out))
+    return 0
+
+
+def phase_parallel(card) -> dict:
+    """Phase 10 (see PARALLEL_TAG's comment), run in a fresh process;
+    fails unless every check holds."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.parallel_main())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = run.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(PARALLEL_TAG):
+            log(line)
+    tagged = [ln for ln in lines if ln.startswith(PARALLEL_TAG)]
+    if run.returncode != 0 or len(tagged) != 1:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 10's process failed (exit "
+                             f"{run.returncode})")
+    res = json.loads(tagged[0][len(PARALLEL_TAG):])
+    want = res["want_launches_by_body"]
+    fails = [r for r in res["sp_decode"] if not r["ok"]]
+    for label in ("no_group", "nccl_group"):
+        r = res[label]
+        got = {k: r["launches_by_body"][k] for k in TRAIN_KERNELS}
+        if r["rc"] != 0 or not r["captured"] or got != want \
+                or r["launches_by_body"]["others"] \
+                or len(r["losses"]) != PARALLEL_STEPS:
+            fails.append((label, r["rc"], r["captured"], got, want))
+    if res["no_group"]["losses"] != res["nccl_group"]["losses"]:
+        fails.append(("losses not bitwise", res["no_group"]["losses"],
+                      res["nccl_group"]["losses"]))
+    res["phase_s"] = time.perf_counter() - t0
+    res["card"] = card
+    log(json.dumps({"parallel": res}))
+    log(f"  phase 10 took {res['phase_s']:.1f} s")
+    if fails:
+        raise AssertionError(f"phase 10: {fails}")
+    return res
+
+
 # Phase 9: guarded dispatch and the serving launcher. The zero-fault
 # cases and the planted sites run at served shapes: olmo-1b's gate / up
 # projection [2048, 8192] packed (K1) and raw (K7 at decode, K5 + K1 at the
@@ -7677,6 +7858,12 @@ def main(argv) -> int:
                                 layered=layered, models=models, serve=serve),
                     counters, cfgs, models, serve, card)
     torch.cuda.empty_cache()
+
+    at_phase("phase 10: the multi-device layer (sp_decode_attention under a "
+             "one-rank NCCL group at olmo-1b's decode width; the train "
+             "launcher with no group and under the group), in its own process")
+    with healthy(health, "phase 10"):
+        phase_parallel(card)
 
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "olmo-1b continuous, load": cont_load,

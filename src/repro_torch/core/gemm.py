@@ -31,9 +31,22 @@ from repro_torch.core import strategy as _strategy  # noqa: F401  (registers)
 from repro_torch.core.contraction import ContractionSpec, dispatch
 from repro_torch.core.epilogue import as_epilogue_spec
 from repro_torch.core.planner import GemmPlan
+from repro_torch.parallel.mesh import (contiguous_grad, gather_inner_dims,
+                                       keep_shards)
+from repro_torch.parallel.mesh import is_dtensor as _is_dtensor
 
 # Importing the packed-weight module registers its lowering.
 from repro_torch.core import layered as _layered  # noqa: F401  isort: skip
+
+# The lowering a contraction over DTensor operands takes, by kind: the
+# plain torch ones, the counterparts of the reference's jnp lowerings that
+# GSPMD partitions (``repro/core/contraction.py:65-70``).
+DISTRIBUTED_LOWERINGS = {"dense": "torch_matmul", "grouped": "grouped_einsum"}
+
+
+def is_dtensor(*xs) -> bool:
+    """Whether any of ``xs`` is a DTensor (``torch.distributed.tensor``)."""
+    return any(_is_dtensor(x) for x in xs)
 
 
 def fold_grouped(x: torch.Tensor, counts: Optional[torch.Tensor] = None):
@@ -114,6 +127,16 @@ def contract(spec: ContractionSpec, a: torch.Tensor, w, *, w2=None,
     _check_operands(spec, w, w2, bias, counts)
     _check_gemm_extras(spec, c, alpha, beta)
     on_card = a.is_cuda
+    distributed = strategy in (None, "auto") and is_dtensor(a, w, w2, bias)
+    if distributed:
+        # Operands sharded over a mesh (``parallel.sharding.place``) take
+        # the kind's plain torch lowering, which DTensor partitions; it
+        # never degrades: an op with no sharding rule raises.
+        strategy = DISTRIBUTED_LOWERINGS[spec.kind]
+        if spec.kind == "dense":
+            a = gather_inner_dims(a, a.ndim - 1)
+        else:   # [*lead, E, M, K]: only the leading and expert dims stay split
+            a = keep_shards(a, (0, a.ndim - 3))
     low = dispatch(spec, strategy=strategy, on_card=on_card)
     grad = _autograd.needs_grad(a, w, w2, c, bias)
     if grad:
@@ -140,7 +163,7 @@ def contract(spec: ContractionSpec, a: torch.Tensor, w, *, w2=None,
     if strategy is not None and strategy != "auto":
         out = run_one(low)
         ctr.check_explicit_numerics(spec, low, out)
-        return out
+        return contiguous_grad(out) if distributed else out
     usable = (lambda lw: _autograd.differentiable(spec, lw)) if grad else None
     return ctr.run_guarded(spec, low, run_one, on_card=on_card, usable=usable)
 

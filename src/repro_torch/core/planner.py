@@ -35,19 +35,8 @@ from typing import Optional
 from repro_torch.core import dtypes as mdt
 from repro_torch.core.dtypes import ROW_ALIGN
 from repro_torch.core.tile_format import ScaleSpec, TileFormat, is_dequant_pair
-
-
-@dataclasses.dataclass(frozen=True)
-class HopperTarget:
-    sms: int = 132
-    smem_per_block: int = 232_448        # bytes, with the opt-in attribute
-    max_bm: int = 64                     # widest m-block of the fused-A kernel
-    max_bn: int = 64                     # widest column chunk of the kernel
-    max_bk: int = 128
-    kc: int = 32                         # staged k-slice depth
-
-
-H100 = HopperTarget()
+# The card's figures, the planner's among them, have one source.
+from repro_torch.roofline.hw import H100, HopperTarget  # noqa: F401
 
 
 @dataclasses.dataclass(frozen=True)

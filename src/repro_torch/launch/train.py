@@ -1,37 +1,58 @@
-"""End-to-end training launcher of the port, on one device.
+"""End-to-end training launcher of the port.
 
 The reference's launcher (``repro/launch/train.py``) with the same presets,
 config cut and command line, plus ``--device`` (default ``cuda``; pass
 ``cpu`` to run on the CPU). Features exercised: the deterministic data
 pipeline, mixed precision (f32 masters, the compute dtype per call),
-AdamW, checkpoint / auto-resume in the reference's file format, the
-straggler monitor. There is no mesh: ``--model-parallel`` other than 1
-raises. On the card the step replays a captured CUDA graph that updates
-the params and the optimizer state in place (``train.loop.TrainStep``, the
-counterpart of the reference's jit with the two donated): a restored
-checkpoint is the trees its first call adopts, and a checkpoint is read
-from them once the card is synchronised. The straggler monitor times the
-host's time per call, as the reference's times its asynchronous dispatch.
+AdamW, checkpoint / auto-resume in the reference's file format (elastic:
+mesh-agnostic), the straggler monitor.
+
+The mesh is ``(world // model_parallel, model_parallel)`` over the
+``torch.distributed`` world (``launch.mesh.make_host_mesh``): started by
+``torchrun`` (or with ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` /
+``MASTER_PORT`` set), the launcher joins the group (NCCL on the card, gloo
+on the CPU; a failed init raises); otherwise the world is this process.
+Over more than one rank the params and the AdamW state are placed as
+DTensors by ``parallel.sharding.named_shardings``, each rank builds the
+same global batch and keeps its rows, and the step is the functional one
+with every contraction on its plain torch lowering (DTensor operands).
+On a mesh whose every axis is 1 the sharding is the identity and the
+tensors stay plain. On the card the step then replays a captured CUDA
+graph that updates the params and the optimizer state in place
+(``train.loop.TrainStep``, the counterpart of the reference's jit with the
+two donated): a restored checkpoint is the trees its first call adopts,
+and a checkpoint is read from them once the card is synchronised. The
+straggler monitor times the host's time per call, as the reference's
+times its asynchronous dispatch.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b \\
       --preset tiny --steps 200 --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src torchrun --nproc_per_node 2 -m repro_torch.launch.train \\
+      --model-parallel 2 --device cpu --preset tiny --steps 20
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import DataConfig, MarkovLM, SyntheticLM
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import build
+from repro_torch.parallel import sharding as shard_rules
+from repro_torch.parallel.mesh import mesh_size, replicated, use_mesh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as opt
-from repro_torch.train.loop import StragglerMonitor, TrainConfig, make_train_step
+from repro_torch.train.loop import (StragglerMonitor, TrainConfig,
+                                     _eager_step, make_train_step)
 from repro_torch.train.optimizer import AdamWConfig
 
 PRESETS = {
@@ -76,11 +97,41 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def join_world(device: str) -> None:
+    """Join the ``torch.distributed`` group the environment describes
+    (``WORLD_SIZE`` set, as ``torchrun`` sets it): NCCL for the card, gloo
+    for the CPU, each rank on its local card. Without it, nothing."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+
+
+def device_of(device: str) -> str:
+    """The rank's device: its local card under a process group."""
+    if torch.device(device).type == "cuda" and dist.is_initialized():
+        return f"cuda:{torch.cuda.current_device()}"
+    return device
+
+
 def _synchronize(device) -> None:
     """Wait for the card's work: the step's last replay writes the trees a
     checkpoint reads."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _replication(sharded: bool):
+    """Under a sharded step, plain tensors made inside the model (RoPE
+    tables, masks, positions) meet DTensor parameters as replicated
+    values."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
 
 
 def main(argv=None) -> int:
@@ -101,15 +152,18 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise ValueError("--model-parallel must be 1: the port trains on one "
-                         "device (multi-device is ROADMAP.md Queue 1 item 9)")
+    join_world(args.device)
+    mesh = make_host_mesh(args.model_parallel)
+    sharded = mesh_size(mesh) > 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
 
     cfg = preset_config(args.arch, args.preset)
-    model = build(cfg, device=args.device)
+    model = build(cfg, device=device_of(args.device))
     dev = model.device
+    world = dist.get_world_size() if dist.is_initialized() else 1
     print(f"arch={cfg.name} params≈{cfg.num_params()/1e6:.1f}M "
-          f"device={dev} compute={cfg.compute_dtype}")
+          f"device={dev} compute={cfg.compute_dtype} "
+          f"mesh={tuple(mesh.shape)} world={world}")
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
@@ -121,16 +175,26 @@ def main(argv=None) -> int:
         microbatches=args.microbatches,
         grad_compression=args.grad_compression,
         remat=True)
-    step_fn = make_train_step(model, train_cfg)
-
     params = model.init(0)
     opt_state = opt.init_state(params)
+    shardings = None
+    if sharded:
+        p_sh = shard_rules.named_shardings(cfg, params, mesh)
+        shardings = {"params": p_sh,
+                     "opt": {"mu": p_sh, "nu": p_sh, "step": replicated(mesh)}}
+        params = shard_rules.place(params, shard_rules.param_specs(
+            cfg, params, mesh), mesh)
+        opt_state = opt.init_state(params)
+        step_fn = _eager_step(model, train_cfg)
+    else:
+        step_fn = make_train_step(model, train_cfg)
     start_step = 0
     if args.ckpt_dir:
         latest = ckpt.latest_valid_step(args.ckpt_dir)
         if latest is not None:
             state, start_step = ckpt.restore(
-                args.ckpt_dir, {"params": params, "opt": opt_state})
+                args.ckpt_dir, {"params": params, "opt": opt_state},
+                shardings=shardings)
             params, opt_state = state["params"], state["opt"]
             print(f"resumed from checkpoint step {start_step}")
 
@@ -139,8 +203,13 @@ def main(argv=None) -> int:
     t_start = time.time()
     for step in range(start_step, args.steps):
         batch = device_batch(data.batch_at(step), dev)
+        if sharded:
+            batch = shard_rules.place(
+                batch, shard_rules.batch_specs(batch, mesh), mesh)
         monitor.start()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        with (use_mesh(mesh) if sharded else contextlib.nullcontext()), \
+                _replication(sharded):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (step + 1) % args.log_every == 0 or step == start_step:
             m = {k: float(v) for k, v in metrics.items()}
             history.append({"step": step + 1, **m})
@@ -155,7 +224,8 @@ def main(argv=None) -> int:
             _synchronize(dev)
             ckpt.save(args.ckpt_dir, step + 1,
                       {"params": params, "opt": opt_state})
-            ckpt.cleanup(args.ckpt_dir, keep_last=3)
+            if rank == 0:
+                ckpt.cleanup(args.ckpt_dir, keep_last=3)
 
     dt = time.time() - t_start
     steps_done = args.steps - start_step
@@ -166,7 +236,7 @@ def main(argv=None) -> int:
     print(f"done: {steps_done} steps in {dt:.1f}s "
           f"({dt/max(steps_done,1)*1000:.0f} ms/step); "
           f"straggler flags: {len(monitor.flagged)}")
-    if args.metrics_out and history:
+    if args.metrics_out and history and rank == 0:
         with open(args.metrics_out, "w") as f:
             json.dump(history, f, indent=2)
     if history:

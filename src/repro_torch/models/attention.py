@@ -14,10 +14,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gemm
 from repro_torch.core.contraction import as_compute_weight
 from repro_torch.models.layers import apply_rope, chunked_attention
+from repro_torch.parallel.mesh import (grad_split_ready, is_dtensor, shard,
+                                       split_ready)
 
 
 def _window(cfg: ModelConfig) -> Optional[int]:
     return cfg.sliding_window if cfg.attention_type == "sliding_window" else None
+
+
+def _heads_axis(cfg: ModelConfig) -> Optional[str]:
+    """The logical axis of the heads: tensor parallel where the head
+    counts divide it (``cfg.shard_attention``)."""
+    return "model" if cfg.shard_attention else None
 
 
 def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -34,9 +42,13 @@ def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = gemm.linear(x, as_compute_weight(p["wq"], x.dtype), p.get("bq"))
     k = gemm.linear(x, as_compute_weight(p["wk"], x.dtype), p.get("bk"))
     v = gemm.linear(x, as_compute_weight(p["wv"], x.dtype), p.get("bv"))
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = split_ready(q, cfg.num_heads).reshape(b, s, cfg.num_heads,
+                                              cfg.head_dim)
+    k = split_ready(k, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads,
+                                                 cfg.head_dim)
+    v = split_ready(v, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads,
+                                                 cfg.head_dim)
+    q = shard(q, "batch", None, _heads_axis(cfg))
     if "q_norm" in p:
         q = _rms(q, p["q_norm"])
         k = _rms(k, p["k_norm"])
@@ -53,8 +65,13 @@ def self_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k, v = project_qkv(cfg, p, x, positions)
     out = chunked_attention(q, k, v, causal=causal, window=_window(cfg),
                             prefix_len=prefix_len)
-    out = out.reshape(*x.shape[:-1], cfg.q_dim)
+    out = grad_split_ready(out.reshape(*x.shape[:-1], cfg.q_dim),
+                           cfg.num_heads)
+    out = shard(out, "batch", None, _heads_axis(cfg))
     out = gemm.linear(out, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+    # Megatron-SP epilogue: the TP-partial output projection reduce-scatters
+    # into the seq-sharded residual stream.
+    out = shard(out, "batch", "seq")
     return (out, (k, v)) if return_kv else out
 
 
@@ -67,6 +84,14 @@ def cache_from_prefill(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
     b, s, hkv, d = k.shape
     window = _window(cfg)
     slots = min(max_len, window) if window else max_len
+    if slots >= s and out is None and is_dtensor(k):
+        # A mesh's layout: built out of place (a DTensor cannot be written
+        # into a plain buffer).
+        def fill(t):
+            t = t.to(dtype)
+            return t if slots == s else torch.cat(
+                [t, t.new_zeros((b, slots - s, hkv, d))], dim=1)
+        return {"k": fill(k), "v": fill(v)}
     if slots >= s:
         if out is None:
             shape = (b, slots, hkv, d)
@@ -93,9 +118,10 @@ def cross_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     [B, Se, Hkv, D]: every query sees every encoder position."""
     b, s, _ = x.shape
     q = gemm.linear(x, as_compute_weight(p["wq"], x.dtype), p.get("bq"))
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    q = split_ready(q, cfg.num_heads).reshape(b, s, cfg.num_heads,
+                                              cfg.head_dim)
     out = chunked_attention(q, enc_k, enc_v, causal=False)
-    out = out.reshape(b, s, cfg.q_dim)
+    out = grad_split_ready(out.reshape(b, s, cfg.q_dim), cfg.num_heads)
     return gemm.linear(out, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
 
 
@@ -107,8 +133,10 @@ def encode_kv(cfg: ModelConfig, p: dict, enc_out: torch.Tensor):
                     p.get("bk"))
     v = gemm.linear(enc_out, as_compute_weight(p["wv"], enc_out.dtype),
                     p.get("bv"))
-    return (k.reshape(b, se, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, se, cfg.num_kv_heads, cfg.head_dim))
+    return (split_ready(k, cfg.num_kv_heads).reshape(
+                b, se, cfg.num_kv_heads, cfg.head_dim),
+            split_ready(v, cfg.num_kv_heads).reshape(
+                b, se, cfg.num_kv_heads, cfg.head_dim))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -119,6 +147,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     shape = (batch, slots, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _one_hot_write(buf: torch.Tensor, new: torch.Tensor,
+                   slot: torch.Tensor) -> torch.Tensor:
+    """``buf`` [B, slots, H, D] with row b's slot ``slot[b]`` replaced by
+    ``new[b, 0]``, out of place: ``buf * keep + new * onehot``."""
+    ids = torch.arange(buf.shape[1], device=slot.device)
+    onehot = (slot[:, None] == ids).to(buf.dtype)[:, :, None, None]
+    return buf * (1 - onehot) + new.to(buf.dtype) * onehot
 
 
 def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -135,9 +172,17 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q, k_new, v_new = project_qkv(cfg, p, x, pos[:, None])
     slots = cache["k"].shape[1]
     slot = pos % slots
-    rows = torch.arange(b, device=x.device)
-    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    if is_dtensor(cache["k"]):
+        # A mesh's layout (the sequence sharded): the reference's one-hot
+        # write, out of place, where an indexed write would gather.
+        cache = {n: _one_hot_write(cache[n], new, slot)
+                 for n, new in (("k", k_new), ("v", v_new))}
+    else:
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
+    k_cache = shard(cache["k"], "batch", "kv_seq")
+    v_cache = shard(cache["v"], "batch", "kv_seq")
 
     slot_ids = torch.arange(slots, device=x.device)[None, :]
     posb = pos[:, None]
@@ -145,7 +190,7 @@ def decode_attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
     kv_valid = k_positions >= 0
     if window is not None:
         kv_valid &= (posb - k_positions) < window
-    out = chunked_attention(q, cache["k"], cache["v"], causal=True,
+    out = chunked_attention(q, k_cache, v_cache, causal=True,
                             q_positions=pos[:, None], k_positions=k_positions,
                             kv_valid=kv_valid, chunk=1)
     out = out.reshape(b, 1, cfg.q_dim)

@@ -21,6 +21,7 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        sinusoidal_embedding)
 from repro_torch.models.transformer import (attn_params, embed_params,
                                             mlp_params, norm_params)
+from repro_torch.parallel.mesh import shard
 
 
 def _enc_layer_params(cfg: ModelConfig, generator, device) -> dict:
@@ -65,9 +66,11 @@ def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
     """frames [B, Se, d] (the stub frontend's embeddings) -> the encoder's
     output [B, Se, d] in the compute dtype. ``remat`` recomputes each layer
     in the backward (:func:`layers.remat_call`)."""
-    x = _with_positions(cfg, frames.to(torch_dtype(cfg.compute_dtype)))
+    x = shard(_with_positions(cfg, frames.to(torch_dtype(cfg.compute_dtype))),
+              "batch")
 
     def layer(lp, c):
+        c = shard(c, "batch", "seq")
         h = apply_norm(cfg, lp["norm1"], c)
         c = c + attn.self_attention(cfg, lp["attn"], h, positions=None,
                                     causal=False)
@@ -82,6 +85,7 @@ def _dec_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                enc_k: torch.Tensor, enc_v: torch.Tensor,
                positions: torch.Tensor):
     """One decoder layer over the prompt: (x, this layer's self K / V)."""
+    x = shard(x, "batch", "seq")
     h = apply_norm(cfg, lp["norm1"], x)
     a_out, kv = attn.self_attention(cfg, lp["attn"], h, positions,
                                     causal=True, return_kv=True)

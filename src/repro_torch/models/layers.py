@@ -21,6 +21,7 @@ from repro_torch.core.contraction import as_compute_weight
 from repro_torch.core.dtypes import torch_dtype
 from repro_torch.core.epilogue import EPILOGUE_SPECS, EpilogueSpec
 from repro_torch.core.layered import GroupedPackedWeight, PackedWeight
+from repro_torch.parallel.mesh import is_dtensor, shard, sharded_attention
 
 # Every random matrix of an initial tree is N(0, INIT_STD), as the
 # reference's.
@@ -168,7 +169,11 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         h = gemm.linear(x, as_compute_weight(p["wi"], x.dtype), p.get("bi"),
                         epilogue=EPILOGUE_SPECS["gelu"])
-    return gemm.linear(h, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+    h = shard(h, "batch", None, "model")
+    out = gemm.linear(h, as_compute_weight(p["wo"], x.dtype), p.get("bo"))
+    # Megatron-SP epilogue: the TP-partial down-projection reduce-scatters
+    # into the seq-sharded residual stream.
+    return shard(out, "batch", "seq")
 
 
 def remat_call(fn, remat: bool, *args):
@@ -208,11 +213,13 @@ def remat_call(fn, remat: bool, *args):
 def embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                  compute_dtype) -> torch.Tensor:
     # Gather, then cast: the same values as casting the table first, without
-    # a per-step copy of the whole table.
-    x = params["embed"]["table"][tokens].to(compute_dtype)
+    # a per-step copy of the whole table. Under a mesh the table is first
+    # laid out vocab-sharded with d replicated, as the reference's is.
+    table = shard(params["embed"]["table"], "model", None)
+    x = table[tokens].to(compute_dtype)
     if cfg.family == "vlm":  # gemma-style scaled embeddings
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
-    return x
+    return shard(x, "batch")
 
 
 def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -222,8 +229,11 @@ def lm_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if head is None:
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["head"]["table"])
-        head = table.t().to(x.dtype)
-    return gemm.linear(x, head, accum="f32").to(torch.float32)
+        # Megatron vocab-parallel head layout under a mesh: [d, V], d
+        # replicated, vocab over "model".
+        head = shard(table.t().to(x.dtype), None, "model")
+    logits = gemm.linear(x, head, accum="f32").to(torch.float32)
+    return shard(logits, "batch", None, "model")
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -237,7 +247,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     torch as the reference's jnp ``chunked_attention``.
 
     q: [B,Sq,H,D]; k/v: [B,Skv,Hkv,D]; GQA by ``head // group``. Masked
-    logits are ``-1e30``, so a fully masked row gets uniform weights."""
+    logits are ``-1e30``, so a fully masked row gets uniform weights.
+    DTensor operands (a mesh's layout) run on each rank's local batch rows
+    and heads (:func:`sharded_attention`)."""
+    if is_dtensor(q):
+        return sharded_attention(
+            chunked_attention, q, k, v, causal=causal, window=window,
+            prefix_len=prefix_len, q_offset=q_offset, q_positions=q_positions,
+            kv_valid=kv_valid, k_positions=k_positions, chunk=chunk)
     b, sq, h, d = q.shape
     _, skv, hkv, _ = k.shape
     group = h // hkv

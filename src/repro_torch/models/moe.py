@@ -30,6 +30,8 @@ from repro_torch.core.contraction import (ContractionSpec, as_compute_weight,
 from repro_torch.core.epilogue import EPILOGUE_SPECS
 from repro_torch.core.gemm import contract
 from repro_torch.models.layers import init_normal
+from repro_torch.parallel.mesh import (gather_inner_dims, keep_shards, shard,
+                                       split_ready)
 
 GROUP_SIZE = 2048  # routing group (tokens); bounds the dispatch tensor
 
@@ -107,16 +109,21 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
     tokens = b * s
     g = min(GROUP_SIZE, tokens)
     assert tokens % g == 0, (tokens, g)
-    x_grp = x.reshape(tokens // g, g, d)
+    # Under a mesh the tokens fold into groups along one plain shard.
+    x = split_ready(gather_inner_dims(x, x.ndim - 1), tokens // g, dim=0)
+    x_grp = shard(x.reshape(tokens // g, g, d), "batch")
 
     # The router is cast to the compute dtype first, as the reference casts
     # every matrix leaf of a layer before its scan, then routed in f32.
     router = as_compute_weight(p["router"], x.dtype)
     dispatch, combine, aux, rstats = route(cfg, router, x_grp)
     counts = rstats["counts"]
-    dispatch = dispatch.to(x.dtype)
-    combine = combine.to(x.dtype)
+    # Under a mesh the routing tensors keep only their group shards, so
+    # that the dispatch / combine einsums fold no uneven (capacity) shard.
+    dispatch = keep_shards(dispatch.to(x.dtype), (0,))
+    combine = keep_shards(combine.to(x.dtype), (0,))
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch, x_grp)
+    expert_in = shard(expert_in, "batch", "model")  # EP when E divides axis
 
     wg = as_compute_weight(p["wg"], x.dtype)
     wu = as_compute_weight(p["wu"], x.dtype)
@@ -140,6 +147,11 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
                  expert_in, wg, w2=wu, counts=rcounts, strategy=strategy)
     expert_out = contract(gspec(h, wo, EPILOGUE_SPECS["none"]), h, wo,
                           counts=rcounts, strategy=strategy)
-    out = torch.einsum("gtec,gecd->gtd", combine, expert_out).reshape(b, s, d)
+    out = torch.einsum("gtec,gecd->gtd", combine,
+                       keep_shards(expert_out, (0, 1)))
+    out = split_ready(out, b, dim=0).reshape(b, s, d)
+    # The TP / EP-partial combine reduce-scatters into the seq-sharded
+    # residual stream.
+    out = shard(out, "batch", "seq")
     stats = {"dropped_tokens": rstats["dropped"], "expert_counts": counts}
     return out, aux.to(torch.float32), stats

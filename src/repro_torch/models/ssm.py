@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import gemm
 from repro_torch.core.contraction import as_compute_weight
 from repro_torch.models.layers import init_const, init_normal, rms_norm_gated
+from repro_torch.parallel.mesh import keep_shards, shard
 
 
 def ssm_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -155,6 +156,7 @@ def apply_ssm(cfg: ModelConfig, p: dict, x: torch.Tensor,
     y, final_state = ssd_chunked(xh, dt, p["A_log"], b, c, cfg.ssm_chunk)
     y = y + p["D"][None, None, :, None] * xh          # skip connection
     y = rms_norm_gated(y.reshape(bsz, s, di), z.to(f32), p["norm"])
+    y = shard(y, "batch", None, "model")
     out = gemm.linear(y.to(x.dtype), as_compute_weight(p["out_proj"], x.dtype))
     if not return_state:
         return out
@@ -184,7 +186,9 @@ def decode_ssm(cfg: ModelConfig, p: dict, x: torch.Tensor,
                      cfg.ssm_head_dim)
     f32 = torch.float32
     proj = gemm.linear(x[:, 0], as_compute_weight(p["in_proj"], x.dtype))
-    z, xin, b, c, dt = _split_proj(cfg, proj)
+    # Under a mesh the step's per-head tensors keep only their batch shard
+    # (an uneven head shard cannot be folded by the einsums below).
+    z, xin, b, c, dt = _split_proj(cfg, keep_shards(proj, (0,)))
     conv_in = torch.cat([xin, b, c], dim=-1).to(f32)
     window = torch.cat([cache["conv"], conv_in[:, None]], dim=1)
     conv_out = F.silu((window * _conv_weight(p, x.dtype)[None]).sum(1)
@@ -194,8 +198,9 @@ def decode_ssm(cfg: ModelConfig, p: dict, x: torch.Tensor,
     da = torch.exp(dt * (-torch.exp(p["A_log"])))              # [B, nh]
     xh = xin.reshape(bsz, nh, hp)
     # state <- decay * state + dt * x (outer) B
-    new_state = (cache["state"] * da[..., None, None]
-                 + torch.einsum("bhp,bn,bh->bhpn", xh, b, dt))
+    new_state = keep_shards(cache["state"] * da[..., None, None]
+                            + torch.einsum("bhp,bn,bh->bhpn", xh, b, dt),
+                            (0,))
     y = (torch.einsum("bhpn,bn->bhp", new_state, c)
          + p["D"][None, :, None] * xh)
     y = rms_norm_gated(y.reshape(bsz, di), z.to(f32), p["norm"])

@@ -23,6 +23,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_const, init_normal, lm_logits,
                                        remat_call)
+from repro_torch.parallel.mesh import shard
 
 
 def norm_params(cfg: ModelConfig, device) -> dict:
@@ -126,6 +127,7 @@ def prefill_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
     takes the cache in place and is returned as it."""
     cache: dict = {} if out is None else out
     keep = max_len is not None
+    x = shard(x, "batch", "seq")
     h = apply_norm(cfg, p["norm1"], x)
     a_out = s_out = None
     if cfg.has_attention:

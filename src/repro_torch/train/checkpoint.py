@@ -16,6 +16,11 @@ leaves the previous step the latest valid one (the ``checkpoint_save``
 fault site drives both windows). ``restore`` verifies the hash and
 retries transient read failures (``checkpoint_read``) with capped
 exponential backoff.
+
+Checkpoints are mesh-agnostic (elastic restart): ``save`` gathers every
+DTensor leaf to its full value first (all ranks take part; rank 0 writes),
+and ``restore(..., shardings=)`` places each leaf onto the layout given
+for it, whatever layout saved it.
 """
 from __future__ import annotations
 
@@ -29,8 +34,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.interop import params_to_numpy
+from repro_torch.parallel.sharding import gather
 from repro_torch.testing import faults
 
 _STEP_RE = re.compile(r"step_(\d+)\.json$")
@@ -64,11 +71,15 @@ def _sha256(path: str) -> str:
 def save(ckpt_dir: str, step: int, state: Any) -> str:
     """Atomically persist ``state`` (a tree of tensors: dicts, per-layer
     lists) for ``step``; returns the npz's path. The temp directory is
-    removed on every exit path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    flat = _flatten(params_to_numpy(state))
+    removed on every exit path. DTensor leaves are gathered to their full
+    values (a collective: every rank calls ``save``); in a process group
+    only rank 0 writes."""
+    flat = _flatten(params_to_numpy(gather(state)))
     npz_path = os.path.join(ckpt_dir, f"step_{step}.npz")
     man_path = os.path.join(ckpt_dir, f"step_{step}.json")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return npz_path
+    os.makedirs(ckpt_dir, exist_ok=True)
     stage = os.path.join(ckpt_dir, f".tmp_step_{step}_{os.getpid()}")
     os.makedirs(stage, exist_ok=True)
     try:
@@ -151,15 +162,20 @@ class _Leaves:
         return self.cache[name]
 
 
-def _rebuild(tmpl: Any, name: str, leaves: _Leaves, layer=None) -> Any:
+def _rebuild(tmpl: Any, name: str, leaves: _Leaves, layer=None,
+             sharding=None) -> Any:
     """The template's structure with every leaf read from the checkpoint:
     a list's i-th entry takes slice i of its stacked leaves; shapes are
-    checked against the template's, dtype and device taken from it."""
+    checked against the template's, dtype and device taken from it; a
+    leaf whose ``sharding`` (a congruent tree's entry) is given is placed
+    by it."""
     if isinstance(tmpl, dict):
-        return {k: _rebuild(v, f"{name}{k}/", leaves, layer)
+        return {k: _rebuild(v, f"{name}{k}/", leaves, layer,
+                            None if sharding is None else sharding[k])
                 for k, v in tmpl.items()}
     if isinstance(tmpl, list):
-        return [_rebuild(v, name, leaves, (i, len(tmpl)))
+        return [_rebuild(v, name, leaves, (i, len(tmpl)),
+                         None if sharding is None else sharding[i])
                 for i, v in enumerate(tmpl)]
     key = name[:-1]
     arr = leaves[key]
@@ -170,15 +186,26 @@ def _rebuild(tmpl: Any, name: str, leaves: _Leaves, layer=None) -> Any:
         raise ValueError(f"{key}: shape {arr.shape} != {want}")
     if layer is not None:
         arr = arr[layer[0]]
-    return torch.from_numpy(np.array(arr, copy=True)).to(
+    out = torch.from_numpy(np.array(arr, copy=True)).to(
         device=tmpl.device, dtype=tmpl.dtype)
+    if sharding is None:
+        return out
+    from torch.distributed.tensor import distribute_tensor
+    sharding.check(out.shape, key)
+    return distribute_tensor(out, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
 
 
-def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
-            ) -> Tuple[Any, int]:
+def restore(ckpt_dir: str, template: Any, step: Optional[int] = None,
+            shardings: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``template`` (shapes validated; each
     leaf takes the template leaf's dtype and device): ``(tree, step)``.
-    Transient read failures are retried (:func:`_load_npz_with_retry`)."""
+    ``shardings``: a tree congruent with ``template`` of
+    ``parallel.mesh.NamedSharding``s (``parallel.sharding.named_shardings``),
+    each leaf placed by its own: a checkpoint restores onto another mesh
+    than the one that saved it (elastic restart). Placements a leaf cannot
+    take raise. Transient read failures are retried
+    (:func:`_load_npz_with_retry`)."""
     if step is None:
         step = latest_valid_step(ckpt_dir)   # verified on the way
         if step is None:
@@ -187,7 +214,7 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None
         raise IOError(f"checkpoint step {step} failed integrity check")
     data = _load_npz_with_retry(os.path.join(ckpt_dir, f"step_{step}.npz"))
     with data:
-        return _rebuild(template, "", _Leaves(data)), step
+        return _rebuild(template, "", _Leaves(data), sharding=shardings), step
 
 
 def cleanup(ckpt_dir: str, keep_last: int = 3) -> None:

@@ -23,6 +23,7 @@ from typing import Any, Callable, Iterator, List, Optional, Tuple
 import torch
 
 from repro_torch.models import Model
+from repro_torch.parallel.mesh import is_dtensor, local_rows, settle
 from repro_torch.serve import graphs
 from repro_torch.train import losses
 from repro_torch.train import optimizer as opt
@@ -66,16 +67,21 @@ def _grads_fn(model: Model, train_cfg: TrainConfig):
                                         allow_unused=True,
                                         materialize_grads=True)
         return (tree_unflatten(params, list(grads)),
-                {k: metrics[k].detach() for k in METRIC_KEYS})
+                {k: settle(metrics[k].detach()) for k in METRIC_KEYS})
     return grads_fn
 
 
 def _split_microbatches(batch: dict, n: int) -> List[dict]:
+    """``n`` microbatches of contiguous rows. A batch sharded over a mesh
+    (DTensor leaves) splits each rank's rows the same way, so the rows stay
+    where they are: microbatch i is every rank's i-th slice (the gradient,
+    a mean over all rows, is the same sum in another order)."""
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"batch {b} does not split into {n} microbatches")
-    return [{k: v[i * (b // n):(i + 1) * (b // n)] for k, v in batch.items()}
-            for i in range(n)]
+    return [{k: local_rows(v, i, n) if is_dtensor(v)
+             else v[i * (b // n):(i + 1) * (b // n)]
+             for k, v in batch.items()} for i in range(n)]
 
 
 def _compress(grads: Any, mode: Optional[str]) -> Any:
@@ -102,8 +108,8 @@ def _eager_step(model: Model, train_cfg: TrainConfig
         if n_micro == 1:
             grads, metrics = grads_fn(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                             params)
             ms = []
             for mb in _split_microbatches(batch, n_micro):
                 g, m = grads_fn(params, mb)

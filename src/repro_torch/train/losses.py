@@ -6,6 +6,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.mesh import is_dtensor, vocab_parallel_gold
+
 MOE_AUX_WEIGHT = 0.01
 Z_LOSS_WEIGHT = 1e-4
 
@@ -17,7 +19,10 @@ def next_token_xent(logits: torch.Tensor, labels: torch.Tensor,
     pipeline). Cross entropy by logsumexp plus ``Z_LOSS_WEIGHT * lse^2``,
     averaged over the mask; also the masked xent and argmax accuracy."""
     lse = torch.logsumexp(logits, dim=-1)                          # [B, S]
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(logits):
+        gold = vocab_parallel_gold(logits, labels)
+    else:
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     xent = lse - gold
     per_tok = xent + Z_LOSS_WEIGHT * torch.square(lse)
     mask = (torch.ones_like(xent) if mask is None

@@ -407,7 +407,11 @@ def test_launcher_trains_and_resumes_on_the_cpu(tmp_path, capsys):
 
 
 def test_launcher_refuses_model_parallel():
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
+    """--model-parallel runs over the torch.distributed world: without a
+    group of a multiple of its ranks the launcher refuses it (the sharded
+    run over two gloo ranks is tests/test_torch_parallel.py's)."""
+    with pytest.raises(ValueError, match="initialised torch.distributed "
+                                         "group"):
         launch_train.main(["--device", "cpu", "--model-parallel", "2",
                            "--steps", "1"])
 
