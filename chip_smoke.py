@@ -305,10 +305,30 @@ Phases (any failure exits non-zero and prints no result line):
      olmo-1b's decode width (B 4, H = Hkv = 16, D 128, S 2048), f32 and
      bf16, with a window and with invalid slots, against
      ``ref_decode_attention`` (1e-5 / 2e-2), both timed.
-  After every phase (and in phases 7 and 8's timing processes) the
-  guarded-dispatch health report must be empty: a contraction that
-  degraded fails the run, named with its phase. Phase 9 plants its own
-  faults and clears what it planted. ``REPRO_FAULT=kernel_run:1`` in the
+  11. The harness on the card, in a process of its own: a plan run
+     through ``repro_torch.harness.run_plan`` on ``local-cuda`` (report
+     under ``results/harness/<run-id>/``) that trains qwen3-4b,
+     mamba2-130m, hymba-1.5b, paligemma-3b and whisper-base at published
+     widths (depth cut only where 80 GB forces it: HARNESS_DEPTH, printed
+     with why), bf16 compute over f32 masters, remat, 2 x 512 Markov tokens
+     a step, 4 steps of ``make_train_step`` (the warm-up, the capture and
+     its replay, two more replays): losses finite, launches only on K1 /
+     K5 / K7, a replay's kernel records equal to its credit, qwen3-4b's
+     launches equal to ``train_step_counts`` and its products held at
+     shape as phase 8 holds olmo-1b's, the other four's distinct K1
+     products re-run alone at their shapes against torch.matmul (2e-2 /
+     1e-3); step ms (CUDA events), tokens/s and peak memory printed with
+     the card's line. The
+     same plan holds a probe with ``harness_job`` injected at its first
+     attempt (retried once, completes), a job asking for twice the card's
+     memory (fails as ``resource`` after 2 retries; the training after it
+     completes) and an ``h100-pod`` job (a manifest: ``nvidia.com/gpu`` 8,
+     parallelism 32). The report must read completed 6, failed 1, emitted
+     1, retries 3, exit code 1, an empty health snapshot.
+  After every phase (and in phases 7 and 8's timing processes and phase
+  11's process) the guarded-dispatch health report must be empty: a
+  contraction that degraded fails the run, named with its phase. Phase 9
+  plants its own faults and clears what it planted. ``REPRO_FAULT=kernel_run:1`` in the
   environment fails the run where the first auto contraction runs (phase
   2): its traceback names the phase, the spec and the lowering.
 With ``--planted-faults`` the script runs no phase: it builds copies of
@@ -3211,9 +3231,10 @@ def phase_sweep(torch, counters, gemm, strategy, ref):
 PROFILE_MARGIN_CYCLES = 20_000_000
 
 
-def profile_kernels(torch, fn, reps, counts=None) -> tuple:
+def profile_kernels(torch, fn, reps, counts=None, warm=True) -> tuple:
     """torch.profiler (CUPTI) over ``reps`` calls of ``fn(i)``, after one
-    unprofiled call: ({kernel name: device us summed over the calls}, the
+    unprofiled call (none with ``warm=False``): ({kernel name: device us
+    summed over the calls}, the
     kernel records it kept against the launch calls it saw on the host,
     "kept / launched" (a lost record would read as idle), the profiled
     wall ms a call). Only the device's own records count: a host op's
@@ -3221,7 +3242,8 @@ def profile_kernels(torch, fn, reps, counts=None) -> tuple:
     which have records of their own (summing both counted an aten op's
     kernels twice). ``counts``, a dict, gets {kernel name: records}."""
     from torch.profiler import ProfilerActivity, profile
-    fn(0)
+    if warm:
+        fn(0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # A spin kernel before and after the calls: the profiler drops a
@@ -6237,6 +6259,433 @@ def phase_parallel(card) -> dict:
     return res
 
 
+# Phase 11: the other five families' training at published widths, as jobs
+# of the port's harness (``repro_torch.harness.run_plan`` on ``local-cuda``),
+# in a process of its own. Each family trains HARNESS_STEPS steps of
+# ``train.loop.make_train_step`` (the warm-up, the capture and its replay,
+# two more replays): bf16 compute over f32 masters, remat, Markov tokens
+# from a seed, N(0, 1) bf16 patch embeddings (paligemma) and frames
+# (whisper) as phase 7 feeds them. The plan also holds a job with
+# ``harness_job`` injected at its first attempt, a job that asks for twice
+# the card's memory (it must fail as ``resource`` after its retries, and
+# the training job after it complete) and an ``h100-pod`` job routed to the
+# manifest executor.
+HARNESS_TAG = "phase 11: "
+HARNESS_ARCHS = ("qwen3-4b", "mamba2-130m", "hymba-1.5b", "paligemma-3b",
+                 "whisper-base")
+HARNESS_BATCH, HARNESS_SEQ, HARNESS_STEPS = 2, 512, 4
+# Layers trained out of the config's, and why: depth is cut only where one
+# card's 80 GB forces it, to a depth whose peak leaves room for the smoke's
+# own process beside this one. f32 masters, both Adam moments and the
+# gradients are 16 bytes a parameter; the captured step's pool holds the
+# bf16 copies, packs and activations besides. Peaks allocated at 2 x 512
+# tokens a step, measured on an H100 80GB (tools/train_depth_peaks.py):
+# qwen3-4b 42.8 GB at 4 layers, 57.4 at 8, 64.1 at 12; paligemma-3b 35.1
+# at 4, 51.0 at 8, 58.9 at 10, 59.4 at 12; hymba-1.5b 53.3 at all 32.
+HARNESS_DEPTH = {
+    "qwen3-4b": (12, "state and graph pool grow 3.3 GB a layer from a 64.1 "
+                     "GB peak at 12 layers: all 36 would need about 143 GB"),
+    "mamba2-130m": (None, ""),
+    "hymba-1.5b": (None, ""),
+    "paligemma-3b": (12, "state and graph pool grow 3.4 GB a layer from a "
+                         "59.4 GB peak at 12 layers: all 18 would need about "
+                         "80 GB, the whole card"),
+    "whisper-base": (None, ""),
+}
+HARNESS_SEED = 40            # config i's patches / frames: HARNESS_SEED + i
+HARNESS_JOB_TIMEOUT_S = 600.0
+
+
+def harness_batches(torch, cfg, seed) -> list:
+    """HARNESS_STEPS Markov batches of HARNESS_BATCH x HARNESS_SEQ tokens on
+    the card, with N(0, 1) bf16 ``patches`` / ``frames`` where the family
+    takes them (drawn from ``seed``, as ``family_batch`` draws phase 7's)."""
+    from repro_torch.data.pipeline import DataConfig, MarkovLM
+    from repro_torch.launch.train import device_batch
+    data = MarkovLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=HARNESS_SEQ,
+                               global_batch=HARNESS_BATCH))
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for i in range(HARNESS_STEPS):
+        batch = device_batch(data.batch_at(i), DEVICE)
+        if cfg.family == "vlm":
+            batch["patches"] = torch.randn(
+                (HARNESS_BATCH, cfg.num_patches, cfg.d_model),
+                generator=gen).to(torch.bfloat16).to(DEVICE)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.randn(
+                (HARNESS_BATCH, cfg.encoder_seq, cfg.d_model),
+                generator=gen).to(torch.bfloat16).to(DEVICE)
+        out.append(batch)
+    return out
+
+
+@contextlib.contextmanager
+def k1_products(seen):
+    """Within the block, every call of the ``tiling_packing_fused`` lowering
+    (K5 packs B, then K1) is recorded in ``seen``: {(M, K, N, A's strides,
+    B's strides): calls}."""
+    from repro_torch.core import strategy
+    run = strategy._DENSE["tiling_packing_fused"]
+
+    def record(a, b, *args, **kw):
+        key = (a.shape[0], a.shape[1], b.shape[1], tuple(a.stride()),
+               tuple(b.stride()))
+        seen[key] = seen.get(key, 0) + 1
+        return run(a, b, *args, **kw)
+    strategy._DENSE["tiling_packing_fused"] = record
+    try:
+        yield
+    finally:
+        strategy._DENSE["tiling_packing_fused"] = run
+
+
+def strided_operand(torch, gen, rows, cols, stride, std):
+    """N(0, std^2) bf16 [rows, cols] laid out with ``stride``: as it lies
+    (unit column stride, row stride >= cols) or a transposed view (unit row
+    stride), over a buffer as wide as the stride."""
+    if stride[1] == 1:
+        buf = torch.randn((rows, stride[0]), generator=gen, device=DEVICE)
+        return (buf * std).to(torch.bfloat16)[:, :cols]
+    buf = torch.randn((cols, stride[1]), generator=gen, device=DEVICE)
+    return (buf * std).to(torch.bfloat16)[:, :rows].t()
+
+
+def k1_product_checks(torch, counters, products, seed=8) -> tuple:
+    """Each distinct K1 product a step launched (``k1_products``), again
+    alone at its shape and strides through ``gemm.matmul`` on the same
+    lowering, against torch.matmul in f32 (TF32 off) on the same bf16
+    inputs rounded to bf16, at phase 1's tolerances (2e-2 / 1e-3; A N(0, 1),
+    B N(0, 1 / K), as ``train_shape_checks``): one K5 and one K1 launch,
+    nothing else. Returns (failed tags, one row a product)."""
+    from repro_torch.core import gemm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fails, rows = [], []
+    for (m, k, n, a_stride, b_stride), calls in sorted(products.items()):
+        a = strided_operand(torch, gen, m, k, a_stride, 1.0)
+        b = strided_operand(torch, gen, k, n, b_stride, k ** -0.5)
+        counters.reset()
+        got = gemm.matmul(a, b, strategy="tiling_packing_fused")
+        torch.cuda.synchronize()
+        ran = train_launches(counters)
+        launched = {kern: sum(ran[kern].values()) for kern in TRAIN_KERNELS}
+        want = (a.float() @ b.float()).to(torch.bfloat16)
+        ok, err = close(got, want, 2e-2, 1e-3)
+        view = "B^T view" if b_stride[0] == 1 else "B as it lies"
+        tag = f"M={m} K={k} N={n} ({view}, {calls} a step)"
+        ok = ok and ran["others"] == 0 and launched == {
+            "gemm_packed_fused_a": 1, "pack_b": 1, "gemm_tiled": 0}
+        rows.append(dict(m=m, k=k, n=n, a_stride=a_stride, b_stride=b_stride,
+                         calls=calls, bodies={kern: ran[kern] for kern in
+                                              ("gemm_packed_fused_a", "pack_b")},
+                         max_abs_err=err, ok=ok))
+        if not ok:
+            fails.append(tag)
+            log(f"    check {tag} [{ran}]: max_abs_err={err:.3e} (rtol=2e-2, "
+                f"atol=1e-3) FAIL")
+        del a, b, got, want
+    torch.cuda.empty_cache()
+    log(f"    K1 products at their shapes: {len(rows) - len(fails)} of "
+        f"{len(rows)} held to torch.matmul (2e-2 / 1e-3), one K5 + one K1 "
+        f"each; largest error "
+        f"{max((r['max_abs_err'] for r in rows), default=0.0):.3e}")
+    return fails, rows
+
+
+def train_family(torch, counters, arch, card, depth=None) -> dict:
+    """One family's training job (see HARNESS_TAG's comment): HARNESS_STEPS
+    steps of the captured step (the warm-up, counted and its K1 products
+    recorded; the capture; a replay timed by CUDA events; a replay profiled
+    and its kernel records held to the graph's credit), then the checks:
+    every loss finite, launches only on TRAIN_KERNELS (for a dense config
+    equal to ``train_step_counts``, its products held at shape by
+    ``train_shape_checks``; else each K1 product by ``k1_product_checks``).
+    Raises on a failed check. Returns the results."""
+    import gc
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    t0 = time.perf_counter()
+    full = get_config(arch)
+    layers, why = HARNESS_DEPTH[arch]
+    layers = depth or layers or full.num_layers
+    cfg = dataclasses.replace(full, num_layers=layers)
+    tokens = HARNESS_BATCH * HARNESS_SEQ
+    if cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"{arch}: compute {cfg.compute_dtype}, not bf16")
+    cut = (f"{layers} of {full.num_layers} layers ({why})"
+           if layers < full.num_layers else f"all {layers} layers")
+    log(f"  {arch}: published widths (d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}), {cut}; {cfg.num_params() / 1e9:.3f} B parameters "
+        f"trained; {HARNESS_BATCH} x {HARNESS_SEQ} tokens a step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = models.build(cfg, device=DEVICE)
+    step = make_train_step(model, TrainConfig(optim=opt.AdamWConfig(
+        lr=1e-3, warmup_steps=2, total_steps=HARNESS_STEPS)))
+    batches = harness_batches(torch, cfg, HARNESS_SEED
+                              + HARNESS_ARCHS.index(arch))
+    state = {"p": model.init(0)}
+    state["s"] = opt.init_state(state["p"])
+    torch.cuda.synchronize()
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    metrics, ms = [], []
+
+    def one(i):
+        state["p"], state["s"], m = step(state["p"], state["s"], batches[i])
+        metrics.append(m["loss"].clone())
+
+    def timed(i):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one(i)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    products = {}
+    counters.reset()
+    with k1_products(products):
+        timed(0)                     # the warm-up: eager, counted
+    warm_k1 = counters.read()["gemm_packed_fused_a"]
+    timed(1)                         # the capture
+    timed(2)                         # a replay
+    counts = {}
+    profile_kernels(torch, lambda i: one(3), 1, counts, warm=False)
+    torch.cuda.synchronize()
+    launched = counters.read()
+    by_body = train_launches(counters)
+    graph = step.graph
+    losses = [float(x) for x in metrics]
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    step_ms = ms[2]
+    res = dict(arch=arch, layers=layers, published_layers=full.num_layers,
+               depth_cut=why if layers < full.num_layers else None,
+               params_b=cfg.num_params() / 1e9, tokens_per_step=tokens,
+               losses=losses, warmup_ms=ms[0], capture_call_ms=ms[1],
+               step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               peak_gb=peak_gb, state_gb=state_gb, launches=launched,
+               launches_by_body=by_body, replays=graph.replays,
+               capture_ms=graph.capture_ms,
+               pool_gb=graph.capture_reserved_bytes / 1e9, card=card)
+    log(f"    losses {[round(x, 4) for x in losses]}; step {step_ms:.1f} ms "
+        f"(CUDA events, a replay), {res['tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak_gb:.2f} GB allocated (params and state {state_gb:.2f}); "
+        f"warm-up {ms[0]:.1f} ms, capture call {ms[1]:.1f} ms (capture "
+        f"{graph.capture_ms:.1f} ms, pool {res['pool_gb']:.2f} GB); card "
+        f"{card}")
+    log(f"    launches of {HARNESS_STEPS} steps by body: {by_body}")
+    fails = []
+    if len(losses) != HARNESS_STEPS or not all(math.isfinite(x)
+                                               for x in losses):
+        fails.append(f"losses {losses}")
+    if graph.graph is None or graph.replays != HARNESS_STEPS - 1:
+        fails.append(f"{graph.replays} replays")
+    if by_body["others"]:
+        fails.append(f"other kernels launched: {launched}")
+    if sum(products.values()) != warm_k1:
+        fails.append(f"the warm-up launched K1 {warm_k1} times, its "
+                     f"products {sum(products.values())}")
+    try:
+        res["replay_records"] = replay_launch_check(
+            lambda: kernel_counts(torch, lambda i: one(3), 1), graph.credit,
+            1, f"phase 11, {arch}'s replay", counts)
+    except AssertionError as exc:
+        fails.append(str(exc))
+    del step, graph, model, state, batches, one, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family == "dense":
+        want = {kern: {b: c * HARNESS_STEPS for b, c in v.items()}
+                for kern, v in train_step_counts(cfg, tokens).items()}
+        res["derived_launches"] = want
+        if {kern: by_body[kern] for kern in TRAIN_KERNELS} != want:
+            fails.append(f"launched {by_body}, derived {want}")
+        shape_fails, res["shape_checks"] = train_shape_checks(
+            torch, counters, cfg, tokens)
+    else:
+        shape_fails, res["shape_checks"] = k1_product_checks(
+            torch, counters, products)
+    fails += [f"product {t}" for t in shape_fails]
+    res["job_s"] = time.perf_counter() - t0
+    log(f"    {arch}: {len(res['shape_checks'])} distinct products checked; "
+        f"job {res['job_s']:.1f} s")
+    if fails:
+        raise AssertionError(f"{arch}: " + "; ".join(fails))
+    return res
+
+
+def harness_plan(torch, counters, card, results) -> list:
+    """The phase's RunSpecs: the probe (``harness_job`` injected at its
+    first attempt), qwen3-4b, mamba2-130m, hymba-1.5b, the job that asks
+    for twice the card's memory, paligemma-3b, whisper-base, and qwen3-4b
+    on ``h100-pod`` (a manifest)."""
+    from repro_torch.core import gemm
+    from repro_torch.harness import TOPOLOGIES, RunSpec
+
+    def probe(device):
+        gen = torch.Generator(device=device).manual_seed(3)
+        a = torch.randn((512, 2048), generator=gen, device=device)
+        b = torch.randn((2048, 2048), generator=gen, device=device) / 45.0
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ok, err = close(gemm.matmul(a, b), (a.float() @ b.float()).to(
+            torch.bfloat16), 2e-2, 1e-3)
+        results["probe"] = dict(max_abs_err=err, ok=ok)
+        if not ok:
+            raise AssertionError(f"probe: max_abs_err {err:.3e}")
+
+    def greedy(device):
+        total = torch.cuda.get_device_properties(0).total_memory
+        results.setdefault("greedy_attempts", 0)
+        results["greedy_attempts"] += 1
+        try:
+            torch.empty(2 * total, dtype=torch.uint8, device=device)
+        finally:
+            torch.cuda.empty_cache()
+
+    def train(config, device):
+        if device != DEVICE:
+            raise AssertionError(f"{config}: device {device!r}")
+        results[config] = train_family(torch, counters, config, card)
+
+    def never():
+        raise AssertionError("a manifest job ran")
+
+    t = dict(timeout_s=HARNESS_JOB_TIMEOUT_S, max_retries=0)
+    archs = dict(enumerate(HARNESS_ARCHS, start=1))
+    return [RunSpec(bench="probe", fn=probe, order=0, max_retries=1),
+            *[RunSpec(bench="train", fn=train, configs=(arch,), order=i, **t)
+              for i, arch in archs.items() if i <= 3],
+            RunSpec(bench="greedy", fn=greedy, order=4, max_retries=2),
+            *[RunSpec(bench="train", fn=train, configs=(arch,), order=i + 1,
+                      **t) for i, arch in archs.items() if i > 3],
+            RunSpec(bench="train", fn=never, configs=("qwen3-4b",), order=8,
+                    topologies=(TOPOLOGIES["h100-pod"],))]
+
+
+# What the plan must report: the probe, five trainings completed (the
+# probe after one retry), the greedy job failed after its two, one
+# manifest.
+HARNESS_COUNTERS = {"jobs": 8, "completed": 6, "failed": 1, "emitted": 1,
+                    "retries": 3, "regression_failures": 0}
+
+
+def harness_report_checks(report) -> list:
+    """The phase's verdicts on ``harness_report.json``: the counters, the
+    exit code (1: the planted failure's), an empty health snapshot, each
+    row's status and class, the manifest's resources. Returns failures."""
+    fails = []
+    if report["counters"] != HARNESS_COUNTERS:
+        fails.append(f"counters {report['counters']}, want {HARNESS_COUNTERS}")
+    if report["exit_code"] != 1 or report["health"]:
+        fails.append(f"exit_code {report['exit_code']}, health "
+                     f"{report['health']}")
+    rows = {j["name"]: j for j in report["jobs"]}
+    want = {"probe": ("completed", 2, None),
+            "greedy": ("failed", 3, "resource"),
+            "train--qwen3-4b--h100-pod": ("emitted", 0, None),
+            **{f"train--{arch}": ("completed", 1, None)
+               for arch in HARNESS_ARCHS}}
+    got = {n: (r["status"], r["attempts"], r["failure_class"])
+           for n, r in rows.items()}
+    if got != want:
+        fails.append(f"jobs {got}, want {want}")
+    pod = rows.get("train--qwen3-4b--h100-pod")
+    if pod is not None:
+        with open(pod["manifest"]) as f:
+            man = json.load(f)
+        limits = man["spec"]["template"]["spec"]["containers"][0][
+            "resources"]["limits"]
+        if limits != {"nvidia.com/gpu": 8} or man["spec"]["parallelism"] != 32:
+            fails.append(f"manifest limits {limits}, parallelism "
+                         f"{man['spec']['parallelism']}")
+    return fails
+
+
+def harness_main() -> int:
+    """Phase 11's process: the plan (``harness_plan``) through
+    ``repro_torch.harness.run_plan`` on ``local-cuda`` with ``harness_job``
+    armed at its first hit (the probe's first attempt), its report read back
+    from ``results/harness/<run-id>/harness_report.json`` and checked
+    (``harness_report_checks``). Prints one line, HARNESS_TAG + a JSON
+    object."""
+    import torch
+    from repro_torch.core import health
+    from repro_torch.harness import expand, run_plan
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.testing import faults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = card_line()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  card {card}: {free / 1e9:.1f} of {total / 1e9:.1f} GB free at the "
+        f"phase's start")
+    counters = Counters(counted_wrappers())
+    results = {}
+    plan = expand(harness_plan(torch, counters, card, results))
+    run_id = time.strftime("smoke-phase11-%Y%m%dT%H%M%S")
+    run_dir = ROOT / "results" / "harness" / run_id
+    with faults.inject("harness_job", nth=1):
+        run_plan(plan, root=run_dir, run_dir=run_dir, run_id=run_id)
+    with open(run_dir / "harness_report.json") as f:
+        on_disk = json.load(f)
+    fails = harness_report_checks(on_disk)
+    for row in on_disk["jobs"]:
+        log(f"  job {row['name']}: {row['status']} ({row['executor']}), "
+            f"attempts {row['attempts']}, retries {row['retries']}, "
+            f"{row['duration_s']:.1f} s"
+            + (f", {row['failure_class']}: {row['detail'][:300]}"
+               if row["failure_class"] else ""))
+    for fail in fails:
+        log(f"  phase 11: {fail}")
+    assert_healthy(health, "phase 11's process")
+    out = dict(report=on_disk, report_path=str(run_dir / "harness_report.json"),
+               families={a: results[a] for a in HARNESS_ARCHS if a in results},
+               probe=results.get("probe"),
+               greedy_attempts=results.get("greedy_attempts"),
+               fails=fails, card=card, process_s=time.perf_counter() - t0)
+    log(HARNESS_TAG + json.dumps(out))
+    return 1 if fails else 0
+
+
+def phase_harness(card) -> dict:
+    """Phase 11 (see HARNESS_TAG's comment), run in a fresh process; fails
+    unless its report and every job's checks hold. Returns the results."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.harness_main())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = run.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(HARNESS_TAG):
+            log(line)
+    tagged = [ln for ln in lines if ln.startswith(HARNESS_TAG)]
+    if run.returncode != 0 or len(tagged) != 1:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 11's process failed (exit "
+                             f"{run.returncode})")
+    res = json.loads(tagged[0][len(HARNESS_TAG):])
+    missing = [a for a in HARNESS_ARCHS if a not in res["families"]]
+    if missing:
+        raise AssertionError(f"phase 11: no results for {missing}")
+    res["phase_s"] = time.perf_counter() - t0
+    res["card"] = card
+    summary = {a: {k: r[k] for k in ("layers", "published_layers", "depth_cut",
+                                     "step_ms", "tokens_per_s", "peak_gb",
+                                     "losses", "job_s")}
+               for a, r in res["families"].items()}
+    log(json.dumps({"harness_training": summary, "counters":
+                    res["report"]["counters"], "phase_s": res["phase_s"],
+                    "card": card}))
+    log(f"  phase 11 took {res['phase_s']:.1f} s")
+    return res
+
+
 # Phase 9: guarded dispatch and the serving launcher. The zero-fault
 # cases and the planted sites run at served shapes: olmo-1b's gate / up
 # projection [2048, 8192] packed (K1) and raw (K7 at decode, K5 + K1 at the
@@ -7865,6 +8314,19 @@ def main(argv) -> int:
     with healthy(health, "phase 10"):
         phase_parallel(card)
 
+    at_phase("phase 11: train qwen3-4b, mamba2-130m, hymba-1.5b, paligemma-3b "
+             "and whisper-base at published widths as jobs of "
+             "repro_torch.harness on local-cuda (with a retried, a failing "
+             "and a manifest job), in its own process")
+    with healthy(health, "phase 11"):
+        harness_res = phase_harness(card)
+    harness_paths = {f"{arch} train (harness)": r["launches"]
+                     for arch, r in harness_res["families"].items()}
+
+    def harness_bodies(kernel):
+        return {f"{arch} train (harness)": r["launches_by_body"][kernel]
+                for arch, r in harness_res["families"].items()}
+
     by_path = {"olmo-1b packed, load": load, "olmo-1b packed": launches,
                "olmo-1b continuous, load": cont_load,
                "olmo-1b continuous": cont_launches,
@@ -7872,7 +8334,7 @@ def main(argv) -> int:
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
                "ops.attention": attn_launches, **quant_paths, **family_paths,
-               "olmo-1b train": train_launched}
+               "olmo-1b train": train_launched, **harness_paths}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -7968,9 +8430,13 @@ def main(argv) -> int:
               "olmo-1b raw": raw_t["k1_launches_by_body"],
               **{f"{arch} packed": r["k1_launches_by_body"]
                  for arch, r in families.items()},
-              "olmo-1b train": train_bodies["gemm_packed_fused_a"]},
+              "olmo-1b train": train_bodies["gemm_packed_fused_a"],
+              **harness_bodies("gemm_packed_fused_a")},
           families=families, families_phase_s=families_s,
           training={k: v for k, v in train_res.items() if k != "history"},
+          harness_training={arch: {k: v for k, v in r.items()
+                                   if k != "shape_checks"}
+                            for arch, r in harness_res["families"].items()},
           work=decode_work, shapes=table, serve=serve_t, card=card)
     entry("gemm_grouped_packed_ragged", "gemm_grouped_packed.cu",
           "src/repro/kernels/gemm_grouped.py:284", ["gemm_grouped_packed_ragged"],
@@ -8017,7 +8483,8 @@ def main(argv) -> int:
               "olmo-1b raw": raw_t["k5_launches_by_body"],
               **{f"{arch} packed, load": r["k5_load_launches_by_body"]["pack_b"]
                  for arch, r in families.items()},
-              "olmo-1b train": train_bodies["pack_b"]},
+              "olmo-1b train": train_bodies["pack_b"],
+              **harness_bodies("pack_b")},
           library=k5_library,
           work="the 112 per-call pack_b of one raw-weight olmo-1b prefill forward "
                "(bf16, bk 128 bn 64, row)",
@@ -8051,7 +8518,8 @@ def main(argv) -> int:
               "strategy sweep": {v: c for v, c in
                                  sweep_variants["gemm_tiled"].items() if c},
               "olmo-1b raw": raw_t["k7_launches_by_body"],
-              "olmo-1b train": train_bodies["gemm_tiled"]},
+              "olmo-1b train": train_bodies["gemm_tiled"],
+              **harness_bodies("gemm_tiled")},
           square_4096=[r for r in layered_rows if r["kernel"] == "gemm_tiled"
                        and r.get("strategy")],
           serve=raw_t, sweep=sweep_rows)
