@@ -325,8 +325,31 @@ Phases (any failure exits non-zero and prints no result line):
      completes) and an ``h100-pod`` job (a manifest: ``nvidia.com/gpu`` 8,
      parallelism 32). The report must read completed 6, failed 1, emitted
      1, retries 3, exit code 1, an empty health snapshot.
+  12. The public GEMM surface, in a process of its own. (a) The grouped
+     facades ``core.grouped_silu_gate`` + ``core.grouped_linear`` (the MoE
+     gate/up pair, then the down projection) at mixtral-8x22b's expert
+     widths (E 8, d_model 6144, d_ff 16384, bf16) on top-2 routing counts
+     of 4 x 128 tokens from a seed (capacity 160 as the MoE layer computes
+     it, expert 0 at count 0): packed stacks with counts (K2 only, on
+     wgmma) and without (K3 only), raw stacks under
+     ``grouped_packed_ragged`` (K5 + K2) and ``grouped_packed`` (K5 + K3),
+     each output within 2e-2 / 1e-3 of the f32 oracle on the same inputs,
+     rows past the counts exactly 0, each call timed (CUDA events) beside
+     its bound on this run's counts. (b) ``core.LayeredGemm`` at olmo-1b's
+     gate / up shape (M 4 and 512, K 2048, N 8192), f32 and bf16, one
+     object per strategy and one with the planner's pick, each called 3
+     times: one plan object throughout, within phase 4's tolerances of
+     the f32 product, launches per strategy (K7; K5 + K6; K5 + K1; K8) and
+     in bf16 on the bodies phase 1 holds at these shapes, each timed. Then
+     the four example entry points as processes of their own on the card,
+     started together: ``examples/torch_quickstart.py``,
+     ``torch_serve_lm.py`` (batched, packed; and a continuous stream of 12
+     requests), ``torch_train_lm.py --steps 4`` and
+     ``torch_gemm_strategies.py --sizes 256,1024,4096``: each must exit 0
+     with every printed error within its gate and the serving runs'
+     health reports empty. The phase's seconds are printed.
   After every phase (and in phases 7 and 8's timing processes and phase
-  11's process) the guarded-dispatch health report must be empty: a
+  11's and 12's processes) the guarded-dispatch health report must be empty: a
   contraction that degraded fails the run, named with its phase. Phase 9
   plants its own faults and clears what it planted. ``REPRO_FAULT=kernel_run:1`` in the
   environment fails the run where the first auto contraction runs (phase
@@ -6214,6 +6237,7 @@ def parallel_main() -> int:
     mesh = DeviceMesh(torch.device(DEVICE).type, torch.arange(1),
                       mesh_dim_names=("model",))
     out["sp_decode"] = sp_decode_checks(torch, coll, mesh)
+    del mesh   # the mesh holds the group: let it end inside destroy
     dist.destroy_process_group()
     assert_healthy(health, "phase 10's process")
     log(PARALLEL_TAG + json.dumps(out))
@@ -6683,6 +6707,395 @@ def phase_harness(card) -> dict:
                     res["report"]["counters"], "phase_s": res["phase_s"],
                     "card": card}))
     log(f"  phase 11 took {res['phase_s']:.1f} s")
+    return res
+
+
+# Phase 12: the public GEMM surface that the served and trained paths do
+# not call by name, in a process of its own. (a) The grouped facades
+# (``core.grouped_silu_gate`` + ``core.grouped_linear``, the MoE gate/up
+# pair then the down projection) at mixtral-8x22b's expert widths in bf16
+# on top-2 routing counts from a seed: packed stacks with counts (K2) and
+# without (K3), raw stacks under ``grouped_packed_ragged`` (K5 + K2) and
+# ``grouped_packed`` (K5 + K3). (b) ``core.LayeredGemm`` at olmo-1b's gate /
+# up shape, one object per strategy, each called LAYERED_CALLS times. Then,
+# from the smoke's process, the four example entry points as processes of
+# their own on the card.
+SURFACE_TAG = "phase 12: "
+SURFACE_TOKENS = 4 * 128             # routed tokens: batch 4 x prompt 128
+SURFACE_SEED = 12
+SURFACE_REPS = 3
+# (label, weight kind, strategy, counts) of each facade run
+SURFACE_CASES = (("packed, counts", "packed", "auto", True),
+                 ("packed, no counts", "packed", "auto", False),
+                 ("raw, grouped_packed_ragged", "raw", "grouped_packed_ragged",
+                  True),
+                 ("raw, grouped_packed", "raw", "grouped_packed", False))
+LAYERED_SHAPES = ((4, 2048, 8192), (512, 2048, 8192))  # olmo-1b's gate / up
+LAYERED_CALLS = 3
+# LayeredGemm's bf16 bodies at olmo-1b's shapes, by strategy and M, as
+# phase 1 holds them for K6 / K7 / K8 and phase 4 for K1 (intrinsic: K7's
+# one block on a TMA body).
+LAYERED_BODIES = {
+    "tiling": {4: "gemm_tiled:tc_stream", 512: "gemm_tiled:wgmma"},
+    "intrinsic": {4: "gemm_tiled:tc_stream", 512: "gemm_tiled:wgmma"},
+    "tiling_packing": {4: "gemm_packed:tc_stream", 512: "gemm_packed:wgmma"},
+    "tiling_packing_fused": {4: "gemm_packed_fused_a:tc_stream",
+                             512: "gemm_packed_fused_a:wgmma"},
+    "vsx": {4: "matmul_vsx_like:fma_stream", 512: "matmul_vsx_like:fma_tiled"}}
+EXAMPLE_TIMEOUT_S = 300
+# name -> argv after the script; the errors each prints, as "max|err| = E
+# (gate G)", must all be within their gates
+EXAMPLES = {
+    "torch_quickstart": [],
+    "torch_serve_lm": ["--arch", "olmo-1b", "--batch", "2", "--new", "4",
+                       "--pack-weights"],
+    "torch_serve_lm --stream --continuous": [
+        "--arch", "olmo-1b", "--batch", "12", "--new", "4", "--pack-weights",
+        "--stream", "--continuous"],
+    "torch_train_lm": ["--steps", "4", "--log-every", "1"],
+    "torch_gemm_strategies": ["--sizes", "256,1024,4096"],
+}
+EXAMPLE_ERRORS = {"torch_quickstart": 12, "torch_gemm_strategies": 3}
+ERR_LINE = r"max\|err\| = ([0-9.e+-]+) \(gate ([0-9.e+-]+)\)"
+
+
+def surface_counts(torch, gen, experts, capacity):
+    """Top-2 routing counts of SURFACE_TOKENS tokens over ``experts``
+    experts from the seeded logits, expert 0's column at -inf so that it
+    gets no token, each count capped at ``capacity`` as the MoE layer drops
+    the tokens past it: [1, E] int32 (one routing group)."""
+    logits = torch.randn((SURFACE_TOKENS, experts), generator=gen,
+                         device=DEVICE)
+    logits[:, 0] = float("-inf")
+    top = torch.topk(logits, 2, dim=-1).indices.flatten()
+    counts = torch.bincount(top, minlength=experts).clamp(max=capacity)
+    return counts.to(torch.int32)[None]
+
+
+def facade_bound_ms(counts, capacity, k, n, streams, packs):
+    """Least time of one facade call on this run's counts: the live
+    experts' stacks (``streams`` of them), the live rows of A read once,
+    the whole [E, C, n] output written once, the products of the live rows
+    only; with ``packs``, K5's read and write of each raw stack before it."""
+    live_rows = int(counts.sum())
+    live = int((counts > 0).sum())
+    e = counts.numel()
+    stack = k * n * 2
+    nbytes = (live * stack * streams + live_rows * k * 2 + e * capacity * n * 2
+              + packs * 2 * e * stack)
+    flops = 2.0 * live_rows * k * n * streams
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def facade_checks(torch, counters, core, ref, cfg) -> dict:
+    """Phase 12 (a): SURFACE_CASES at mixtral-8x22b's expert widths. Every
+    output within 2e-2 / 1e-3 of the f32 oracle on the same inputs (the
+    down projection's on the pair's own output), rows past the counts
+    exactly 0, launches by kernel and body as each case must take them;
+    then each call timed (CUDA events, uncounted)."""
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    c = int(SURFACE_TOKENS * cfg.num_experts_per_tok * cfg.capacity_factor
+            / e)
+    c = max(8, -(-c // 8) * 8)        # the MoE layer's capacity (moe._capacity)
+    gen = torch.Generator(device=DEVICE).manual_seed(SURFACE_SEED)
+    counts = surface_counts(torch, gen, e, c)
+    bf16 = torch.bfloat16
+    x = torch.randn((1, e, c, d), generator=gen, device=DEVICE, dtype=bf16)
+    wg = torch.randn((e, d, f), generator=gen, device=DEVICE, dtype=bf16) * 0.02
+    wu = torch.randn((e, d, f), generator=gen, device=DEVICE, dtype=bf16) * 0.02
+    wo = torch.randn((e, f, d), generator=gen, device=DEVICE, dtype=bf16) * 0.01
+    counters.reset()
+    pg = core.GroupedPackedWeight.pack(wg, n_b_streams=2)
+    pu = core.GroupedPackedWeight.pack(wu, plan=pg.plan)
+    po = core.GroupedPackedWeight.pack(wo)
+    torch.cuda.synchronize()
+    load = counters.read()
+    load_bodies = counters.variants()["pack_b_grouped"]
+    stacks = {"packed": (pg, pu, po), "raw": (wg, wu, wo)}
+    live = torch.arange(c, device=DEVICE)[None, None, :] < counts[..., None]
+
+    def run(kind, strategy, with_counts):
+        g, u, o = stacks[kind]
+        cnt = counts if with_counts else None
+        h = core.grouped_silu_gate(x, g, u, counts=cnt, strategy=strategy)
+        return h, core.grouped_linear(h, o, counts=cnt, strategy=strategy)
+
+    # -- the counted pass ------------------------------------------------------
+    counters.reset()
+    outs, deltas = [], []
+    for label, kind, strategy, with_counts in SURFACE_CASES:
+        before_n, before_v = counters.read(), counters.variants()
+        outs.append(run(kind, strategy, with_counts))
+        after_n, after_v = counters.read(), counters.variants()
+        deltas.append(({k: after_n[k] - before_n[k] for k in after_n
+                        if after_n[k] != before_n[k]},
+                       {k: {b: after_v[k][b] - before_v[k][b]
+                            for b in after_v[k] if after_v[k][b] != before_v[k][b]}
+                        for k in after_v if after_v[k] != before_v[k]}))
+    torch.cuda.synchronize()
+    launches, variants = counters.read(), counters.variants()
+
+    # -- checks ----------------------------------------------------------------
+    fails, rows = [], []
+    x4 = x[0][:, None]                      # [E, S=1, C, K]
+    cnt_t = counts.t().contiguous()         # [E, S=1]
+    full = torch.full_like(cnt_t, c)
+    want_h = {wc: ref.grouped_ragged_ref(x4, wg, cnt_t if wc else full, b2=wu,
+                                         out_dtype=torch.float32)[:, 0][None]
+              for wc in (True, False)}
+    for (label, kind, strategy, wc), (h, y), (dn, dv) in zip(SURFACE_CASES,
+                                                             outs, deltas):
+        kernel = "gemm_grouped_packed_ragged" if wc else "gemm_grouped_packed"
+        want_n = {kernel: 2, **({"pack_b_grouped": 3} if kind == "raw" else {})}
+        want_v = {kernel: {"wgmma": 2},
+                  **({"pack_b_grouped": {"tma_copy": 3}} if kind == "raw"
+                     else {})}
+        want_y = ref.grouped_ragged_ref(h[0][:, None], wo, cnt_t if wc else full,
+                                        out_dtype=torch.float32)[:, 0][None]
+        ok_h, err_h = close(h, want_h[wc], 2e-2, 1e-3)
+        ok_y, err_y = close(y, want_y, 2e-2, 1e-3)
+        zeros = (bool((h[~live.expand_as(h[..., 0])] == 0).all())
+                 and bool((y[~live.expand_as(y[..., 0])] == 0).all())
+                 if wc else None)
+        row = dict(case=label, strategy=strategy, counts=wc, launches=dn,
+                   launches_by_body=dv, want_launches=want_n,
+                   want_launches_by_body=want_v, gate_up_err=err_h,
+                   down_err=err_y, zeros_past_counts=zeros,
+                   shapes=f"x [1, {e}, {c}, {d}] bf16, gate/up [{e}, {d}, {f}], "
+                          f"down [{e}, {f}, {d}]")
+        log(f"  {label}: gate/up err {err_h:.3e}, down err {err_y:.3e} "
+            f"(rtol 2e-2, atol 1e-3), zeros past counts {zeros}, launches "
+            f"{dn} by body {dv}")
+        if not (ok_h and ok_y and zeros in (None, True) and dn == want_n
+                and dv == want_v and h.dtype == y.dtype == bf16):
+            fails.append(row)
+        rows.append(row)
+    del outs
+    torch.cuda.empty_cache()
+
+    # -- times (uncounted) -----------------------------------------------------
+    for row, (label, kind, strategy, wc) in zip(rows, SURFACE_CASES):
+        g, u, o = stacks[kind]
+        cnt = counts if wc else None
+        h = core.grouped_silu_gate(x, g, u, counts=cnt, strategy=strategy)
+        row["gate_up_ms"] = time_ms(lambda i: core.grouped_silu_gate(
+            x, g, u, counts=cnt, strategy=strategy), SURFACE_REPS)
+        row["down_ms"] = time_ms(lambda i: core.grouped_linear(
+            h, o, counts=cnt, strategy=strategy), SURFACE_REPS)
+        live_counts = counts if wc else torch.full_like(counts, c)
+        packs = 1 if kind == "raw" else 0
+        row["gate_up_bound_ms"], row["gate_up_bound_by"] = facade_bound_ms(
+            live_counts, c, d, f, 2, packs)
+        row["down_bound_ms"], row["down_bound_by"] = facade_bound_ms(
+            live_counts, c, f, d, 1, packs)
+        log(f"  {label}: gate/up {row['gate_up_ms']:.3f} ms (bound "
+            f"{row['gate_up_bound_ms']:.3f}, {row['gate_up_bound_by']}), down "
+            f"{row['down_ms']:.3f} ms (bound {row['down_bound_ms']:.3f})")
+    return dict(capacity=c, counts=counts[0].tolist(), load=load,
+                load_bodies=load_bodies, launches=launches, variants=variants,
+                rows=rows, fails=fails)
+
+
+def layered_checks(torch, counters, core) -> dict:
+    """Phase 12 (b): one ``LayeredGemm`` per strategy (and None, the
+    planner's pick) at each of LAYERED_SHAPES in f32 and bf16, each called
+    LAYERED_CALLS times: every output within phase 4's tolerances of the
+    f32 product (1e-4 of max|C| in f32, 1e-2 in bf16), the plan the same
+    object on every call, launches by kernel equal to STRATEGY_LAUNCHES
+    times the calls and, in bf16, on LAYERED_BODIES; then each object's
+    call timed (CUDA events, uncounted)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SURFACE_SEED + 1)
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for m, k, n in LAYERED_SHAPES:
+            a = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
+            b = torch.randn((k, n), generator=gen, device=DEVICE).to(dt)
+            for s in core.STRATEGIES + (None,):
+                cases.append((dt, m, k, n, s, a, b,
+                              core.LayeredGemm(m, k, n, str(dt).replace(
+                                  "torch.", ""), strategy=s)))
+    counters.reset()
+    results = []
+    for dt, m, k, n, s, a, b, lg in cases:
+        plan = lg.plan
+        before_n, before_v = counters.read(), counters.variants()
+        outs = [lg(a, b) for _ in range(LAYERED_CALLS)]
+        after_n, after_v = counters.read(), counters.variants()
+        results.append((outs, lg.plan is plan,
+                        {k_: after_n[k_] - before_n[k_] for k_ in after_n
+                         if after_n[k_] != before_n[k_]},
+                        sorted(f"{k_}:{v}" for k_ in after_v
+                               for v in after_v[k_]
+                               if after_v[k_][v] != before_v[k_][v]
+                               and not k_.startswith("pack"))))
+    torch.cuda.synchronize()
+    launches, variants = counters.read(), counters.variants()
+    rows, fails, want = [], [], {}
+    for (dt, m, k, n, s, a, b, lg), (outs, same_plan, dn, bodies) in zip(
+            cases, results):
+        key = (dt, m)
+        if key not in want:
+            want[key] = torch.matmul(a.float(), b.float())
+        w_ = want[key]
+        # a NaN counts as an infinite error, never as none
+        err = max(float((o.float() - w_).abs().nan_to_num(nan=math.inf).max()
+                        / w_.abs().max()) for o in outs)
+        lim = 1e-4 if dt == torch.float32 else 1e-2
+        want_n = {name: c * LAYERED_CALLS
+                  for name, c in STRATEGY_LAUNCHES.get(lg.strategy, {}).items()}
+        body = LAYERED_BODIES.get(lg.strategy, {}).get(m)
+        ok_body = dt != torch.bfloat16 or body is None or bodies == [body]
+        row = dict(dtype=str(dt).replace("torch.", ""), m=m, k=k, n=n,
+                   asked=s, strategy=lg.strategy, rel_err=err,
+                   same_plan=same_plan, launches=dn, want_launches=want_n,
+                   bodies=bodies)
+        if not (err <= lim and same_plan and dn == want_n and ok_body
+                and all(o.dtype == dt for o in outs)):
+            fails.append(row)
+        rows.append(row)
+    del results
+    for row, (dt, m, k, n, s, a, b, lg) in zip(rows, cases):
+        row["ms"] = time_ms(lambda i: lg(a, b), SURFACE_REPS)
+        log(f"  LayeredGemm {row['dtype']} {m}x{k}x{n} strategy={s} "
+            f"({lg.strategy}): {row['ms']:.3f} ms, rel err "
+            f"{row['rel_err']:.2e}, launches {row['launches']} {row['bodies']}"
+            f", one plan {row['same_plan']}")
+    return dict(launches=launches, variants=variants, rows=rows, fails=fails)
+
+
+def surface_main() -> int:
+    """Phase 12's process: (a) ``facade_checks``, (b) ``layered_checks``.
+    Prints one line, SURFACE_TAG + a JSON object."""
+    import torch
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.core import health
+    from repro_torch.kernels import counted_wrappers
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    counters = Counters(counted_wrappers())
+    facades = facade_checks(torch, counters, core, ref,
+                            get_config("mixtral-8x22b"))
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    layered = layered_checks(torch, counters, core)
+    assert_healthy(health, "phase 12's process")
+    out = dict(facades=facades, layered=layered, facades_s=t1 - t0,
+               layered_s=time.perf_counter() - t1,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(SURFACE_TAG + json.dumps(out))
+    return 1 if facades["fails"] or layered["fails"] else 0
+
+
+def example_runs() -> dict:
+    """The four example entry points on the card, each EXAMPLES run a
+    process of its own, started together (the training example into a
+    checkpoint directory of its own, removed after): each must exit 0, every
+    error it prints must be within its gate, the serving runs' health
+    reports must be empty and the training run's losses finite. Returns
+    each run's seconds, errors and verdict."""
+    import re
+    import shutil
+    import tempfile
+    ckpt = tempfile.mkdtemp(prefix="smoke_phase12_ckpt_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name, argv in EXAMPLES.items():
+            script = ROOT / "examples" / f"{name.split()[0]}.py"
+            extra = ["--ckpt-dir", ckpt] if name == "torch_train_lm" else []
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, str(script), *argv, *extra], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        out = {}
+        for name, (t0, proc) in procs.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            errs = [(float(e), float(g)) for e, g in re.findall(ERR_LINE, stdout)]
+            fails = []
+            if proc.returncode != 0:
+                fails.append(f"exit {proc.returncode}: {stderr[-2000:]}")
+            if any(e > g for e, g in errs):
+                fails.append(f"errors over their gates: {errs}")
+            if len(errs) != EXAMPLE_ERRORS.get(name, 0):
+                fails.append(f"{len(errs)} errors printed, want "
+                             f"{EXAMPLE_ERRORS.get(name, 0)}")
+            if name.startswith("torch_serve_lm") and \
+                    "health_report: {} (healthy" not in stdout:
+                fails.append("health report not empty")
+            losses = [float(v) for v in re.findall(r"loss=([0-9.naif]+)", stdout)]
+            if name == "torch_train_lm" and (
+                    len(losses) != 4 or not all(math.isfinite(v) for v in losses)):
+                fails.append(f"losses {losses}")
+            out[name] = dict(seconds=time.perf_counter() - t0,
+                             rc=proc.returncode, errors=errs, losses=losses,
+                             fails=fails, tail=stdout[-1500:])
+            log(f"  example {name}: exit {proc.returncode}, "
+                f"{out[name]['seconds']:.1f} s, {len(errs)} errors within "
+                f"their gates: {not any(e > g for e, g in errs)}"
+                + (f"; FAILS {fails}" if fails else ""))
+            if name == "torch_gemm_strategies":
+                for line in stdout.splitlines():
+                    log(f"    {line}")
+        return out
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def phase_surface(card) -> dict:
+    """Phase 12 (see SURFACE_TAG's comment): ``surface_main`` in a fresh
+    process, then the examples (``example_runs``); fails unless every check
+    of both holds. Returns the results."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.surface_main())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = run.stdout.splitlines()
+    for line in lines:
+        if not line.startswith(SURFACE_TAG):
+            log(line)
+    tagged = [ln for ln in lines if ln.startswith(SURFACE_TAG)]
+    if len(tagged) != 1:
+        log(run.stderr[-4000:])
+        raise AssertionError(f"phase 12's process failed (exit "
+                             f"{run.returncode})")
+    res = json.loads(tagged[0][len(SURFACE_TAG):])
+    t1 = time.perf_counter()
+    res["examples"] = example_runs()
+    res["examples_s"] = time.perf_counter() - t1
+    res["phase_s"] = time.perf_counter() - t0
+    res["card"] = card
+    summary = dict(
+        facades={r["case"]: {k: r[k] for k in (
+            "gate_up_ms", "down_ms", "gate_up_bound_ms", "down_bound_ms",
+            "gate_up_err", "down_err", "launches", "launches_by_body")}
+            for r in res["facades"]["rows"]},
+        counts=res["facades"]["counts"], capacity=res["facades"]["capacity"],
+        layered=[{k: r[k] for k in ("dtype", "m", "asked", "strategy", "ms",
+                                    "rel_err", "launches", "bodies")}
+                 for r in res["layered"]["rows"]],
+        examples={n: {k: r[k] for k in ("seconds", "rc", "errors", "fails")}
+                  for n, r in res["examples"].items()},
+        process_s=t1 - t0, examples_s=res["examples_s"],
+        phase_s=res["phase_s"], peak_gb=res["peak_gb"], card=card)
+    log(json.dumps({"surface": summary}))
+    log(f"  phase 12 took {res['phase_s']:.1f} s (its process {t1 - t0:.1f} s, "
+        f"the examples {res['examples_s']:.1f} s)")
+    fails = (res["facades"]["fails"] + res["layered"]["fails"]
+             + [(n, r["fails"]) for n, r in res["examples"].items() if r["fails"]])
+    if run.returncode != 0 or fails:
+        raise AssertionError(f"phase 12 (exit {run.returncode}): {fails}")
     return res
 
 
@@ -8323,6 +8736,28 @@ def main(argv) -> int:
     harness_paths = {f"{arch} train (harness)": r["launches"]
                      for arch, r in harness_res["families"].items()}
 
+    at_phase("phase 12: the grouped facades at mixtral-8x22b's expert widths "
+             "(K2 / K3, packed and raw stacks), LayeredGemm by strategy at "
+             "olmo-1b's shapes, in its own process; then the four example "
+             "entry points on the card")
+    with healthy(health, "phase 12"):
+        surface_res = phase_surface(card)
+    surface_paths = {
+        "mixtral-8x22b facades, load": surface_res["facades"]["load"],
+        "mixtral-8x22b facades": surface_res["facades"]["launches"],
+        "LayeredGemm at olmo-1b's shapes": surface_res["layered"]["launches"]}
+
+    def surface_bodies(kernel):
+        """Phase 12's launches of ``kernel`` by body, by path."""
+        out = {}
+        for path, key in (("mixtral-8x22b facades", "facades"),
+                          ("LayeredGemm at olmo-1b's shapes", "layered")):
+            got = {v: c for v, c in
+                   surface_res[key]["variants"].get(kernel, {}).items() if c}
+            if got:
+                out[path] = got
+        return out
+
     def harness_bodies(kernel):
         return {f"{arch} train (harness)": r["launches_by_body"][kernel]
                 for arch, r in harness_res["families"].items()}
@@ -8334,7 +8769,8 @@ def main(argv) -> int:
                "mixtral-8x22b packed": mix_launches,
                "strategy sweep": sweep_launches, "olmo-1b raw": raw_launches,
                "ops.attention": attn_launches, **quant_paths, **family_paths,
-               "olmo-1b train": train_launched, **harness_paths}
+               "olmo-1b train": train_launched, **harness_paths,
+               **surface_paths}
 
     def path_counts(*names):
         counted = {p: sum(c[n] for n in names) for p, c in by_path.items()}
@@ -8558,6 +8994,12 @@ def main(argv) -> int:
                   "per shape",
           work="one ops.attention call at each of A1-A6 (bf16), summed",
           shapes=attn_rows, ops_launches=ops_counts, card=card)
+    for k in kernels:
+        names = ("pack_a", "pack_b") if k["name"] == "pack" else (k["name"],)
+        bodies = {n: surface_bodies(n) for n in names if surface_bodies(n)}
+        if bodies:
+            k["phase12_launches_by_body"] = (bodies if k["name"] == "pack"
+                                             else bodies[k["name"]])
     log(json.dumps({"graphs": graph_summary(
         {"olmo-1b packed": serve_t, "mixtral-8x22b packed": mix_t,
          **quant_cells, "olmo-1b raw": raw_t}, cont_t, families), "card": card}))

@@ -1,4 +1,5 @@
-"""Config registry of the port: ``get_config(arch_id)`` / ``reduced_config``.
+"""Config registry of the port: ``get_config(arch_id)``, ``all_configs()``
+and ``reduced_config``.
 
 The port carries its own copy of every config of the reference, field for
 field, registered in the reference's order (``ARCH_IDS`` is the same list).
@@ -37,6 +38,11 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCH_IDS}")
     return _REGISTRY[arch]
+
+
+def all_configs() -> List[ModelConfig]:
+    """Every registered config, in ``ARCH_IDS`` order."""
+    return list(_REGISTRY.values())
 
 
 def reduced_config(arch: str) -> ModelConfig:

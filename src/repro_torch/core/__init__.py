@@ -3,23 +3,23 @@ Hopper planner (``planner``), the declarative dispatch surface
 (``contraction``, ``epilogue``, ``gemm``), the paper's lowering strategies
 (``strategy``) and load-time-packed weights (``layered``).
 
-The public names below are the reference package's (``repro.core``) where
-the port has them. They resolve on first use: the kernels import the
-format and dtype modules of this package, so importing it must not import
-the dispatch surface (which imports the kernels) eagerly.
+The public names below are all of the reference package's (``repro.core``)
+and ``resolve_grouped_strategy``. They resolve on first use: the kernels
+import the format and dtype modules of this package, so importing it must
+not import the dispatch surface (which imports the kernels) eagerly.
 """
 import importlib
 
 _EXPORTS = {
     "contraction": ("ContractionSpec", "Lowering", "LOWERINGS",
-                    "as_compute_weight", "dispatch", "dispatch_table",
-                    "is_packed", "lowerings_for", "register_lowering",
-                    "weight_kind"),
+                    "as_compute_weight", "default_backend", "dispatch",
+                    "dispatch_table", "is_packed", "lowerings_for",
+                    "register_lowering", "weight_kind"),
     "epilogue": ("EPILOGUE_SPECS", "EpilogueSpec", "as_epilogue_spec"),
-    "gemm": ("contract", "linear", "matmul", "resolve_strategy",
-             "resolve_grouped_strategy", "run_strategy",
-             "run_grouped_strategy"),
-    "layered": ("GroupedPackedWeight", "PackedWeight"),
+    "gemm": ("contract", "grouped_linear", "grouped_silu_gate", "linear",
+             "matmul", "resolve_strategy", "resolve_grouped_strategy",
+             "run_strategy", "run_grouped_strategy"),
+    "layered": ("GroupedPackedWeight", "LayeredGemm", "PackedWeight"),
     "planner": ("GemmPlan", "choose_grouped_strategy", "choose_strategy",
                 "plan_gemm", "plan_grouped_gemm", "should_pack"),
     "strategy": ("GROUPED_STRATEGIES", "STRATEGIES"),

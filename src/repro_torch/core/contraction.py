@@ -74,6 +74,16 @@ REFERENCE_COST = 1e9
 REFERENCE_LOWERINGS: Dict[str, str] = {}
 
 
+def default_backend() -> str:
+    """``"cuda"`` where ``torch.cuda.is_available()``, else ``"cpu"``.
+
+    Informational only: dispatch reads each call's operand device
+    (``on_card``), never this. The reference's ``REPRO_GEMM_BACKEND``
+    override has no counterpart, since no environment variable may move
+    the port's work off the card."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
 def weight_kind(w) -> str:
     """"packed" for load-time-packed weights (they declare it), else "raw"."""
     return getattr(w, "weight_kind", "raw")

@@ -18,6 +18,14 @@ from repro_torch.kernels.common import KERNEL_EPILOGUES
 ACTIVATIONS: Dict[str, Callable] = KERNEL_EPILOGUES
 
 
+def apply_epilogue(name: str, x: torch.Tensor) -> torch.Tensor:
+    """Apply one activation stage by name (gelu is the tanh form, as every
+    kernel's store epilogue computes it)."""
+    if name not in ACTIVATIONS:
+        raise KeyError(f"unknown epilogue {name!r}; one of {list(ACTIVATIONS)}")
+    return ACTIVATIONS[name](x)
+
+
 @dataclasses.dataclass(frozen=True)
 class EpilogueSpec:
     """Declarative store epilogue: ``bias`` consumes a length-N bias,

@@ -1,7 +1,9 @@
 """Public contraction API of the port: :func:`contract` executes a declared
 :class:`ContractionSpec` (validate -> dispatch -> fold -> run -> restore);
 :func:`matmul` (the paper's ``C <- epilogue(alpha * A @ B + beta * C +
-bias)``) and :func:`linear` are the facades that build the specs.
+bias)``), :func:`linear` and the grouped pair :func:`grouped_linear` /
+:func:`grouped_silu_gate` are the facades that build the specs. Unlike
+the reference's, they take no ``backend=``: the operands' device decides.
 
 The dense lowerings are ``packed_weight`` (load-time-packed weights, the
 fused-A kernel K1) and, for raw weights, the strategies of
@@ -189,17 +191,63 @@ def matmul(a: torch.Tensor, b, c: Optional[torch.Tensor] = None, *,
 
 
 def linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
-           strategy: str = "auto", out_dtype=None, accum: str = "native",
+           strategy: str = "auto", plan: Optional[GemmPlan] = None,
+           out_dtype=None, accum: str = "native",
            epilogue="none") -> torch.Tensor:
     """y = epilogue(x @ w + bias) with any leading batch dims on x; ``w`` is
-    a raw [K, N] tensor or a :class:`PackedWeight`."""
+    a raw [K, N] tensor or a :class:`PackedWeight`; ``plan`` overrides the
+    planner's blocks for a raw weight's kernel strategy."""
     k = x.shape[-1]
     n = w.n if ctr.is_packed(w) else w.shape[-1]
     m = x.numel() // max(k, 1)
     spec = ContractionSpec.dense(
         m, k, n, x.dtype, w=w, epilogue=as_epilogue_spec(epilogue),
         bias=bias is not None, out_dtype=out_dtype or x.dtype, accum=accum)
-    return contract(spec, x, w, bias=bias, strategy=strategy)
+    return contract(spec, x, w, bias=bias, strategy=strategy, plan=plan)
+
+
+def grouped_linear(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
+                   counts: Optional[torch.Tensor] = None,
+                   occupancy: Optional[float] = None, strategy: str = "auto",
+                   out_dtype=None, epilogue="none") -> torch.Tensor:
+    """``out[..., e, m, :] = epilogue(x[..., e, m, :] @ w[e] + bias[e])``.
+
+    The grouped :func:`linear`: ``x`` is [*lead, E, M, K] (the leading dims
+    fold into M), ``w`` a raw [E, K, N] stack or a
+    :class:`GroupedPackedWeight`, ``bias`` [E, N]. ``counts`` ([*lead, E],
+    at most M) makes the contraction ragged: rows at or past the count are
+    padding, zero in the output, and a packed stack launches K2 (without
+    counts, K3). ``occupancy`` in (0, 1] is the expected fill, the auto
+    pick's prior."""
+    e, m, k = x.shape[-3:]
+    n = w.n if ctr.is_packed(w) else w.shape[-1]
+    lead = x.numel() // max(e * m * k, 1)
+    spec = ContractionSpec.grouped(
+        e, lead * m, k, n, x.dtype, w=w, epilogue=as_epilogue_spec(epilogue),
+        bias=bias is not None, counts=counts is not None,
+        occupancy=occupancy, out_dtype=out_dtype or x.dtype)
+    return contract(spec, x, w, bias=bias, counts=counts, strategy=strategy)
+
+
+def grouped_silu_gate(x: torch.Tensor, wg, wu, *,
+                      counts: Optional[torch.Tensor] = None,
+                      occupancy: Optional[float] = None, strategy: str = "auto",
+                      out_dtype=None) -> torch.Tensor:
+    """``silu(x @ wg) * (x @ wu)`` per expert, the MoE gate/up pair: one
+    ``silu_gate`` contraction with ``wu`` as the gate-mul partner, so the
+    kernel lowerings read A once for both stacks. ``counts`` and
+    ``occupancy`` as in :func:`grouped_linear`; with counts both products
+    skip the padding rows."""
+    if ctr.is_packed(wg) != ctr.is_packed(wu):
+        raise ValueError("gate/up pair must be both packed or both raw")
+    e, m, k = x.shape[-3:]
+    n = wg.n if ctr.is_packed(wg) else wg.shape[-1]
+    lead = x.numel() // max(e * m * k, 1)
+    spec = ContractionSpec.grouped(
+        e, lead * m, k, n, x.dtype, w=wg,
+        epilogue=as_epilogue_spec("silu_gate"), counts=counts is not None,
+        occupancy=occupancy, out_dtype=out_dtype or x.dtype)
+    return contract(spec, x, wg, w2=wu, counts=counts, strategy=strategy)
 
 
 def resolve_strategy(m: int, k: int, n: int, dtype, strategy: str = "auto",
@@ -227,5 +275,6 @@ run_strategy = _strategy.run
 run_grouped_strategy = _strategy.run_grouped
 
 __all__ = ["contract", "dispatch", "fold_grouped", "linear", "matmul",
-           "resolve_strategy", "resolve_grouped_strategy", "run_strategy",
-           "run_grouped_strategy", "ContractionSpec"]
+           "grouped_linear", "grouped_silu_gate", "resolve_strategy",
+           "resolve_grouped_strategy", "run_strategy", "run_grouped_strategy",
+           "ContractionSpec"]

@@ -1,5 +1,8 @@
-"""PackedWeight / GroupedPackedWeight — weights packed tile-major once, at
-load time.
+"""LayeredGemm, PackedWeight / GroupedPackedWeight — the layered GEMM
+planned once, and weights packed tile-major once, at load time.
+
+:class:`LayeredGemm` is the paper's layered GEMM as one object: the plan is
+solved at construction and every call runs the chosen strategy with it.
 
 Model weights are static across calls, so the paper's B-side packing is
 hoisted out of every matmul and paid once. :meth:`PackedWeight.matmul`
@@ -36,13 +39,52 @@ from repro_torch.core import contraction as ctr
 from repro_torch.core.contraction import ContractionSpec
 from repro_torch.core.dtypes import ROW_ALIGN, dtype_name
 from repro_torch.core.epilogue import as_epilogue_spec
-from repro_torch.core.planner import GemmPlan, plan_gemm, plan_grouped_gemm
+from repro_torch.core.planner import (GemmPlan, choose_strategy, plan_gemm,
+                                      plan_grouped_gemm)
 from repro_torch.core.tile_format import TileFormat, normalize_packed
 from repro_torch.kernels.gemm_grouped import (gemm_grouped_packed,
                                               gemm_grouped_packed_ragged)
 from repro_torch.kernels.gemm_packed import gemm_packed_fused_a
 from repro_torch.kernels.pack import pack_b, pack_b_grouped
 from repro_torch.testing import faults
+
+
+@dataclasses.dataclass
+class LayeredGemm:
+    """Plan once, run many: the layered GEMM for one fixed [M, K] x [K, N]
+    signature. ``__post_init__`` solves the plan (``plan_gemm``) and, where
+    ``strategy`` is None, takes the planner's kernel pick
+    (``planner.choose_strategy``); each call runs ``core.strategy.run``
+    with that plan and the stored epilogue. It runs where its operands lie:
+    the kernels' plain versions on the CPU, the kernels on the card, where
+    a kernel's failure raises. The reference's ``backend`` field has no
+    counterpart."""
+
+    m: int
+    k: int
+    n: int
+    dtype: str = "float32"
+    strategy: Optional[str] = None
+    epilogue: str = "none"
+    plan: Optional[GemmPlan] = None
+
+    def __post_init__(self):
+        self.plan = self.plan or plan_gemm(self.m, self.k, self.n, self.dtype)
+        if self.strategy is None:
+            self.strategy = choose_strategy(self.m, self.k, self.n,
+                                            self.dtype)
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 c: Optional[torch.Tensor] = None, *, alpha: float = 1.0,
+                 beta: float = 0.0, bias: Optional[torch.Tensor] = None,
+                 out_dtype=None) -> torch.Tensor:
+        assert tuple(a.shape) == (self.m, self.k) and \
+            tuple(b.shape) == (self.k, self.n), (
+                tuple(a.shape), tuple(b.shape), (self.m, self.k, self.n))
+        from repro_torch.core import strategy  # strategy imports the kernels
+        return strategy.run(self.strategy, a, b, c, alpha=alpha, beta=beta,
+                            plan=self.plan, out_dtype=out_dtype, bias=bias,
+                            epilogue=self.epilogue)
 
 
 def _parse_quantize(quantize: Optional[str]):

@@ -39,7 +39,8 @@ from repro_torch.kernels.gemm_packed import (_A_DTYPES, _B_DTYPES, _BM_CHOICES,
                                              _DT, _OUT_DTYPES, FMA,
                                              SPLIT_BODIES, TC_BOX, _pick_bn,
                                              pick_variant, tc_stream_split)
-from repro_torch.kernels.ref import grouped_fused_acc_ref, ragged_row_mask
+from repro_torch.kernels.ref import (grouped_fused_acc_ref, ragged_row_mask,
+                                     unpack_b_grouped_ref)
 
 MAX_SEGMENTS = 65535  # the kernel's segment grid axis (gridDim.z)
 
@@ -89,6 +90,18 @@ def _resolve(b_packed, layout_b, b_scales, b2_packed, b2_scales, epilogue,
     return fmt, has_gate
 
 
+def unpack_b_grouped(b_packed: torch.Tensor, k: int, n: int,
+                     layout_b: str = "row",
+                     scales: Optional[torch.Tensor] = None,
+                     fmt: Optional[TileFormat] = None) -> torch.Tensor:
+    """Tile-major [E, Nb, Kb, t0, t1] -> natural [E, K, N], one copy.
+    ``scales`` ([E, Nb, Kb] per tile, [E, Nb] per column) dequantizes each
+    tile first, so the result is float; ``fmt`` is needed for nibble-packed
+    int4 stacks, which widen to int8 before anything else."""
+    return unpack_b_grouped_ref(b_packed, k, n, layout_b, scales=scales,
+                                fmt=fmt)
+
+
 def gemm_grouped_packed_plain(a: torch.Tensor, b_packed: torch.Tensor, n: int,
                               *, b2_packed: Optional[torch.Tensor] = None,
                               bm: int = 64, layout_b: str = "row",
@@ -120,7 +133,8 @@ def gemm_grouped_packed_ragged_plain(a: torch.Tensor, b_packed: torch.Tensor,
                                      **kw) -> torch.Tensor:
     """The plain torch version of K2: K3's plain version on A with the rows
     at or past the (clamped) counts zeroed, and the same rows zeroed in the
-    output [E, S, C, n]."""
+    output [E, S, C, n]. It is the counterpart of the reference's
+    ``gemm_grouped_packed_ragged_jnp``, with the same arguments."""
     e, s, c, k = a.shape
     if tuple(counts.shape) != (e, s):
         raise ValueError(f"counts must be [E, S]={e, s}; got "

@@ -1,5 +1,5 @@
-"""Plain-torch oracles: the plain products, the packers (A, B and grouped
-B), the unpack / dequant / fused-A accumulation / ragged references the GEMM
+"""Plain-torch oracles: the plain products (dense, grouped and the grouped
+silu-gate pair), the packers (A, B and grouped B), the unpack / dequant / fused-A accumulation / ragged references the GEMM
 kernels are held against, and the softmax attention oracle. Buffers and
 scale grids are byte-identical to the JAX package's ``repro.kernels.ref``
 for the same :class:`TileFormat`.
@@ -148,6 +148,25 @@ def fused_packed_acc_ref(a: torch.Tensor, bp: torch.Tensor, n: int,
 # ---------------------------------------------------------------------------
 # Grouped (batched-expert) oracles
 # ---------------------------------------------------------------------------
+
+def grouped_matmul_ref(a: torch.Tensor, b: torch.Tensor,
+                       out_dtype=None) -> torch.Tensor:
+    """The grouped-GEMM oracle: ``out[e] = A[e] @ B[e]`` for a [E, M, K], b
+    [E, K, N], summed in f32, then cast (default A's dtype)."""
+    acc = torch.einsum("emk,ekn->emn", a.to(torch.float32),
+                       b.to(torch.float32))
+    return acc.to(out_dtype or a.dtype)
+
+
+def grouped_silu_gate_ref(a: torch.Tensor, bg: torch.Tensor, bu: torch.Tensor,
+                          out_dtype=None) -> torch.Tensor:
+    """The MoE pair's oracle: ``silu(A @ Bg) * (A @ Bu)`` per expert, both
+    products and the gate in f32, then cast (default A's dtype)."""
+    a32 = a.to(torch.float32)
+    gate = torch.einsum("emk,ekn->emn", a32, bg.to(torch.float32))
+    up = torch.einsum("emk,ekn->emn", a32, bu.to(torch.float32))
+    return (KERNEL_EPILOGUES["silu"](gate) * up).to(out_dtype or a.dtype)
+
 
 def pack_b_grouped_ref(b: torch.Tensor, bk, bn: Optional[int] = None,
                        layout: str = "row"):

@@ -36,6 +36,18 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def cli_device(name: str, prog: str) -> torch.device:
+    """:func:`resolve_device` for a command line: where ``name`` asks for
+    the card and there is none, exit at once, naming the device, instead of
+    running anything on the CPU in its place."""
+    try:
+        return resolve_device(name)
+    except RuntimeError:
+        raise SystemExit(f"{prog}: --device {name} needs a CUDA device and "
+                         f"torch.cuda.is_available() is false; pass --device "
+                         f"cpu to run on the CPU") from None
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig

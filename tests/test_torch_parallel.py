@@ -411,8 +411,14 @@ def _spawn(n, argv, timeout):
     return outs
 
 
+# The mesh holds a reference to the gloo group: it is dropped before the
+# group is destroyed, so that the group and its threads (gloo's loop, the
+# work threads, the store's) end inside ``destroy_process_group``. Left to
+# the interpreter's teardown, their end aborted a rank now and then with
+# "terminate called without an active exception" (exit -6, after every
+# line of the script had run). The script checks that none survives.
 SP4_SCRIPT = textwrap.dedent("""
-    import sys
+    import glob, sys
     import numpy as np, torch, torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.parallel.collectives import sp_decode_attention
@@ -422,7 +428,12 @@ SP4_SCRIPT = textwrap.dedent("""
     t = [torch.from_numpy(args[k]) for k in ("q", "k", "v", "kpos", "qpos")]
     out = sp_decode_attention(*t, mesh=mesh, window=int(sys.argv[2]) or None)
     np.save(sys.argv[3] + f".{dist.get_rank()}.npy", out.numpy())
+    del mesh
     dist.destroy_process_group()
+    names = [open(p).read().strip()
+             for p in glob.glob("/proc/self/task/*/comm")]
+    left = [n for n in names if "gloo" in n or "tcpstore" in n]
+    assert not left, f"threads of the group outlive it: {left}"
 """)
 
 

@@ -161,6 +161,7 @@ SP_CARD_SCRIPT = textwrap.dedent("""
             assert got.dtype == dt and err <= tol, (dt, window, invalid, err)
             if invalid == s:   # every slot masked: the row divides by 1
                 assert float(got.float().abs().max()) == 0.0
+    del mesh   # the mesh holds the group: let it end inside destroy
     dist.destroy_process_group()
     print("sp decode on the card OK")
 """)
